@@ -6,16 +6,30 @@
 Phases, each printing one line (a failed check exits nonzero at once):
 
 1. device: the card, its power limit, and the float32 matmul setting;
-2. build: both CUDA kernels from ``gpvae_tpu_torch/csrc``;
+2. build: the five CUDA sources of ``gpvae_tpu_torch/csrc`` (six kernels),
+   one ``nvcc`` each, all started together;
 3. kernels: each kernel against its plain PyTorch version in float64 on
-   the card, at T in {8, 45, 64}, N in {80, 1024}, masked and unmasked,
-   all six kernel families for ``gram_chol``;
-4. main path: ``train.fit`` of the ``syn_data`` preset at its full widths
-   (B=20, T=45, Z=2, 15 observed dims) on 2,000 toy sequences, with both
-   kernels' launch counters read around it, and the trained model's ELBO
-   and gradients held against the same model on the CPU in float64;
-5. timing: train steps/s, and each kernel against its plain version at
-   the main path's shapes (CUDA events, medians).
+   the card: ``gram_chol`` and ``tri_inv`` at T in {8, 45, 64}, N in
+   {80, 1024}; ``chol_block`` in both modes at T in {64, 100, 128}, N in
+   {128, 1024}, with L^-1, and at a row stride in place; the blocked
+   factorization (``chol_block`` + ``gram_panel`` + ``panel_solve``) at T in
+   {256, 1024}, N in {16, 128}; ``diag_logdet``, and ``tri_inv`` at T in
+   {100, 1024}.  Every L and L^-1 has an exactly zero strict upper
+   triangle;
+4. main paths, each with every kernel counter set to 0 just before it and
+   read just after (and no call of ``torch.linalg.cholesky`` or
+   ``solve_triangular`` in between), and the trained model's ELBO and
+   gradients held against the same model on the CPU in float64 with the
+   same noise:
+   a. ``train.fit`` of ``syn_data`` at its widths (B=20, T=45, Z=2, 15
+      observed dims), 400 steps;
+   b. ``bench_t100`` at its widths (B=32, T=100), 300 steps;
+   c. ``bench_t100`` at T=1024 (the CLI's ``--time-len 1024``), 20 steps;
+   each path's loss must fall on a fixed probe batch;
+5. timing: train steps/s and device µs per step of each path, and each
+   kernel at its main-path shape against its plain version, the one
+   PyTorch call that computes the same function where there is one, and
+   the least time the card could take (CUDA events, medians).
 
 Then one JSON line with the kernels' results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -23,6 +37,7 @@ or without the package beside it, it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -54,9 +69,30 @@ GRAD_REL = 1e-3        # all parameters' gradients as one vector
 # with cond ~ 1e4, which amplifies float32 rounding: the CPU's own float32
 # path misses float64 by 1e-4 to 1.2e-3 on this batch.
 LOG_LS_GRAD_REL = 5e-3
+# T = 1024 (noise 1e-3, cond(K) ~ 2e5): the t1024 row of the same table,
+# KL rel 1.4e-3 and dKL/dlog ls rel 3.1e-3.  Each band of phase 4 is that
+# band or 4x the error of the same model's float32 plain route on the CPU
+# (the library's float32 error on the same batch), whichever is larger.
+KL_REL_TERMS_T1024 = 1.4e-3
+LOG_LS_GRAD_REL_T1024 = 3.1e-3
+ELBO_VS_LIBRARY = 4.0
 
 SYN_B, SYN_T, SYN_Z, SYN_D = 20, 45, 2, 15
 MAIN_STEPS = 400
+BENCH_B, BENCH_T = 32, 100
+BENCH_STEPS = 300
+LONG_T = 1024
+LONG_STEPS = 20
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): float32 outside the
+# tensor cores and HBM3 bandwidth; a bound is the larger of the two times
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# operations counted per gram element built in a kernel (difference,
+# scale, square, exp, variance, noise, two mask products)
+GRAM_OPS = 8
+
+SOURCES = ("gram_chol", "tri_inv", "chol_block", "gram_panel",
+           "diag_logdet")
 
 
 def fail(msg: str) -> None:
@@ -77,18 +113,25 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 200, reps: int = 7) -> float:
+def cuda_ms(fn, budget_ms: float = 60.0, reps: int = 7) -> float:
     """Median over ``reps`` of the mean time of one call of ``fn`` over
-    ``iters`` back-to-back calls, by CUDA events, after a warm-up."""
+    back-to-back calls (as many as fit ``budget_ms``, 3 to 200), by CUDA
+    events, after a warm-up."""
     import torch
 
-    for _ in range(10):
+    for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    stop.synchronize()
+    iters = int(min(200, max(3, budget_ms / max(start.elapsed_time(stop),
+                                                1e-3))))
     times = []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(iters):
             fn()
@@ -99,10 +142,11 @@ def cuda_ms(fn, iters: int = 200, reps: int = 7) -> float:
     return times[len(times) // 2]
 
 
-def device_profile(fn, calls: int = 50) -> tuple[float, float, float]:
-    """``(device µs per call, kernels per call, wall µs per call)`` of
-    ``fn`` under ``torch.profiler``: the summed durations of the kernels
-    it ran on the card (user annotations left out)."""
+def device_profile(fn):
+    """``(device µs, kernels, wall µs, top)`` of one call of ``fn`` under
+    ``torch.profiler``: the summed durations of the kernels it ran on the
+    card (user annotations left out), and the eight kernel names that took
+    most of that time, with their µs."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -112,8 +156,7 @@ def device_profile(fn, calls: int = 50) -> tuple[float, float, float]:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
@@ -122,8 +165,87 @@ def device_profile(fn, calls: int = 50) -> tuple[float, float, float]:
     if not kernels:
         fail("the profiler saw no kernel on the card")
     busy = sum(e.time_range.elapsed_us() for e in kernels)
-    return busy / calls, len(kernels) / calls, wall * 1e6 / calls
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return busy, len(kernels), wall * 1e6, [(n[:80], us) for n, us in top]
 
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take: bytes over its memory rate or
+    float32 operations over its peak rate, whichever is larger."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# -- launch counters ----------------------------------------------------------
+
+def counters():
+    """``{kernel: (module, attribute)}`` of every launch counter."""
+    from gpvae_tpu_torch.ops import (
+        blocked, chol_block, gram_chol, logdet, tri_inv,
+    )
+    return {"gram_chol": (gram_chol, "LAUNCHES"),
+            "tri_inv": (tri_inv, "LAUNCHES"),
+            "chol_block": (chol_block, "LAUNCHES"),
+            "gram_panel": (blocked, "PANEL_LAUNCHES"),
+            "panel_solve": (blocked, "SOLVE_LAUNCHES"),
+            "diag_logdet": (logdet, "LAUNCHES")}
+
+
+def reset_counts() -> None:
+    for module, attr in counters().values():
+        setattr(module, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(module, attr)
+            for name, (module, attr) in counters().items()}
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Every wrapper takes its plain PyTorch version, also on the card:
+    for timing the plain versions of composite functions only."""
+    from gpvae_tpu_torch.ops import dispatch
+
+    real = dispatch.on_cuda
+    dispatch.on_cuda = lambda t: False
+    try:
+        yield
+    finally:
+        dispatch.on_cuda = real
+
+
+@contextlib.contextmanager
+def library_calls():
+    """Counts the calls of ``torch.linalg.cholesky`` and
+    ``torch.linalg.solve_triangular`` made inside the block: the plain
+    versions' factorization and solve, which a path on the kernels never
+    calls."""
+    import torch
+
+    counts = {"cholesky": 0, "solve_triangular": 0}
+    real = {name: getattr(torch.linalg, name) for name in counts}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    for name in counts:
+        setattr(torch.linalg, name, counting(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in real.items():
+            setattr(torch.linalg, name, fn)
+
+
+# -- inputs -------------------------------------------------------------------
 
 def bank_inputs(rng, b, t, z, masked, dev):
     import numpy as np
@@ -144,8 +266,61 @@ def bank_inputs(rng, b, t, z, masked, dev):
             torch.tensor(var, dtype=torch.float32, device=dev))
 
 
+def flat_inputs(rng, n, t, dev, masked=True):
+    """A flat bank ``times, mask [n, t]`` (float mask), ``ls, var [n]``."""
+    from gpvae_tpu_torch.ops import gram_chol
+
+    times, ls, mask, var = bank_inputs(rng, n, t, 1, masked, dev)
+    return gram_chol.flat_bank(times, ls, mask, var)
+
+
+def check_l(name, l, ref, lib) -> tuple[float, float]:
+    """Max abs error of the factor ``l`` against the float64 ``ref`` and
+    its ratio to the library's float32 factor ``lib``; fails outside the
+    band or on a nonzero strict upper triangle."""
+    import torch
+
+    err = (l.double() - ref).abs().max().item()
+    err_lib = (lib.double() - ref).abs().max().item()
+    band = max(L_MAX_ABS, L_VS_LIBRARY * err_lib)
+    if not math.isfinite(err) or err > band:
+        fail(f"{name}: max abs err {err:.3e} > {band:.3e} (library "
+             f"float32: {err_lib:.3e})")
+    if bool((torch.triu(l, 1) != 0).any()):
+        fail(f"{name}: strict upper triangle of L not zero")
+    return err, err / max(err_lib, 1e-30)
+
+
+def check_inverse(name, x, l) -> tuple[float, float]:
+    """Relative Frobenius error of ``x`` against the float64 inverse of
+    the float32 factor ``l`` it inverts: 1e-4, or 4x the library's
+    float32 inverse (``solve_triangular``), whichever is larger."""
+    import torch
+
+    from gpvae_tpu_torch.ops import tri_inv
+
+    ref = tri_inv.tri_inv_plain(l.double())
+    lib = tri_inv.tri_inv_plain(l)
+
+    def rel(a):
+        return (torch.linalg.matrix_norm(a.double() - ref)
+                / torch.linalg.matrix_norm(ref)).max().item()
+
+    err, err_lib = rel(x), rel(lib)
+    band = max(TRI_INV_REL_FRO, L_VS_LIBRARY * err_lib)
+    if not math.isfinite(err) or err > band:
+        fail(f"{name}: rel Frobenius err {err:.3e} > {band:.3e} (library "
+             f"float32: {err_lib:.3e})")
+    if bool((torch.triu(x, 1) != 0).any()):
+        fail(f"{name}: strict upper triangle of L^-1 not zero")
+    return err, (x.double() - ref).abs().max().item()
+
+
+# -- phase 3 ------------------------------------------------------------------
+
 def check_kernels(dev) -> dict:
-    """Phase 3.  Returns the worst error of each kernel."""
+    """Phase 3, the two kernels of the syn_data path.  Returns the worst
+    error of each kernel."""
     import numpy as np
     import torch
 
@@ -170,45 +345,22 @@ def check_kernels(dev) -> dict:
                         kernel=kernel, variance=var.double())
                     lib32 = gram_chol.gram_chol_plain(
                         times, ls, mask=mask, kernel=kernel, variance=var)
-                    torch.cuda.synchronize()
-                    err = (l.double() - ref).abs().max().item()
-                    err_lib = (lib32.double() - ref).abs().max().item()
-                    band = max(L_MAX_ABS, L_VS_LIBRARY * err_lib)
-                    if not math.isfinite(err) or err > band:
-                        fail(f"gram_chol {kernel} T={t} N={n} "
-                             f"masked={masked}: max abs err {err:.3e} > "
-                             f"{band:.3e} (library float32: {err_lib:.3e})")
+                    err, ratio = check_l(
+                        f"gram_chol {kernel} T={t} N={n} masked={masked}",
+                        l, ref, lib32)
                     worst["gram_chol"] = max(worst["gram_chol"], err)
                     worst["gram_chol_vs_library"] = max(
-                        worst["gram_chol_vs_library"],
-                        err / max(err_lib, 1e-30))
+                        worst["gram_chol_vs_library"], ratio)
                     cases += 1
                 # tri_inv on the factor the main path hands it
                 lf = gram_chol.gram_chol_fused(
                     times, ls, mask=mask, variance=var).reshape(-1, t, t)
                 x = tri_inv.tri_inv_cuda(lf.contiguous())
-                xref = tri_inv.tri_inv_plain(lf.double())
-                torch.cuda.synchronize()
-                diff = x.double() - xref
-                rel = (torch.linalg.matrix_norm(diff)
-                       / torch.linalg.matrix_norm(xref)).max().item()
-                if not math.isfinite(rel) or rel > TRI_INV_REL_FRO:
-                    fail(f"tri_inv T={t} N={n} masked={masked}: rel Frobenius"
-                         f" err {rel:.3e} > {TRI_INV_REL_FRO:.0e}")
-                if bool((torch.triu(x, 1) != 0).any()):
-                    fail(f"tri_inv T={t} N={n}: upper triangle not zero")
+                rel, err = check_inverse(f"tri_inv T={t} N={n}", x, lf)
                 worst["tri_inv_rel"] = max(worst["tri_inv_rel"], rel)
-                worst["tri_inv_abs"] = max(worst["tri_inv_abs"],
-                                           diff.abs().max().item())
+                worst["tri_inv_abs"] = max(worst["tri_inv_abs"], err)
                 cases += 1
     # what the kernels refuse, they refuse loudly
-    long_t = torch.zeros((1, 65), device=dev)
-    try:
-        gram_chol.gram_chol_fused(long_t, ls[:1])
-    except NotImplementedError:
-        pass
-    else:
-        fail("gram_chol accepted T=65 on CUDA")
     try:
         tri_inv.tri_inv_cuda(torch.eye(4, dtype=torch.float64,
                                        device=dev)[None])
@@ -220,20 +372,144 @@ def check_kernels(dev) -> dict:
     return worst
 
 
-def elbo_vs_cpu(model, dev) -> dict:
-    """The trained model's ELBO and gradients on a small batch, on the card
-    (kernels, float32) and on the CPU (plain versions, float64), with the
-    same noise."""
+def check_large_t_kernels(dev) -> dict:
+    """Phase 3, the kernels of the large-T path.  Returns the worst error
+    of each kernel."""
     import numpy as np
     import torch
 
+    from gpvae_tpu_torch import kernels as kernels_lib
+    from gpvae_tpu_torch.ops import blocked, chol_block, logdet, tri_inv
+
+    rng = np.random.default_rng(2)
+    worst = {"chol_block": 0.0, "chol_block_vs_library": 0.0,
+             "chol_block_inv_rel": 0.0, "factorization": 0.0,
+             "factorization_vs_library": 0.0, "gram_panel": 0.0,
+             "panel_solve": 0.0, "diag_logdet": 0.0,
+             "tri_inv_large_rel": 0.0, "tri_inv_large_abs": 0.0}
+    cases = 0
+
+    def gram64(times, mask, ls, var):
+        return kernels_lib.gram(times.double(), ls.double()[:, None, None],
+                                variance=var.double()[:, None, None],
+                                mask=mask)
+
+    # chol_block, both modes, with the inverse
+    for t in (64, 100, 128):
+        for n in (128, 1024):
+            times, mask, ls, var = flat_inputs(rng, n, t, dev)
+            k64 = gram64(times, mask, ls, var)
+            ref = torch.linalg.cholesky(k64)
+            lib = torch.linalg.cholesky(k64.float())
+            for mode in ("gram", "prebuilt"):
+                if mode == "gram":
+                    l, x = chol_block.gram_chol_block(times, mask, ls, var,
+                                                      inverse=True)
+                else:
+                    l, x = chol_block.chol_block(k64.float(), inverse=True)
+                name = f"chol_block {mode} T={t} N={n}"
+                err, ratio = check_l(name, l, ref, lib)
+                rel, _ = check_inverse(name, x, l)
+                worst["chol_block"] = max(worst["chol_block"], err)
+                worst["chol_block_vs_library"] = max(
+                    worst["chol_block_vs_library"], ratio)
+                worst["chol_block_inv_rel"] = max(
+                    worst["chol_block_inv_rel"], rel)
+                cases += 1
+    # in place at a row stride, nothing written outside the block
+    times, mask, ls, var = flat_inputs(rng, 64, 128, dev)
+    k64 = gram64(times, mask, ls, var)
+    big = torch.full((64, 200, 200), float("nan"), device=dev)
+    big[:, 40:168, 30:158] = k64.float()
+    d = big[:, 40:168, 30:158]
+    chol_block.chol_block(d, out=d)
+    check_l("chol_block in place", d, torch.linalg.cholesky(k64),
+            torch.linalg.cholesky(k64.float()))
+    outside = big.clone()
+    outside[:, 40:168, 30:158] = float("nan")
+    if not bool(torch.isnan(outside).all()):
+        fail("chol_block in place wrote outside its block")
+    cases += 1
+
+    # the blocked factorization, and each of its kernels on its own
+    for t in (256, LONG_T):
+        for n in (16, 128):
+            times, mask, ls, var = flat_inputs(rng, n, t, dev)
+            l = blocked.cholesky_gram_inplace(times, ls, mask > 0.5, var)
+            k64 = gram64(times, mask, ls, var)
+            ref = torch.linalg.cholesky(k64)
+            err, ratio = check_l(f"factorization T={t} N={n}", l, ref,
+                                 torch.linalg.cholesky(k64.float()))
+            worst["factorization"] = max(worst["factorization"], err)
+            worst["factorization_vs_library"] = max(
+                worst["factorization_vs_library"], ratio)
+            del k64, ref
+            cases += 1
+    # gram_panel and panel_solve at the main path's middle step (T=1024,
+    # o=512) on the factorization's own factor, against their plain versions in
+    # float64 on the same inputs
+    o, w = LONG_T // 2, 128
+    got, ref = l.clone(), l.double()
+    blocked.gram_panel(got, times, mask, ls, var, o, o, w)
+    blocked.gram_panel_plain(ref, times.double(), mask.double(), ls.double(),
+                             var.double(), o, o, w)
+    worst["gram_panel"] = (got.double() - ref).abs().max().item()
+    got, ref = l.clone(), l.double()
+    blocked.panel_solve(got, o, w)
+    blocked.panel_solve_plain(ref, o, w)
+    worst["panel_solve"] = (got.double() - ref).abs().max().item()
+    if not (worst["gram_panel"] <= 1e-4 and worst["panel_solve"] <= 1e-4):
+        fail(f"panel kernels vs plain: gram_panel {worst['gram_panel']:.3e},"
+             f" panel_solve {worst['panel_solve']:.3e} (band 1e-4)")
+    del got, ref
+    cases += 2
+
+    # diag_logdet on the factor, whole and as the KL's strided half
+    lv = l.reshape(64, 2, LONG_T, LONG_T)
+    for view in (l, lv[:, 1:]):
+        got = logdet.logdet_from_chol(view)
+        ref = logdet.diag_logdet_plain(view.double())
+        err = (got.double() - ref).abs().max().item()
+        if not err <= 1e-5 * (1.0 + ref.abs().max().item()):
+            fail(f"diag_logdet: abs err {err:.3e}")
+        worst["diag_logdet"] = max(worst["diag_logdet"], err)
+        cases += 1
+
+    # tri_inv at the two large-T routes: blocked at T=100, flat at 1024
+    for t, n in ((BENCH_T, 64), (LONG_T, 64)):
+        times, mask, ls, var = flat_inputs(rng, n, t, dev)
+        lf = blocked.cholesky_gram_inplace(times, ls, mask > 0.5, var)
+        rel, err = check_inverse(f"tri_inv T={t}", tri_inv.tri_inv(lf), lf)
+        worst["tri_inv_large_rel"] = max(worst["tri_inv_large_rel"], rel)
+        worst["tri_inv_large_abs"] = max(worst["tri_inv_large_abs"], err)
+        cases += 1
+    worst["large_t_cases"] = cases
+    return worst
+
+
+# -- phase 4 ------------------------------------------------------------------
+
+def toy_batch(seed, b, t):
+    import numpy as np
+
     from gpvae_tpu_torch.data import generate_toy_data, toy_to_masked_batch
 
+    return toy_to_masked_batch(generate_toy_data(np.random.default_rng(seed),
+                                                 b, t=t))
+
+
+def elbo_vs_cpu(model, dev, b, t, *, kl_band, log_ls_band) -> dict:
+    """The trained model's ELBO and gradients on a small batch, on the card
+    (kernels, float32) and on the CPU (plain versions, float64), with the
+    same noise.  Each band is the stated one or 4x the error of the same
+    model in float32 on the CPU, whichever is larger."""
+    import numpy as np
+    import torch
+
     rng = np.random.default_rng(7)
-    b = 4
-    batch = toy_to_masked_batch(generate_toy_data(rng, b))
-    eps = rng.standard_normal((1, b, SYN_Z, SYN_T))
-    ref_model = copy.deepcopy(model).to("cpu").double()
+    batch = toy_batch(7, b, t)
+    eps = rng.standard_normal((1, b, SYN_Z, t))
+    cpu = copy.deepcopy(model).to("cpu")
 
     def run(m, device, dtype):
         m.zero_grad(set_to_none=True)
@@ -247,32 +523,281 @@ def elbo_vs_cpu(model, dev) -> dict:
                  for n, p in m.named_parameters()}
         return out, grads
 
+    def errors(out, grads, ref, ref_grads):
+        names = sorted(ref_grads)
+        g = torch.cat([grads[n].reshape(-1) for n in names])
+        g_ref = torch.cat([ref_grads[n].reshape(-1) for n in names])
+        return {
+            "loss_rel": abs(out.loss.item() - ref.loss.item())
+            / abs(ref.loss.item()),
+            "kl_rel_terms": ((out.kl.double().cpu() - ref.kl).abs()
+                             / (t + ref.kl.abs())).max().item(),
+            "grad_rel": (torch.linalg.norm(g - g_ref)
+                         / torch.linalg.norm(g_ref)).item(),
+            "log_ls_grad_rel": (
+                torch.linalg.norm(grads["posterior_log_ls"]
+                                  - ref_grads["posterior_log_ls"])
+                / torch.linalg.norm(ref_grads["posterior_log_ls"])).item(),
+        }
+
     out, grads = run(model, dev, torch.float32)
-    ref, ref_grads = run(ref_model, "cpu", torch.float64)
-    if tuple(out.logits.shape) != (1, b, SYN_T, SYN_D):
+    lib, lib_grads = run(cpu, "cpu", torch.float32)
+    ref, ref_grads = run(cpu.double(), "cpu", torch.float64)
+    if tuple(out.logits.shape) != (1, b, t, SYN_D):
         fail(f"logits shape {tuple(out.logits.shape)}")
-    loss_rel = abs(out.loss.item() - ref.loss.item()) / abs(ref.loss.item())
-    kl_abs = (out.kl.double().cpu() - ref.kl).abs().max().item()
-    kl_band = KL_REL_TERMS * (SYN_T + ref.kl.abs().max().item())
-    names = sorted(ref_grads)
-    g = torch.cat([grads[n].reshape(-1) for n in names])
-    g_ref = torch.cat([ref_grads[n].reshape(-1) for n in names])
-    grad_rel = (torch.linalg.norm(g - g_ref)
-                / torch.linalg.norm(g_ref)).item()
-    ls_rel = (torch.linalg.norm(grads["posterior_log_ls"]
-                                - ref_grads["posterior_log_ls"])
-              / torch.linalg.norm(ref_grads["posterior_log_ls"])).item()
-    if not (loss_rel <= ELBO_LOSS_REL and kl_abs <= kl_band
-            and grad_rel <= GRAD_REL and ls_rel <= LOG_LS_GRAD_REL):
-        fail(f"ELBO on the card vs CPU float64: loss rel {loss_rel:.3e} "
-             f"(<= {ELBO_LOSS_REL:.0e}), kl abs {kl_abs:.3e} "
-             f"(<= {kl_band:.3e}), grad rel {grad_rel:.3e} "
-             f"(<= {GRAD_REL:.0e}), log-lengthscale grad rel {ls_rel:.3e} "
-             f"(<= {LOG_LS_GRAD_REL:.0e})")
+    err = errors(out, grads, ref, ref_grads)
+    err_lib = errors(lib, lib_grads, ref, ref_grads)
+    stated = {"loss_rel": ELBO_LOSS_REL, "kl_rel_terms": kl_band,
+              "grad_rel": GRAD_REL, "log_ls_grad_rel": log_ls_band}
+    bands = {k: max(v, ELBO_VS_LIBRARY * err_lib[k])
+             for k, v in stated.items()}
+    for k, v in err.items():
+        if not (math.isfinite(v) and v <= bands[k]):
+            fail(f"ELBO on the card vs CPU float64 at B={b} T={t}: {k} "
+                 f"{v:.3e} > {bands[k]:.3e} (stated {stated[k]:.1e}, CPU "
+                 f"float32 {err_lib[k]:.3e})")
     model.zero_grad(set_to_none=True)
-    return {"loss_rel": loss_rel, "kl_abs": kl_abs, "kl_band": kl_band,
-            "kl_ref": ref.kl.tolist(), "grad_rel": grad_rel,
-            "log_ls_grad_rel": ls_rel}
+    return {"errors": err, "bands": bands, "cpu_float32_errors": err_lib,
+            "kl_ref": ref.kl.tolist()}
+
+
+def probe_loss(model, probe, eps, beta) -> float:
+    """The training objective (``beta`` as the schedule has it) on a fixed
+    batch with fixed noise, no gradient."""
+    import torch
+
+    with torch.no_grad():
+        return model(probe["x"], probe["times"], probe["mask"], beta=beta,
+                     eps=eps).loss.item()
+
+
+def train_path(dev, preset_name, t, steps, num_seqs):
+    """Train ``preset_name`` at sequence length ``t`` for ``steps`` steps
+    through ``train.fit`` with every counter set to 0 just before and read
+    just after, and check the loss.  Returns the model, the phase fields
+    and a function that trains it further (for timing)."""
+    import torch
+
+    from gpvae_tpu_torch import configs, train as train_lib
+    from gpvae_tpu_torch.data import Batcher
+    from gpvae_tpu_torch.models import GPVAE
+
+    preset = configs.get(preset_name)
+    cfg = dataclasses.replace(preset.model, time_len=t)
+    b = preset.batch_size
+    batcher = Batcher(toy_batch(0, num_seqs, t), b, seed=0)
+    model = GPVAE(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    probe_np = toy_batch(1, 8, t)
+    probe = train_lib.device_arrays(probe_np, dev)
+    eps = torch.randn((1, 8, cfg.latent_dim, t),
+                      generator=torch.Generator().manual_seed(1)).to(dev)
+    beta = preset.train.beta(0)
+    before = probe_loss(model, probe, eps, beta)
+    log_ls0 = model.posterior_log_ls.detach().clone()
+    main_cfg = train_lib.TrainConfig(
+        learning_rate=preset.train.learning_rate, num_steps=steps,
+        beta=preset.train.beta, log_every=max(1, steps // 10))
+    reset_counts()
+    with library_calls() as lib_calls:
+        state, log = train_lib.fit(model, batcher, main_cfg, device=dev,
+                                   verbose=False)
+        torch.cuda.synchronize()
+    launches = read_counts()
+    if any(lib_calls.values()):
+        fail(f"{preset_name} T={t} called the library's factorization or "
+             f"solve: {lib_calls}")
+    after = probe_loss(model, probe, eps, beta)
+    losses = [r["loss"] for r in log.rows]
+    if not all(math.isfinite(v) for v in losses + [after]):
+        fail(f"{preset_name} T={t}: non-finite loss")
+    if not after < before:
+        fail(f"{preset_name} T={t}: probe loss did not fall: {before:.4f} "
+             f"-> {after:.4f}")
+    if not (model.posterior_log_ls.detach() - log_ls0).abs().max() > 0:
+        fail(f"{preset_name} T={t}: posterior_log_ls did not move")
+    if state.step != steps:
+        fail(f"{preset_name} T={t}: trained {state.step} steps")
+    out = {"preset": preset_name, "time_len": t, "batch": b, "steps": steps,
+           "probe_loss_before": before, "probe_loss_after": after,
+           "loss_logged": losses,
+           "lengthscale_posterior": torch.exp(
+               model.posterior_log_ls.detach()).tolist(),
+           "launches": launches, "library_calls": dict(lib_calls)}
+
+    def fit_more(n_steps, log_every):
+        cfg_w = dataclasses.replace(main_cfg, num_steps=state.step + n_steps,
+                                    log_every=log_every)
+        return train_lib.fit(model, batcher, cfg_w, device=dev, state=state,
+                             verbose=False)[1]
+
+    return model, out, fit_more
+
+
+def time_path(fit_more, window, windows=5) -> dict:
+    """Steps/s over ``windows`` fits of ``window`` steps (host clock, each
+    ended by the log point's read of the loss), and the device µs and
+    kernels of one profiled window."""
+    timed = fit_more(window * windows, window)
+    sps = sorted(r["steps_per_sec"] for r in timed.rows)
+    win_us, win_kernels, win_wall_us, top = device_profile(
+        lambda: fit_more(window, window))
+    return {"train_steps_per_s": sps[len(sps) // 2],
+            "train_steps_per_s_windows": sps, "window_steps": window,
+            "device_us_per_step": win_us / window,
+            "kernels_per_step": win_kernels / window,
+            "wall_us_per_step_under_profiler": win_wall_us / window,
+            "device_busy_share": win_us / win_wall_us,
+            "top_kernels_us_per_step": [(n, us / window) for n, us in top]}
+
+
+def main_path(dev, name, t, steps, num_seqs, window, *, kl_band,
+              log_ls_band, needs, absent=()) -> tuple[dict, dict]:
+    """One main path: trained (``train_path``), its ``needs`` kernels
+    launched and its ``absent`` ones not, its ELBO held against the CPU,
+    then timed.  Returns the phase fields and the timing."""
+    model, out, fit_more = train_path(dev, name, t, steps, num_seqs)
+    for kernel in needs:
+        if out["launches"][kernel] < 1:
+            fail(f"{name} T={t} launched the {kernel} kernel "
+                 f"{out['launches'][kernel]} times")
+    for kernel in absent:
+        if out["launches"][kernel]:
+            fail(f"{name} T={t} launched the {kernel} kernel")
+    out["elbo_vs_cpu_fp64"] = elbo_vs_cpu(model, dev, 2, t, kl_band=kl_band,
+                                          log_ls_band=log_ls_band)
+    phase("main_path", **out)
+    return out, time_path(fit_more, window)
+
+
+# -- phase 5 ------------------------------------------------------------------
+
+def time_kernel(name, kernel_fn, plain_fn, library_fn, nbytes, flops,
+                shape) -> dict:
+    ms = cuda_ms(kernel_fn)
+    plain_ms = cuda_ms(plain_fn)
+    library_ms = cuda_ms(library_fn) if library_fn is not None else None
+    b_ms, b_by = bound_ms(nbytes, flops)
+    return {"name": name, "shape": shape, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def time_kernels(dev) -> dict:
+    """Each kernel at its main-path shape: ``syn_data`` for ``gram_chol``
+    and ``tri_inv`` (N=80, T=45), the T=1024 path for the rest (N=128
+    matrices, the KL's N=64 prior half for ``diag_logdet``)."""
+    import numpy as np
+    import torch
+
+    from gpvae_tpu_torch import kernels as kernels_lib
+    from gpvae_tpu_torch.ops import (
+        blocked, chol_block, gram_chol, logdet, tri_inv,
+    )
+
+    rng = np.random.default_rng(1)
+    f = 4  # bytes of a float32
+    res = {}
+    # gram_chol at syn_data's shape
+    times, ls, mask, var = bank_inputs(rng, SYN_B, SYN_T, 2 * SYN_Z, True,
+                                       dev)
+    n, t = SYN_B * 2 * SYN_Z, SYN_T
+    k = kernels_lib.gram_bank(times, ls, mask=mask)
+    res["gram_chol"] = time_kernel(
+        "gram_chol",
+        lambda: gram_chol.gram_chol_fused(times, ls, mask=mask),
+        lambda: gram_chol.gram_chol_plain(times, ls, mask=mask),
+        lambda: torch.linalg.cholesky(k),
+        f * (2 * n * t + 2 * n + n * t * t),
+        n * (t ** 3 / 3 + GRAM_OPS * t * t), f"N={n}, T={t}")
+    lb = gram_chol.gram_chol_fused(times, ls, mask=mask).reshape(
+        -1, t, t).contiguous()
+    eye = torch.eye(t, device=dev).expand_as(lb)
+    res["tri_inv"] = time_kernel(
+        "tri_inv", lambda: tri_inv.tri_inv_cuda(lb),
+        lambda: tri_inv.tri_inv_plain(lb),
+        lambda: torch.linalg.solve_triangular(lb, eye, upper=False),
+        f * 2 * n * t * t, n * t ** 3 / 3, f"N={n}, T={t}")
+
+    # the T=1024 factorization's pieces, N=128, block width 128
+    n, t, nb = BENCH_B * 2 * SYN_Z, LONG_T, blocked.NB
+    times, mask, ls, var = flat_inputs(rng, n, t, dev)
+    l = blocked.cholesky_gram_inplace(times, ls, mask > 0.5, var)
+    k00 = kernels_lib.gram(times[:, :nb], ls[:, None, None],
+                           variance=var[:, None, None], mask=mask[:, :nb])
+    out = torch.empty_like(k00)
+    res["chol_block"] = time_kernel(
+        "chol_block", lambda: chol_block.chol_block(k00, out=out),
+        lambda: chol_block.chol_block_plain(k00, out=out),
+        lambda: torch.linalg.cholesky(k00),
+        f * n * (nb * (nb + 1) / 2 + nb * nb), n * nb ** 3 / 3,
+        f"N={n}, t={nb}, pre-built (each diagonal block of T={t})")
+    o, w = t // 2, nb
+    scratch = l.clone()
+    kp = blocked.gram_tile(times, mask, ls, var, slice(o, t), slice(o, o + w))
+    rows, cols = scratch[:, o:, :o], scratch[:, o:o + w, :o]
+    res["gram_panel"] = time_kernel(
+        "gram_panel",
+        lambda: blocked.gram_panel(scratch, times, mask, ls, var, o, o, w),
+        lambda: blocked.gram_panel_plain(scratch, times, mask, ls, var, o, o,
+                                         w),
+        lambda: torch.baddbmm(kp, rows, cols.mT, alpha=-1.0),
+        f * n * ((t - o) * o + w * o + (t - o) * w + 2 * t),
+        n * (2.0 * (t - o) * w * o + GRAM_OPS * (t - o) * w),
+        f"N={n}, T={t}, block 4 (rows {o}-{t}, history {o})")
+    ld = scratch[:, o:o + w, o:o + w]
+    sub = scratch[:, o + w:, o:o + w]
+    r = t - o - w
+    res["panel_solve"] = time_kernel(
+        "panel_solve", lambda: blocked.panel_solve(scratch, o, w),
+        lambda: blocked.panel_solve_plain(scratch, o, w),
+        lambda: torch.linalg.solve_triangular(ld.mT, sub, upper=True,
+                                              left=False),
+        f * n * (w * (w + 1) / 2 + 2 * r * w + r * w), n * float(r) * w * w,
+        f"N={n}, T={t}, block 4 ({r} rows of {w})")
+    half = l.reshape(BENCH_B, 2 * SYN_Z, t, t)[:, SYN_Z:]
+    res["diag_logdet"] = time_kernel(
+        "diag_logdet", lambda: logdet.diag_logdet_cuda(half),
+        lambda: logdet.diag_logdet_plain(half),
+        lambda: torch.diagonal(half, dim1=-2, dim2=-1).log().sum(-1),
+        f * (BENCH_B * SYN_Z * (t + 1)), 2.0 * BENCH_B * SYN_Z * t,
+        f"[{BENCH_B}, {SYN_Z}, {t}, {t}] (the KL's prior half)")
+    del scratch, rows, cols, ld, sub, kp
+
+    # whole functions of the large-T path: the factorization at T=100 and
+    # 1024, tri_inv at T=100 and 1024 (N=64: the KL's prior half)
+    whole = {}
+    for tt in (BENCH_T, LONG_T):
+        times, mask, ls, var = flat_inputs(rng, n, tt, dev)
+        kk = kernels_lib.gram(times, ls[:, None, None],
+                              variance=var[:, None, None], mask=mask)
+
+        def drive(times=times, mask=mask, ls=ls, var=var):
+            return blocked.cholesky_gram_inplace(times, ls, mask > 0.5, var)
+
+        def drive_plain(drive=drive):
+            with plain_versions():
+                return drive()
+
+        whole[f"factorization_T{tt}"] = time_kernel(
+            "factorization", drive, drive_plain,
+            lambda kk=kk: torch.linalg.cholesky(kk),
+            f * n * (tt * tt + 2 * tt + 2), n * (tt ** 3 / 3
+                                                 + GRAM_OPS * tt * tt),
+            f"N={n}, T={tt}")
+        lf = drive()[: n // 2]
+        eye = torch.eye(tt, device=dev).expand_as(lf)
+
+        def inv_plain(lf=lf):
+            with plain_versions():
+                return tri_inv.tri_inv(lf)
+
+        whole[f"tri_inv_T{tt}"] = time_kernel(
+            "tri_inv", lambda lf=lf: tri_inv.tri_inv(lf), inv_plain,
+            lambda lf=lf, eye=eye: torch.linalg.solve_triangular(
+                lf, eye, upper=False),
+            f * 2 * (n // 2) * tt * tt, (n // 2) * tt ** 3 / 3,
+            f"N={n // 2}, T={tt}")
+        del kk, lf, eye
+    return res, whole
 
 
 def main() -> int:
@@ -294,16 +819,13 @@ def main() -> int:
 
 
 def run(dev) -> int:
-    import numpy as np
     import torch
 
-    from gpvae_tpu_torch import configs, train as train_lib
-    from gpvae_tpu_torch.data import (
-        Batcher, generate_toy_data, toy_to_masked_batch,
+    from gpvae_tpu_torch.ops import (
+        _build, blocked, chol_block, gram_chol, logdet, tri_inv,
     )
-    from gpvae_tpu_torch.models import GPVAE
-    from gpvae_tpu_torch.ops import _build, gram_chol, tri_inv
 
+    t_start = time.perf_counter()
     # -- 1. device -------------------------------------------------------
     smi = nvidia_smi_line()
     if torch.backends.cuda.matmul.allow_tf32:
@@ -315,129 +837,65 @@ def run(dev) -> int:
 
     # -- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    gram_chol.build()
-    tri_inv.build()
+    _build.build_all(SOURCES)
+    for module in (gram_chol, tri_inv, chol_block, blocked, logdet):
+        module.build()
     phase("build", seconds=time.perf_counter() - t0,
           nvcc_seconds=dict(_build.BUILD_SECONDS))
 
     # -- 3. kernels vs plain ---------------------------------------------
     worst = check_kernels(dev)
-    phase("kernels_vs_plain", **worst, gram_chol_band=L_MAX_ABS,
-          tri_inv_band_rel_fro=TRI_INV_REL_FRO)
+    worst_large = check_large_t_kernels(dev)
+    phase("kernels_vs_plain", **worst, **worst_large, l_band=L_MAX_ABS,
+          l_vs_library=L_VS_LIBRARY, tri_inv_band_rel_fro=TRI_INV_REL_FRO)
 
-    # -- 4. main path ----------------------------------------------------
-    preset = configs.get("syn_data")
-    cfg = preset.model
-    if (preset.batch_size, cfg.time_len, cfg.latent_dim, cfg.obs_dim) != (
-            SYN_B, SYN_T, SYN_Z, SYN_D):
-        fail("syn_data preset widths changed")
-    data = toy_to_masked_batch(
-        generate_toy_data(np.random.default_rng(0), 2000))
-    batcher = Batcher(data, preset.batch_size, seed=0)
-    model = GPVAE(cfg, generator=torch.Generator().manual_seed(0))
-    log_ls0 = model.posterior_log_ls.detach().clone()
-    gram_chol.LAUNCHES = 0
-    tri_inv.LAUNCHES = 0
-    head_cfg = train_lib.TrainConfig(
-        learning_rate=preset.train.learning_rate, num_steps=20,
-        beta=preset.train.beta, log_every=1)
-    state, head = train_lib.fit(model, batcher, head_cfg, device=dev,
-                                verbose=False)
-    main_cfg = train_lib.TrainConfig(
-        learning_rate=preset.train.learning_rate, num_steps=MAIN_STEPS,
-        beta=preset.train.beta, log_every=20)
-    state, tail = train_lib.fit(model, batcher, main_cfg, device=dev,
-                                state=state, verbose=False)
-    torch.cuda.synchronize()
-    launches = {"gram_chol": gram_chol.LAUNCHES, "tri_inv": tri_inv.LAUNCHES}
-    first = [r["loss"] for r in head.rows]
-    last = [r["loss"] for r in tail.rows[-5:]]
-    if not all(math.isfinite(v) for v in first + [r["loss"] for r in
-                                                   tail.rows]):
-        fail("non-finite loss in the main path")
-    if not np.mean(last) < np.mean(first):
-        fail(f"loss did not fall: first 20 steps {np.mean(first):.4f}, "
-             f"last logged {np.mean(last):.4f}")
-    moved = (model.posterior_log_ls.detach().cpu() - log_ls0).abs().max()
-    if not moved.item() > 0:
-        fail("posterior_log_ls did not move")
-    if state.step != MAIN_STEPS:
-        fail(f"trained {state.step} steps, expected {MAIN_STEPS}")
-    for name, count in launches.items():
-        if count < 1:
-            fail(f"the main path launched the {name} kernel {count} times")
-    parity = elbo_vs_cpu(model, dev)
-    phase("main_path", preset="syn_data", steps=state.step,
-          batch=preset.batch_size, time_len=SYN_T, latent_dim=SYN_Z,
-          loss_first20=float(np.mean(first)), loss_last=float(np.mean(last)),
-          lengthscale_posterior=torch.exp(
-              model.posterior_log_ls.detach()).tolist(),
-          launches=launches, elbo_vs_cpu_fp64=parity)
+    # -- 4. main paths ---------------------------------------------------
+    paths, timing = {}, {}
+    paths["syn_data"], timing["syn_data"] = main_path(
+        dev, "syn_data", SYN_T, MAIN_STEPS, 2000, 200,
+        kl_band=KL_REL_TERMS, log_ls_band=LOG_LS_GRAD_REL,
+        needs=("gram_chol", "tri_inv"),
+        absent=("chol_block", "gram_panel", "panel_solve", "diag_logdet"))
+    paths["bench_t100"], timing["bench_t100"] = main_path(
+        dev, "bench_t100", BENCH_T, BENCH_STEPS, 2000, 100,
+        kl_band=KL_REL_TERMS, log_ls_band=LOG_LS_GRAD_REL,
+        needs=("chol_block", "tri_inv"))
+    paths["bench_t100_t1024"], timing["bench_t100_t1024"] = main_path(
+        dev, "bench_t100", LONG_T, LONG_STEPS, 256, 5,
+        kl_band=KL_REL_TERMS_T1024, log_ls_band=LOG_LS_GRAD_REL_T1024,
+        needs=("chol_block", "gram_panel", "panel_solve", "diag_logdet",
+               "tri_inv"))
 
-    # -- 5. timing ---------------------------------------------------------
-    timing_cfg = dataclasses.replace(main_cfg, num_steps=MAIN_STEPS + 1200,
-                                     log_every=200)
-    state, timed = train_lib.fit(model, batcher, timing_cfg, device=dev,
-                                 state=state, verbose=False)
-    sps = sorted(r["steps_per_sec"] for r in timed.rows[1:])
-    steps_per_s = sps[len(sps) // 2]
+    # -- 5. timing -------------------------------------------------------
+    per_kernel, whole = time_kernels(dev)
+    phase("timing", paths=timing, kernels=per_kernel, whole_functions=whole,
+          seconds_so_far=time.perf_counter() - t_start)
 
-    rng = np.random.default_rng(1)
-    times, ls, mask, var = bank_inputs(rng, SYN_B, SYN_T, 2 * SYN_Z, True,
-                                       dev)
-    ms, plain_ms = {}, {}
-    bank = gram_chol.gram_chol_fused(times, ls, mask=mask).reshape(
-        -1, SYN_T, SYN_T).contiguous()
-    fns = {"gram_chol": (
-        lambda: gram_chol.gram_chol_fused(times, ls, mask=mask),
-        lambda: gram_chol.gram_chol_plain(times, ls, mask=mask))}
-    for n in (40, 80):
-        lb = bank[:n].contiguous()
-        fns[f"tri_inv_n{n}"] = (lambda lb=lb: tri_inv.tri_inv_cuda(lb),
-                                lambda lb=lb: tri_inv.tri_inv_plain(lb))
-    device_us = {}
-    for name, (kernel_fn, plain_fn) in fns.items():
-        ms[name] = cuda_ms(kernel_fn)
-        plain_ms[name] = cuda_ms(plain_fn)
-        kernel_us, kernel_launches, _ = device_profile(kernel_fn)
-        plain_us, plain_launches, _ = device_profile(plain_fn)
-        device_us[name] = {"kernel": kernel_us, "plain": plain_us,
-                           "plain_kernels_per_call": plain_launches,
-                           "kernel_kernels_per_call": kernel_launches}
-
-    window = 100  # train steps in one profiled fit
-
-    def fit_window():
-        cfg_w = dataclasses.replace(main_cfg, num_steps=state.step + window,
-                                    log_every=window)
-        train_lib.fit(model, batcher, cfg_w, device=dev, state=state,
-                      verbose=False)
-
-    win_us, win_kernels, win_wall_us = device_profile(fit_window, calls=1)
-    phase("timing", train_steps_per_s=steps_per_s,
-          train_steps_per_s_windows=sps, window_steps=200,
-          kernel_ms=ms, plain_ms=plain_ms, device_us=device_us,
-          train_step_profiled={
-              "device_us": win_us / window, "kernels": win_kernels / window,
-              "wall_us_under_profiler": win_wall_us / window,
-              "device_busy_share": win_us / win_wall_us},
-          shapes={"gram_chol": "N=80 (B=20, 2Z=4), T=45, masked",
-                  "tri_inv_n40": "N=40, T=45", "tri_inv_n80": "N=80, T=45"})
-
-    print(json.dumps({"kernels": [
-        {"name": "gram_chol", "route": "cuda",
-         "source": "gpvae_tpu_torch/csrc/gram_chol.cu",
-         "replaces": "gpvae_tpu/ops/pallas_chol.py:673",
-         "launches": launches["gram_chol"],
-         "max_abs_err": worst["gram_chol"],
-         "ms": ms["gram_chol"], "plain_ms": plain_ms["gram_chol"]},
-        {"name": "tri_inv", "route": "cuda",
-         "source": "gpvae_tpu_torch/csrc/tri_inv.cu",
-         "replaces": "gpvae_tpu/ops/pallas_tri.py:39",
-         "launches": launches["tri_inv"],
-         "max_abs_err": worst["tri_inv_abs"],
-         "ms": ms["tri_inv_n80"], "plain_ms": plain_ms["tri_inv_n80"]},
-    ]}), flush=True)
+    errors = {"gram_chol": worst["gram_chol"],
+              "tri_inv": max(worst["tri_inv_abs"],
+                             worst_large["tri_inv_large_abs"]),
+              "chol_block": worst_large["chol_block"],
+              "gram_panel": worst_large["gram_panel"],
+              "panel_solve": worst_large["panel_solve"],
+              "diag_logdet": worst_large["diag_logdet"]}
+    sources = {"gram_chol": ("gram_chol.cu", "pallas_chol.py:673"),
+               "tri_inv": ("tri_inv.cu", "pallas_tri.py:39"),
+               "chol_block": ("chol_block.cu", "pallas_chol.py:198"),
+               "gram_panel": ("gram_panel.cu", "pallas_big.py:556"),
+               "panel_solve": ("gram_panel.cu", "pallas_big.py:1005"),
+               "diag_logdet": ("diag_logdet.cu", "pallas_big.py:237")}
+    lines = []
+    for name, (src, tpu) in sources.items():
+        r = per_kernel[name]
+        lines.append({
+            "name": name, "route": "cuda",
+            "source": f"gpvae_tpu_torch/csrc/{src}",
+            "replaces": f"gpvae_tpu/ops/{tpu}",
+            "launches": sum(p["launches"][name] for p in paths.values()),
+            "max_abs_err": errors[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": lines}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,6 +3,7 @@
     python -m gpvae_tpu_torch list-presets
     python -m gpvae_tpu_torch train --preset syn_data --steps 5000
     python -m gpvae_tpu_torch train --preset syn_data --steps 5 --device cpu
+    python -m gpvae_tpu_torch train --preset bench_t100 --time-len 1024
 
 ``train`` runs on ``cuda`` unless ``--device`` says otherwise, and fails
 when no CUDA device is present.  The data are toy GP draws generated
@@ -40,6 +41,9 @@ def cmd_train(args):
             "no CUDA device: pass --device cpu to train on the CPU"
         )
     preset = configs.get(args.preset)
+    model_cfg = preset.model
+    if args.time_len:
+        model_cfg = dataclasses.replace(model_cfg, time_len=args.time_len)
     train_cfg = preset.train
     overrides = {"seed": args.seed}
     if args.steps:
@@ -51,12 +55,11 @@ def cmd_train(args):
 
     rng = np.random.default_rng(args.seed)
     batch = toy_to_masked_batch(generate_toy_data(
-        rng, args.num_seqs, t=preset.model.time_len,
-        obs_dim=preset.model.obs_dim,
+        rng, args.num_seqs, t=model_cfg.time_len, obs_dim=model_cfg.obs_dim,
     ))
     n_train = int(0.9 * batch["x"].shape[0])
     train = {k: v[:n_train] for k, v in batch.items()}
-    model = GPVAE(preset.model,
+    model = GPVAE(model_cfg,
                   generator=torch.Generator().manual_seed(args.seed))
     state, log = train_lib.fit(
         model, Batcher(train, batch_size, seed=args.seed), train_cfg,
@@ -82,6 +85,8 @@ def main(argv=None):
     t.add_argument("--csv")
     t.add_argument("--batch-size", type=int,
                    help="override the preset's batch size")
+    t.add_argument("--time-len", type=int,
+                   help="override the preset's sequence length T")
     t.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                    "PyTorch versions of the kernels)")

@@ -1,8 +1,10 @@
 """Named experiment presets of the port.
 
-Counterpart of ``gpvae_tpu/configs.py:17-64`` and ``:108-128``: the
-``Preset`` record and the two presets of the main path, ``syn_data`` and
-``syn_data_vm``.  The other presets arrive with their slices (ROADMAP).
+Counterpart of ``gpvae_tpu/configs.py:17-64``, ``:108-128`` and
+``:215-227``: the ``Preset`` record, the two presets of the main path,
+``syn_data`` and ``syn_data_vm``, and ``bench_t100``, which runs the
+large-T covariance path (T=100; the CLI's ``--time-len`` takes it to
+T=1024).  The other presets arrive with their slices (ROADMAP).
 """
 from __future__ import annotations
 
@@ -65,6 +67,20 @@ register(Preset(
     description="VM hyperparameter variant "
     "(src/Models/syndata/GP_VAE_syn_data_VM.py; differs only in the beta "
     "schedule)",
+))
+
+register(Preset(
+    "bench_t100",
+    GPVAEConfig(
+        latent_dim=2, obs_dim=15, time_len=100,
+        prior="gp", posterior="gp",
+        prior_lengthscales=(9.0, 3.0),
+        posterior_lengthscales=(9.0, 3.0),
+        encoder="dense", decoder="dense",
+    ),
+    TrainConfig(num_steps=1000, beta=_TOY_BETA),
+    batch_size=32,
+    description="BASELINE config 1: synthetic T=100 RBF, batch 32",
 ))
 
 

@@ -27,47 +27,14 @@
 
 #include <cuda_runtime.h>
 
+#include "gram.cuh"
+
 namespace {
 
 constexpr int kMaxT = 64;
 constexpr int kPitch = kMaxT + 1;  // row pitch of the shared matrix
 constexpr int kThreads = 256;
 constexpr float kDiagEps = 1e-20f;
-
-// kernel codes, in the order of gpvae_tpu_torch.kernels.KERNEL_CODES
-enum KernelCode : int {
-  kRbf = 0,
-  kMatern12 = 1,
-  kMatern32 = 2,
-  kMatern52 = 3,
-  kCauchy = 4,
-  kCosine = 5,
-};
-
-__device__ __forceinline__ float kernel_value(int code, float dt, float ls) {
-  switch (code) {
-    case kRbf: {
-      const float z = dt / ls;
-      return expf(-0.5f * z * z);
-    }
-    case kMatern12:
-      return expf(-fabsf(dt) / ls);
-    case kMatern32: {
-      const float z = sqrtf(3.0f) * fabsf(dt) / ls;
-      return (1.0f + z) * expf(-z);
-    }
-    case kMatern52: {
-      const float z = sqrtf(5.0f) * fabsf(dt) / ls;
-      return (1.0f + z + z * z / 3.0f) * expf(-z);
-    }
-    case kCauchy: {
-      const float z = dt / ls;
-      return 1.0f / (1.0f + z * z);
-    }
-    default:  // kCosine
-      return cosf(dt / ls);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 gram_chol_kernel(const float* __restrict__ times,
@@ -96,10 +63,9 @@ gram_chol_kernel(const float* __restrict__ times,
     const int i = idx / t;
     const int k = idx - i * t;
     if (k > i) continue;
-    const float eye = (i == k) ? 1.0f : 0.0f;
-    float g = v * kernel_value(code, tt[i] - tt[k], l);
-    g = one_minus_noise * g + noise * eye;
-    a[i * kPitch + k] = g * (mk[i] * mk[k]) + (1.0f - mk[i]) * eye;
+    a[i * kPitch + k] = gpvae::gram_value(code, tt[i], tt[k], mk[i], mk[k],
+                                          l, v, noise, one_minus_noise,
+                                          i == k);
   }
 
   // Column recurrence.  Step j reads column j (final since step j - 1)
@@ -144,7 +110,7 @@ int gpvae_gram_chol_f32(const void* times, const void* mask, const void* ls,
                         const void* var, void* out, int n, int t, int code,
                         float noise, float one_minus_noise, void* stream) {
   if (n <= 0) return 0;
-  if (t < 1 || t > kMaxT || code < kRbf || code > kCosine) {
+  if (t < 1 || t > kMaxT || !gpvae::valid_kernel_code(code)) {
     return (int)cudaErrorInvalidValue;
   }
   gram_chol_kernel<<<n, kThreads, 0, (cudaStream_t)stream>>>(

@@ -1,0 +1,296 @@
+// The two panel kernels of the blocked, left-looking Cholesky with the
+// gram built in-kernel (ops/blocked.py cholesky_gram_inplace).  Block
+// column b starts at column o and is w <= 128 wide; L is [n, T, T] with
+// its rows at stride ld, and every write goes into L in place.
+//
+// gram_panel (K2): for rows r in [r0, T) and columns c in [o, o + w)
+//
+//   L[r, c] = K[r, c] - sum_{k < o} L[r, k] L[c, k]
+//
+// with K built from the time vectors (gram.cuh), so the [n, T, T] gram
+// never exists in device memory.
+//
+// panel_solve (K3): for rows r in [o + w, T), once the diagonal block
+// L_d = L[o:o+w, o:o+w] is factored in place,
+//
+//   L[r, o:o+w] <- L[r, o:o+w] L_d^{-T}
+//
+// by substitution against L_d, and zeros into the mirrored upper tile
+// L[o:o+w, r].
+//
+// Together they replace the TPU kernels pallas_big._make_defer1_kernel
+// (B9, the b = 1 step) and _make_defer_kernel with the gram (B10, b >= 2).
+// The TPU defers each column's product with the block's inverse into the
+// next step's kernel to save a pass over HBM on its in-order grid, and
+// multiplies by an explicit inverse so that its matrix unit does the
+// work.  Here blocks run in parallel and the column is finished in its
+// own step, and it is solved, not multiplied: in float32 the explicit
+// inverse left the factor 3-4x the library's error from the float64
+// factor at T = 256-1024, the substitution 1.5-2x (CPU emulation of both
+// on the same inputs).  The solve multiplies by 1 / L_d[c, c], which may
+// differ from a division in the last bit.
+//
+// What bounds them on Hopper: gram_panel is the factorization's floating
+// point work (n T^3 / 3 over all steps: 46 GFLOP at T = 1024, n = 128), a
+// batched fp32 product with a history depth of up to T - 128.  It is a
+// classic shared-memory SGEMM tile: 64 x 64 outputs per block, depth 16 per
+// stage, 4 x 4 outputs per thread in registers, plain fp32 FMA (no TF32,
+// no tensor cores: the covariance path stays fp32).  panel_solve is
+// serial in the w columns of a row but rows are independent: a block
+// holds L_d (66 KB) in shared memory and 32 rows in registers, eight
+// lanes a row, and the column loop is unrolled so each lane's 16 values
+// stay in registers; a column costs one shuffle and at most 16 FMAs a
+// lane.
+
+#include <cuda_runtime.h>
+
+#include "gram.cuh"
+
+namespace {
+
+// -- gram_panel --------------------------------------------------------------
+
+constexpr int kBM = 64;   // panel rows per block
+constexpr int kBN = 64;   // panel columns per block
+constexpr int kBK = 16;   // history depth per stage
+constexpr int kPanelThreads = 256;
+
+struct PanelParams {
+  float* l;
+  long long l_mat;
+  int ld;
+  const float* times;  // [n, tlen]
+  const float* mask;   // [n, tlen]
+  const float* ls;     // [n]
+  const float* var;    // [n]
+  int tlen;
+  int code;
+  float noise;
+  float one_minus_noise;
+  int r0, o, w, t;
+};
+
+__global__ void __launch_bounds__(kPanelThreads)
+gram_panel_kernel(PanelParams p) {
+  __shared__ __align__(16) float as[kBK][kBM + 4];  // as[k][m] = L[row m, k]
+  __shared__ __align__(16) float bs[kBK][kBN + 4];  // bs[k][c] = L[col c, k]
+  __shared__ float tr[kBM], mr[kBM], tc[kBN], mc[kBN];
+
+  const int n = blockIdx.z;
+  const int row0 = p.r0 + blockIdx.y * kBM;  // first row of the tile
+  const int col0 = blockIdx.x * kBN;         // first panel column (0 .. w)
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;  // columns tx*4 .. tx*4+3
+  const int ty = tid / 16;  // rows ty*4 .. ty*4+3
+  float* lm = p.l + (size_t)n * p.l_mat;
+  const size_t vb = (size_t)n * p.tlen;
+
+  if (tid < kBM) {
+    const int r = row0 + tid;
+    tr[tid] = (r < p.t) ? p.times[vb + r] : 0.0f;
+    mr[tid] = (r < p.t) ? p.mask[vb + r] : 0.0f;
+  } else if (tid < kBM + kBN) {
+    const int c = col0 + tid - kBM;
+    tc[tid - kBM] = (c < p.w) ? p.times[vb + p.o + c] : 0.0f;
+    mc[tid - kBM] = (c < p.w) ? p.mask[vb + p.o + c] : 0.0f;
+  }
+  __syncthreads();  // the time vectors, for the epilogue
+
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < p.o; k0 += kBK) {
+    // 64 x 16 of each operand, four elements a thread, k fastest so a
+    // row's 16 floats are one coalesced read
+    for (int e = tid; e < kBM * kBK; e += kPanelThreads) {
+      const int m = e / kBK;
+      const int kk = e % kBK;
+      const int r = row0 + m;
+      const int k = k0 + kk;
+      as[kk][m] = (r < p.t && k < p.o) ? lm[(size_t)r * p.ld + k] : 0.0f;
+    }
+    for (int e = tid; e < kBN * kBK; e += kPanelThreads) {
+      const int c = e / kBK;
+      const int kk = e % kBK;
+      const int k = k0 + kk;
+      bs[kk][c] = (col0 + c < p.w && k < p.o)
+                      ? lm[(size_t)(p.o + col0 + c) * p.ld + k]
+                      : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 a4 = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
+      const float4 b4 = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+  const float lsn = p.ls[n];
+  const float varn = p.var[n];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = ty * 4 + i;
+    const int r = row0 + m;
+    if (r >= p.t) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx * 4 + j;
+      const int gc = p.o + col0 + c;
+      if (col0 + c >= p.w) continue;
+      const float kv = gpvae::gram_value(p.code, tr[m], tc[c], mr[m], mc[c],
+                                         lsn, varn, p.noise,
+                                         p.one_minus_noise, r == gc);
+      lm[(size_t)r * p.ld + gc] = kv - acc[i][j];
+    }
+  }
+}
+
+// -- panel_solve -------------------------------------------------------------
+
+constexpr int kMaxW = 128;
+constexpr int kDiagPitch = kMaxW + 1;  // L_d rows: column reads conflict-free
+constexpr int kSolveRows = 32;         // panel rows per block
+constexpr int kLanesPerRow = 8;
+constexpr int kPerLane = kMaxW / kLanesPerRow;  // columns a lane owns
+constexpr int kSolveThreads = kSolveRows * kLanesPerRow;
+constexpr size_t kSolveSmem =
+    ((size_t)kMaxW * kDiagPitch + kMaxW) * sizeof(float);
+
+struct SolveParams {
+  float* l;
+  long long l_mat;
+  int ld;
+  int o, w, t;
+};
+
+__global__ void __launch_bounds__(kSolveThreads)
+panel_solve_kernel(SolveParams p) {
+  extern __shared__ float smem[];
+  float* dg = smem;                        // dg[k][c] = L[o + k, o + c]
+  float* rdiag = smem + kMaxW * kDiagPitch;  // 1 / L_d[c, c]
+
+  const int n = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int w = p.w;
+  float* lm = p.l + (size_t)n * p.l_mat;
+  const float* dm = lm + (size_t)p.o * p.ld + p.o;
+
+  for (int e = tid; e < w * w; e += kSolveThreads) {
+    const int k = e / w;
+    const int c = e - k * w;
+    if (c <= k) dg[k * kDiagPitch + c] = dm[(size_t)k * p.ld + c];
+  }
+  for (int c = tid; c < w; c += kSolveThreads) {
+    rdiag[c] = 1.0f / dm[(size_t)c * p.ld + c];
+  }
+
+  // Row r = r0 + m solves x L_d^T = p by substitution, column after
+  // column: x_c = p_c / L_d[c, c], then p_k -= x_c L_d[k, c] for k > c.
+  // Its eight lanes (a warp holds four rows) keep the columns
+  // k = q + 8 s in registers; x_c travels by a shuffle from its owner.
+  const int m = tid / kLanesPerRow;
+  const int q = tid % kLanesPerRow;
+  const int r = p.o + p.w + blockIdx.x * kSolveRows + m;
+  float* lr = lm + (size_t)r * p.ld + p.o;
+  float v[kPerLane];
+#pragma unroll
+  for (int s = 0; s < kPerLane; ++s) {
+    const int k = q + kLanesPerRow * s;
+    v[s] = (r < p.t && k < w) ? lr[k] : 0.0f;
+  }
+  __syncthreads();  // L_d is in shared memory; every row read precedes a write
+
+#pragma unroll
+  for (int cb = 0; cb < kPerLane; ++cb) {
+#pragma unroll
+    for (int qq = 0; qq < kLanesPerRow; ++qq) {
+      const int c = cb * kLanesPerRow + qq;
+      if (c < w) {  // the same for every thread of the block
+        const float x =
+            __shfl_sync(0xffffffffu, v[cb] * rdiag[c], qq, kLanesPerRow);
+        if (q == qq) v[cb] = x;
+#pragma unroll
+        for (int s = cb; s < kPerLane; ++s) {
+          const int k = q + kLanesPerRow * s;
+          if (s > cb || q > qq) {
+            v[s] = fmaf(-x, dg[k * kDiagPitch + c], v[s]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int s = 0; s < kPerLane; ++s) {
+    const int k = q + kLanesPerRow * s;
+    if (r < p.t && k < w) lr[k] = v[s];
+  }
+  // the strictly upper tile that mirrors these rows
+  const int r0 = p.o + p.w + blockIdx.x * kSolveRows;
+  for (int e = tid; e < w * kSolveRows; e += kSolveThreads) {
+    const int c = e / kSolveRows;
+    const int mm = e - c * kSolveRows;
+    if (r0 + mm < p.t) lm[(size_t)(p.o + c) * p.ld + r0 + mm] = 0.0f;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// l: [n, t, t] at matrix stride l_mat, row stride ld; times/mask: [n,
+// tlen]; ls/var: [n]; all float32 on the device.  Writes rows [r0, t) of
+// columns [o, o + w).  Launches on `stream` and returns the cudaError_t
+// of the launch (0 on success).
+int gpvae_gram_panel_f32(void* l, long long l_mat, int ld, const void* times,
+                         const void* mask, const void* ls, const void* var,
+                         int tlen, int code, float noise,
+                         float one_minus_noise, int r0, int o, int w, int t,
+                         int n, void* stream) {
+  if (n <= 0 || r0 >= t) return 0;
+  if (!gpvae::valid_kernel_code(code) || w < 1 || o < 0 || o + w > t ||
+      r0 < o || n > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  PanelParams p = {(float*)l,          l_mat,          ld,
+                   (const float*)times, (const float*)mask,
+                   (const float*)ls,   (const float*)var,
+                   tlen,               code,           noise,
+                   one_minus_noise,    r0,             o,
+                   w,                  t};
+  const dim3 grid((w + kBN - 1) / kBN, (t - r0 + kBM - 1) / kBM, n);
+  gram_panel_kernel<<<grid, kPanelThreads, 0, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// l as above, its diagonal block [o, o + w)^2 holding the factor L_d.
+// Writes rows [o + w, t) of columns [o, o + w) and zeros into rows
+// [o, o + w) of columns [o + w, t).
+int gpvae_panel_solve_f32(void* l, long long l_mat, int ld, int o, int w,
+                          int t, int n, void* stream) {
+  if (n <= 0 || o + w >= t) return 0;
+  if (w < 1 || w > kMaxW || o < 0 || n > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      panel_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSolveSmem);
+  if (e != cudaSuccess) return (int)e;
+  SolveParams p = {(float*)l, l_mat, ld, o, w, t};
+  const dim3 grid((t - o - w + kSolveRows - 1) / kSolveRows, n);
+  panel_solve_kernel<<<grid, kSolveThreads, kSolveSmem,
+                       (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+const char* gpvae_cuda_error_string(int status) {
+  return cudaGetErrorString((cudaError_t)status);
+}
+
+}  // extern "C"

@@ -1,29 +1,60 @@
 """GP machinery of the main path: the differentiable factored gram bank,
 the GP KL on the inverse route, and correlated latent sampling.
 
-Counterpart of four pieces of ``gpvae_tpu/gp.py``: the dense branch of
-``_tri_tri_frob2`` (:71-78), ``chol_gram_bank`` with its custom gradient
-(:139-232), ``gp_kl`` on its inverse route (:270-302) and ``gp_sample``
-(:526-557).  The port has a single route for each: on a CUDA tensor the
-factors come from the ``gram_chol`` kernel and the KL's inverse from the
-``tri_inv`` kernel, on a CPU tensor from their plain versions.
+Counterpart of four pieces of ``gpvae_tpu/gp.py``: ``_tri_tri_frob2``
+(:60-92), ``chol_gram_bank`` with its custom gradient and its two
+forward routes (:108-232), ``gp_kl`` on its inverse route (:270-302) and
+``gp_sample`` (:526-557).  The port has a single route for each: on a
+CUDA tensor the factors come from the hand-written kernels (T <= 64:
+``gram_chol``; larger T: the blocked ``ops.blocked`` factorization) and
+the KL's inverse from ``ops.tri_inv``, on a CPU tensor from their plain
+versions.
 """
 from __future__ import annotations
 
 import torch
 
 from gpvae_tpu_torch import kernels as kernels_lib
+from gpvae_tpu_torch.ops import gram_chol
+from gpvae_tpu_torch.ops.blocked import cholesky_gram_inplace
 from gpvae_tpu_torch.ops.chol import cholesky_bwd_from_l
-from gpvae_tpu_torch.ops.gram_chol import gram_chol_fused
+from gpvae_tpu_torch.ops.gram_chol import flat_bank, gram_chol_fused
 from gpvae_tpu_torch.ops.logdet import logdet_from_chol
 from gpvae_tpu_torch.ops.tri_inv import tri_inv
 
 
 def _tri_tri_frob2(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """``||P Q||_F^2`` over the last two axes (dense product; the blocked
-    form for T % 256 == 0 is part of the large-T path)."""
-    a = p @ q
-    return torch.sum(a * a, dim=(-2, -1))
+    """``||P Q||_F^2`` over the last two axes for lower-triangular P, Q.
+
+    For T % 256 == 0 one level of 2x2 blocking skips the zero blocks: 4
+    half-size matmuls instead of the dense product's 8, the norm summed
+    per block (``gp.py:60-92``).
+    """
+    t = p.shape[-1]
+    if t % 256 != 0:
+        a = p @ q
+        return torch.sum(a * a, dim=(-2, -1))
+    h = t // 2
+    p11, p21, p22 = p[..., :h, :h], p[..., h:, :h], p[..., h:, h:]
+    q11, q21, q22 = q[..., :h, :h], q[..., h:, :h], q[..., h:, h:]
+    a11 = p11 @ q11
+    a21 = p21 @ q11 + p22 @ q21
+    a22 = p22 @ q22
+    return (torch.sum(a11 * a11, dim=(-2, -1))
+            + torch.sum(a21 * a21, dim=(-2, -1))
+            + torch.sum(a22 * a22, dim=(-2, -1)))
+
+
+def _gram_chol_blocked(times, lengthscales, mask, variance, kernel, noise):
+    """Large-T route (``gp.py:108-136``): the bank flattened to N = B*Z
+    matrices, matrix index ``b * Z + z``, and factored by the blocked
+    in-place factorization with the gram built in-kernel."""
+    b, t = times.shape
+    z = lengthscales.shape[-1]
+    tt, mk, ls, var = flat_bank(times, lengthscales, mask, variance,
+                                dtype=times.dtype)
+    l = cholesky_gram_inplace(tt, ls, mk, var, kernel=kernel, noise=noise)
+    return l.reshape(b, z, t, t)
 
 
 # ---------------------------------------------------------------------------
@@ -31,15 +62,22 @@ def _tri_tri_frob2(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class _CholGramBank(torch.autograd.Function):
-    """Forward: the fused gram + Cholesky.  Backward (``gp.py:158-183``):
-    ``K_bar`` from :func:`cholesky_bwd_from_l`, then the pullback of the
-    gram construction to ``lengthscales`` and ``variance``.  The times get
-    no gradient: they are data in every model of the package."""
+    """Forward: the fused gram + Cholesky (``gp.py:139-148``: one kernel
+    for T <= 64, the blocked factorization above).  Backward
+    (``gp.py:158-183``): ``K_bar`` from :func:`cholesky_bwd_from_l`, then
+    the pullback of the gram construction to ``lengthscales`` and
+    ``variance``.  The times get no gradient: they are data in every model
+    of the package."""
 
     @staticmethod
     def forward(ctx, times, lengthscales, mask, variance, kernel, noise):
-        l = gram_chol_fused(times, lengthscales, mask=mask, kernel=kernel,
-                            noise=noise, variance=variance)
+        if times.shape[-1] <= gram_chol.MAX_T:
+            l = gram_chol_fused(times, lengthscales, mask=mask,
+                                kernel=kernel, noise=noise,
+                                variance=variance)
+        else:
+            l = _gram_chol_blocked(times, lengthscales, mask, variance,
+                                   kernel, noise)
         ctx.save_for_backward(times, lengthscales, mask, variance, l)
         ctx.kernel, ctx.noise = kernel, noise
         return l
@@ -71,9 +109,9 @@ def chol_gram_bank(
     """Cholesky factors ``L [B, Z, T, T]`` of the per-latent gram bank,
     differentiable with respect to ``lengthscales`` and ``variance``.
 
-    On a CUDA tensor the gram is built and factored inside one kernel
-    (T <= 64; larger T raises, ROADMAP slice 2).  ``diff_times=True``
-    (a times gradient) is not ported yet.
+    On a CUDA tensor the gram is built inside the kernels that factor it
+    and never reaches device memory.  ``diff_times=True`` (a times
+    gradient) is not ported yet.
     """
     if diff_times:
         raise NotImplementedError(

@@ -62,7 +62,7 @@ KERNELS: dict[str, KernelFn] = {
     "cosine": cosine,
 }
 
-# integer code of each kernel family in csrc/gram_chol.cu (enum KernelCode)
+# integer code of each kernel family in csrc/gram.cuh (enum KernelCode)
 KERNEL_CODES: dict[str, int] = {name: i for i, name in enumerate(KERNELS)}
 
 

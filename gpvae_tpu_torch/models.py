@@ -9,8 +9,9 @@ raise ``NotImplementedError`` naming their ROADMAP slice.
 
 One step of the main path: encode the means, factor ONE stacked 2Z-wide
 gram bank (posterior and prior lengthscales side by side) with the fused
-``gram_chol`` kernel, draw ``z = mu + L_q eps``, take the KL from one
-``tri_inv`` of ``L_p``, decode and take the Bernoulli NLL.
+``gram_chol`` kernel (T <= 64) or the blocked large-T factorization, draw
+``z = mu + L_q eps``, take the KL from one ``tri_inv`` of ``L_p``, decode
+and take the Bernoulli NLL.
 """
 from __future__ import annotations
 

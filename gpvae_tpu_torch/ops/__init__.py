@@ -1,19 +1,27 @@
 """Linear-algebra ops of the covariance path, each with its CUDA kernel.
 
 * :mod:`.gram_chol` -- ``gram_chol_fused``: gram bank + Cholesky in one
-  kernel (``csrc/gram_chol.cu``),
+  kernel, T <= 64 (``csrc/gram_chol.cu``),
+* :mod:`.chol_block` -- the factor (and inverse) of SPD blocks of side
+  <= 128, pre-built or built from the time vectors (``csrc/chol_block.cu``),
+* :mod:`.blocked` -- ``cholesky_gram_inplace``: the blocked large-T
+  factorization with in-kernel gram tiles (``csrc/gram_panel.cu`` and
+  ``chol_block``),
 * :mod:`.tri_inv` -- ``tri_inv``: batched lower-triangular inverse
-  (``csrc/tri_inv.cu``), differentiable,
-* :mod:`.chol` -- ``cholesky_bwd_from_l``: Cholesky reverse mode on the
-  inverse route,
+  (``csrc/tri_inv.cu`` at the base, matmul merges above), differentiable,
+* :mod:`.chol` -- wide diagonal blocks, and ``cholesky_bwd_from_l``: the
+  Cholesky reverse mode on the inverse route,
 * :mod:`.logdet` -- ``logdet_from_chol``: logdet from the factor's
-  diagonal.
+  diagonal (``csrc/diag_logdet.cu`` for large factors).
 
 A CUDA tensor goes to the kernel, a CPU tensor to the plain PyTorch
 version beside it (:mod:`.dispatch`).  The submodules keep their names
 here: ``ops.tri_inv`` is the module, whose ``LAUNCHES`` counter a run
 reads.
 """
-from gpvae_tpu_torch.ops import chol, dispatch, gram_chol, logdet, tri_inv
+from gpvae_tpu_torch.ops import (
+    blocked, chol, chol_block, dispatch, gram_chol, logdet, tri_inv,
+)
 
-__all__ = ["chol", "dispatch", "gram_chol", "logdet", "tri_inv"]
+__all__ = ["blocked", "chol", "chol_block", "dispatch", "gram_chol",
+           "logdet", "tri_inv"]

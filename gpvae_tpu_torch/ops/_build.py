@@ -2,15 +2,17 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use into ``_build/<name>-<hash>.so`` beside the package, keyed by a hash of
-its source and the compiler flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  The library is bound with ``ctypes``:
-no PyTorch headers are compiled, which keeps a build to seconds.
+its source, the shared headers ``csrc/*.cuh`` and the compiler flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is.  The
+library is bound with ``ctypes``: no PyTorch headers are compiled, which
+keeps a build to seconds.
 
 The compiler is ``$CUDA_HOME/bin/nvcc`` when ``CUDA_HOME`` is set, else the
 ``nvcc`` on ``PATH``, else the toolkit's default install location.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -49,7 +51,11 @@ def nvcc_path() -> str:
 
 
 def _digest(source: Path) -> str:
+    """Hash of the source, the shared headers it may include, and the
+    flags."""
     h = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -77,6 +83,14 @@ def build(name: str) -> Path:
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     BUILD_SECONDS[name] = time.perf_counter() - t0
     return out
+
+
+def build_all(names) -> None:
+    """Compile the named sources side by side, one ``nvcc`` each, all
+    started together; raises the first failure."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        for fut in [pool.submit(build, name) for name in names]:
+            fut.result()
 
 
 def load(name: str, entry_points: dict[str, list]) -> ctypes.CDLL:

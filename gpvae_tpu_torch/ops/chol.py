@@ -1,18 +1,63 @@
-"""Cholesky reverse mode from the factor, on the inverse route.
+"""Cholesky of diagonal blocks, and the Cholesky reverse mode from the
+factor on the inverse route.
 
-Counterpart of ``gpvae_tpu/ops/chol.py:492-496`` (``_phi``), the dense
-branch of ``_tri_sandwich`` (``chol.py:536-543``) and
-``cholesky_bwd_from_l`` (``chol.py:581-602``).  The port has one route,
-the one the JAX package takes on a TPU: a single triangular inverse
-``X = L^{-1}`` (``ops.tri_inv``, the CUDA kernel on a CUDA tensor), then
-``K_bar = X^T w X`` by matmuls.  The blocked ``T % 256 == 0`` branches
-belong to the large-T path (ROADMAP slice 2).
+Counterpart of ``gpvae_tpu/ops/chol.py``:
+
+* ``chol_and_inv`` :75 and ``chol_wide`` :181 -- the factor (and inverse)
+  of a batch of pre-built blocks.  Up to 128 wide it is one launch of
+  ``ops.chol_block``; wider blocks take the JAX package's 2x2 recursion
+  with matmul glue, on 128-wide bases instead of its 64-wide lane
+  kernels.  (The half-block "parts" forms ``chol_inv_parts`` :128 and
+  ``chol_parts`` :162 are not ported: they exist to keep TPU diagonal
+  blocks out of HBM between kernels, and ``chol_block`` writes whole
+  blocks in place.)
+* ``_phi`` :492, ``_phi_w_blocks`` :497, ``_tri_sandwich`` and
+  ``_tri_sandwich_blocks`` :526-578, and ``cholesky_bwd_from_l`` :581-602
+  on the route the JAX package takes on a TPU: one triangular inverse
+  ``X = L^{-1}`` (``ops.tri_inv``), then ``K_bar = X^T w X`` by matmuls,
+  in 2x2 blocks that skip the structural zeros when T % 256 == 0.
 """
 from __future__ import annotations
 
 import torch
 
+from gpvae_tpu_torch.ops import chol_block
 from gpvae_tpu_torch.ops.tri_inv import tri_inv
+
+
+def _assemble(a11, a21, a22):
+    """``[[a11, 0], [a21, a22]]`` of square halves."""
+    zero = torch.zeros_like(a11)
+    return torch.cat([torch.cat([a11, zero], dim=-1),
+                      torch.cat([a21, a22], dim=-1)], dim=-2)
+
+
+def chol_and_inv(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(L, L^{-1})`` of the SPD blocks ``d [N, nb, nb]``; nb <= 128, or
+    a power-of-two multiple of 128 (``chol.py:75-125``):
+    ``L = [[L11, 0], [A21, L22]]``, ``A21 = D21 L11^{-T}``,
+    ``L^{-1}_21 = -L22^{-1} A21 L11^{-1}``."""
+    nb = d.shape[-1]
+    if nb <= chol_block.MAX_T:
+        return chol_block.chol_block(d, inverse=True)
+    h = nb // 2
+    l11, i11 = chol_and_inv(d[:, :h, :h])
+    a21 = d[:, h:, :h] @ i11.mT
+    l22, i22 = chol_and_inv(d[:, h:, h:] - a21 @ a21.mT)
+    return (_assemble(l11, a21, l22),
+            _assemble(i11, -((i22 @ a21) @ i11), i22))
+
+
+def chol_wide(d: torch.Tensor) -> torch.Tensor:
+    """``L`` of :func:`chol_and_inv` without the inverse of the trailing
+    half (``chol.py:181-208``)."""
+    nb = d.shape[-1]
+    if nb <= chol_block.MAX_T:
+        return chol_block.chol_block(d)[0]
+    h = nb // 2
+    l11, i11 = chol_and_inv(d[:, :h, :h])
+    a21 = d[:, h:, :h] @ i11.mT
+    return _assemble(l11, a21, chol_wide(d[:, h:, h:] - a21 @ a21.mT))
 
 
 def _phi(m: torch.Tensor) -> torch.Tensor:
@@ -20,9 +65,43 @@ def _phi(m: torch.Tensor) -> torch.Tensor:
     return torch.tril(m) - 0.5 * torch.tril(torch.triu(m))
 
 
+def _phi_w_blocks(l: torch.Tensor, l_bar: torch.Tensor):
+    """2x2 blocks ``(w11, w21, w22)`` of ``w = sym(phi(L^T L_bar))``: the
+    (1,2) block of the product is never needed, so 4 half-size matmuls
+    instead of 8 (``chol.py:497-523``; T % 256 == 0)."""
+    h = l.shape[-1] // 2
+    l11, l21, l22 = l[..., :h, :h], l[..., h:, :h], l[..., h:, h:]
+    b11, b21, b22 = l_bar[..., :h, :h], l_bar[..., h:, :h], l_bar[..., h:, h:]
+    p11 = _phi(l11.mT @ b11 + l21.mT @ b21)
+    p22 = _phi(l22.mT @ b22)
+    return (0.5 * (p11 + p11.mT), 0.5 * (l22.mT @ b21),
+            0.5 * (p22 + p22.mT))
+
+
 def _tri_sandwich(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``X^T w X`` for lower-triangular ``x`` and symmetric ``w``."""
-    return x.transpose(-1, -2) @ w @ x
+    """``X^T w X`` for lower-triangular ``x`` and symmetric ``w`` (the
+    dense product; T % 256 == 0 takes :func:`_tri_sandwich_blocks`)."""
+    return x.mT @ w @ x
+
+
+def _tri_sandwich_blocks(x, w11, w21, w22) -> torch.Tensor:
+    """:func:`_tri_sandwich` with ``w`` as its (11, 21, 22) blocks: 11
+    half-size matmuls instead of 16, the structural zeros of ``x`` and the
+    upper half of the symmetric result skipped (``chol.py:549-578``)."""
+    h = x.shape[-1] // 2
+    x11, x21, x22 = x[..., :h, :h], x[..., h:, :h], x[..., h:, h:]
+    w12 = w21.mT
+    t11 = x11.mT @ w11 + x21.mT @ w21
+    t12 = x11.mT @ w12 + x21.mT @ w22
+    t21 = x22.mT @ w21
+    t22 = x22.mT @ w22
+    k11 = t11 @ x11 + t12 @ x21
+    k21 = t21 @ x11 + t22 @ x21
+    k22 = t22 @ x22
+    k11 = 0.5 * (k11 + k11.mT)
+    k22 = 0.5 * (k22 + k22.mT)
+    return torch.cat([torch.cat([k11, k21.mT], dim=-1),
+                      torch.cat([k21, k22], dim=-1)], dim=-2)
 
 
 def cholesky_bwd_from_l(l: torch.Tensor, l_bar: torch.Tensor) -> torch.Tensor:
@@ -32,5 +111,7 @@ def cholesky_bwd_from_l(l: torch.Tensor, l_bar: torch.Tensor) -> torch.Tensor:
     convention of ``jnp.linalg.cholesky`` and ``torch.linalg.cholesky``).
     """
     x = tri_inv(l)
-    p = _phi(l.transpose(-1, -2) @ l_bar)
-    return _tri_sandwich(x, 0.5 * (p + p.transpose(-1, -2)))
+    if l.shape[-1] % 256 == 0:
+        return _tri_sandwich_blocks(x, *_phi_w_blocks(l, l_bar))
+    p = _phi(l.mT @ l_bar)
+    return _tri_sandwich(x, 0.5 * (p + p.mT))

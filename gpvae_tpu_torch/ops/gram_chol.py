@@ -54,14 +54,14 @@ def gram_chol_plain(
     return torch.linalg.cholesky(k)
 
 
-def flat_bank(times, lengthscales, mask, variance):
+def flat_bank(times, lengthscales, mask, variance, dtype=torch.float32):
     """Broadcast the arguments onto the flat bank (``pallas_chol.py:
-    747-762``): ``times, mask [N, T]`` and ``ls, var [N]`` in float32,
+    747-762``): ``times, mask [N, T]`` and ``ls, var [N]`` in ``dtype``,
     contiguous, with ``N = B * Z`` and matrix index ``b * Z + z``."""
     b, t = times.shape
     z = lengthscales.shape[-1]
     n = b * z
-    f32 = torch.float32
+    f32 = dtype
     tt = times.to(f32)[:, None, :].expand(b, z, t).reshape(n, t)
     if lengthscales.dim() == 1:
         ls = lengthscales.to(f32)[None, :].expand(b, z).reshape(n)
@@ -99,7 +99,8 @@ def gram_chol_cuda(times, mask, ls, var, *, kernel: str = "rbf",
     if len({times.device, mask.device, ls.device, var.device}) != 1:
         raise ValueError("gram_chol: all inputs must be on one device")
     if t > MAX_T:
-        raise NotImplementedError("large-T covariance path: ROADMAP slice 2")
+        raise ValueError(f"gram_chol: the kernel takes T <= {MAX_T}, got {t}"
+                         " (larger T: gp.chol_gram_bank's blocked route)")
     if kernel not in kernels_lib.KERNEL_CODES:
         raise ValueError(
             f"gram_chol: the kernel takes {sorted(kernels_lib.KERNEL_CODES)},"

@@ -1,14 +1,90 @@
 """Log-determinants from the Cholesky diagonal.
 
-Counterpart of ``gpvae_tpu/ops/logdet.py:21-39``: ``logdet K =
-2 sum log diag L``, no determinant is ever formed.  Only the diagonal read
-is ported; the ``diag_extract`` kernel that the JAX package uses at
-T >= 256 belongs to the large-T path (ROADMAP slice 2), and below that a
-strided diagonal view is all the read needs.
+Counterpart of ``gpvae_tpu/ops/logdet.py:21-39`` and of
+``pallas_big.diag_extract`` :271-292: ``logdet K = 2 sum log diag L``, no
+determinant is ever formed.  Large factors (T >= 256, T % 128 == 0, a
+[N] or [B, Z] batch of matrices: the JAX package's routing) go through
+``csrc/diag_logdet.cu``, one warp per matrix, which replaces the TPU
+kernel ``pallas_big._diag_kernel`` and the log-sum after it; its gradient
+puts ``2 g / L_ii`` on the diagonal (``pallas_big.py:290-292``).  Smaller
+ones, and every CPU tensor, take the plain strided diagonal.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from gpvae_tpu_torch.ops import _build, dispatch
+
+# launches of csrc/diag_logdet.cu in this process (callers may reset it):
+# lets a run show that its main path went through the kernel
+LAUNCHES = 0
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ENTRY_POINTS = {
+    "gpvae_diag_logdet_f32": [_P, _LL, _LL, _I, _I, _I, _I, _P, _P],
+}
+
+
+def build() -> None:
+    """Compile and load the kernel now (it is otherwise built on first
+    use)."""
+    _build.load("diag_logdet", _ENTRY_POINTS)
+
+
+def diag_logdet_plain(l: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: ``2 sum log diag L``, any dtype."""
+    diag = torch.diagonal(l, dim1=-2, dim2=-1)
+    return 2.0 * torch.sum(torch.log(diag), dim=-1)
+
+
+def diag_logdet_cuda(l: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/diag_logdet.cu`` on ``l [N, T, T]`` or
+    ``[N1, N2, T, T]`` (float32, CUDA, any view whose rows are
+    unit-stride) on the current stream; returns ``[N]`` or ``[N1, N2]``."""
+    global LAUNCHES
+    if not l.is_cuda:
+        raise ValueError(f"diag_logdet: expected a CUDA tensor, got "
+                         f"{l.device}")
+    if l.dtype != torch.float32:
+        raise TypeError(f"diag_logdet: the kernel takes float32, got "
+                        f"{l.dtype}")
+    if l.dim() not in (3, 4) or l.shape[-1] != l.shape[-2]:
+        raise ValueError(f"diag_logdet: expected [N, T, T] or "
+                         f"[N1, N2, T, T], got {tuple(l.shape)}")
+    if l.stride(-1) != 1:
+        raise ValueError("diag_logdet: rows must be unit-stride")
+    batch = l.shape[:-2]
+    lv = l if l.dim() == 4 else l[:, None]
+    n1, n2, t = lv.shape[0], lv.shape[1], lv.shape[-1]
+    out = torch.empty(batch, dtype=torch.float32, device=l.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load("diag_logdet", _ENTRY_POINTS)
+    with torch.cuda.device(l.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.gpvae_diag_logdet_f32(
+            lv.data_ptr(), lv.stride(0), lv.stride(1), n1, n2, lv.stride(2),
+            t, out.data_ptr(), stream)
+    _build.check_status(lib, status, "diag_logdet")
+    LAUNCHES += 1
+    return out
+
+
+class _DiagLogdet(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, l):
+        ctx.save_for_backward(l)
+        if dispatch.on_cuda(l):
+            return diag_logdet_cuda(l)
+        return diag_logdet_plain(l)
+
+    @staticmethod
+    def backward(ctx, g):
+        (l,) = ctx.saved_tensors
+        diag = torch.diagonal(l, dim1=-2, dim2=-1)
+        return torch.diag_embed(2.0 * g[..., None] / diag)
 
 
 def logdet_from_chol(l: torch.Tensor) -> torch.Tensor:
@@ -16,5 +92,7 @@ def logdet_from_chol(l: torch.Tensor) -> torch.Tensor:
 
     Identity-padded (masked) rows have ``L_ii = 1`` and contribute 0.
     """
-    diag = torch.diagonal(l, dim1=-2, dim2=-1)
-    return 2.0 * torch.sum(torch.log(diag), dim=-1)
+    t = l.shape[-1]
+    if t >= 256 and t % 128 == 0 and l.dim() in (3, 4):
+        return _DiagLogdet.apply(l)
+    return diag_logdet_plain(l)
