@@ -9,8 +9,8 @@
   ``chol_block``),
 * :mod:`.tri_inv` -- ``tri_inv``: batched lower-triangular inverse
   (``csrc/tri_inv.cu`` at the base, matmul merges above), differentiable,
-* :mod:`.chol` -- wide diagonal blocks, and ``cholesky_bwd_from_l``: the
-  Cholesky reverse mode on the inverse route,
+* :mod:`.chol` -- ``cholesky_bwd_from_l``: the Cholesky reverse mode on
+  the inverse route,
 * :mod:`.logdet` -- ``logdet_from_chol``: logdet from the factor's
   diagonal (``csrc/diag_logdet.cu`` for large factors).
 

@@ -1,63 +1,23 @@
-"""Cholesky of diagonal blocks, and the Cholesky reverse mode from the
-factor on the inverse route.
+"""The Cholesky reverse mode from the factor on the inverse route.
 
 Counterpart of ``gpvae_tpu/ops/chol.py``:
 
-* ``chol_and_inv`` :75 and ``chol_wide`` :181 -- the factor (and inverse)
-  of a batch of pre-built blocks.  Up to 128 wide it is one launch of
-  ``ops.chol_block``; wider blocks take the JAX package's 2x2 recursion
-  with matmul glue, on 128-wide bases instead of its 64-wide lane
-  kernels.  (The half-block "parts" forms ``chol_inv_parts`` :128 and
-  ``chol_parts`` :162 are not ported: they exist to keep TPU diagonal
-  blocks out of HBM between kernels, and ``chol_block`` writes whole
-  blocks in place.)
 * ``_phi`` :492, ``_phi_w_blocks`` :497, ``_tri_sandwich`` and
   ``_tri_sandwich_blocks`` :526-578, and ``cholesky_bwd_from_l`` :581-602
   on the route the JAX package takes on a TPU: one triangular inverse
   ``X = L^{-1}`` (``ops.tri_inv``), then ``K_bar = X^T w X`` by matmuls,
   in 2x2 blocks that skip the structural zeros when T % 256 == 0.
+
+Its diagonal-block factorizations (``chol_and_inv`` :75, ``chol_inv_parts``
+:128, ``chol_parts`` :162, ``chol_wide`` :181) have no counterpart here:
+the blocked factorization's diagonal blocks are at most 128 wide, and one
+launch of ``ops.chol_block`` factors such a block whole, in place.
 """
 from __future__ import annotations
 
 import torch
 
-from gpvae_tpu_torch.ops import chol_block
 from gpvae_tpu_torch.ops.tri_inv import tri_inv
-
-
-def _assemble(a11, a21, a22):
-    """``[[a11, 0], [a21, a22]]`` of square halves."""
-    zero = torch.zeros_like(a11)
-    return torch.cat([torch.cat([a11, zero], dim=-1),
-                      torch.cat([a21, a22], dim=-1)], dim=-2)
-
-
-def chol_and_inv(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(L, L^{-1})`` of the SPD blocks ``d [N, nb, nb]``; nb <= 128, or
-    a power-of-two multiple of 128 (``chol.py:75-125``):
-    ``L = [[L11, 0], [A21, L22]]``, ``A21 = D21 L11^{-T}``,
-    ``L^{-1}_21 = -L22^{-1} A21 L11^{-1}``."""
-    nb = d.shape[-1]
-    if nb <= chol_block.MAX_T:
-        return chol_block.chol_block(d, inverse=True)
-    h = nb // 2
-    l11, i11 = chol_and_inv(d[:, :h, :h])
-    a21 = d[:, h:, :h] @ i11.mT
-    l22, i22 = chol_and_inv(d[:, h:, h:] - a21 @ a21.mT)
-    return (_assemble(l11, a21, l22),
-            _assemble(i11, -((i22 @ a21) @ i11), i22))
-
-
-def chol_wide(d: torch.Tensor) -> torch.Tensor:
-    """``L`` of :func:`chol_and_inv` without the inverse of the trailing
-    half (``chol.py:181-208``)."""
-    nb = d.shape[-1]
-    if nb <= chol_block.MAX_T:
-        return chol_block.chol_block(d)[0]
-    h = nb // 2
-    l11, i11 = chol_and_inv(d[:, :h, :h])
-    a21 = d[:, h:, :h] @ i11.mT
-    return _assemble(l11, a21, chol_wide(d[:, h:, h:] - a21 @ a21.mT))
 
 
 def _phi(m: torch.Tensor) -> torch.Tensor:
