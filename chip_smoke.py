@@ -6,16 +6,19 @@
 Phases, each printing one line (a failed check exits nonzero at once):
 
 1. device: the card, its power limit, and the float32 matmul setting;
-2. build: the five CUDA sources of ``gpvae_tpu_torch/csrc`` (six kernels),
-   one ``nvcc`` each, all started together;
+2. build: the five CUDA sources of ``gpvae_tpu_torch/csrc`` (seven
+   kernels), one ``nvcc`` each, all started together;
 3. kernels: each kernel against its plain PyTorch version in float64 on
    the card: ``gram_chol`` and ``tri_inv`` at T in {8, 45, 64}, N in
    {80, 1024}; ``chol_block`` in both modes at T in {64, 100, 128}, N in
    {128, 1024}, with L^-1, and at a row stride in place; the blocked
    factorization (``chol_block`` + ``gram_panel`` + ``panel_solve``) at T in
    {256, 1024}, N in {16, 128}; ``diag_logdet``, and ``tri_inv`` at T in
-   {100, 1024}.  Every L and L^-1 has an exactly zero strict upper
-   triangle;
+   {100, 1024}; for the imputation path, ``hist_panel`` at T=1024 (o=512)
+   and at a ragged T=300, ``ops.chol.cholesky`` of pre-built masked banks
+   at T in {45, 100, 256, 1000, 1024}, N up to 128 (K left unchanged),
+   and ``ops.trsm.solve_triangular`` in its four forms.  Every L and
+   L^-1 has an exactly zero strict upper triangle;
 4. main paths, each with every kernel counter set to 0 just before it and
    read just after (and no call of ``torch.linalg.cholesky`` or
    ``solve_triangular`` in between), and the trained model's ELBO and
@@ -25,12 +28,21 @@ Phases, each printing one line (a failed check exits nonzero at once):
       observed dims), 400 steps;
    b. ``bench_t100`` at its widths (B=32, T=100), 300 steps;
    c. ``bench_t100`` at T=1024 (the CLI's ``--time-len 1024``), 20 steps;
-   each path's loss must fall on a fixed probe batch;
+   each path's loss must fall on a fixed probe batch; each path saves a
+   checkpoint through ``fit(checkpoint_dir=...)``, and then
+   d. ``python -m gpvae_tpu_torch evaluate`` (``__main__.main``) restores
+      it and imputes the held-out sequences at each of the three (B=20,
+      32, 32), counters reset around it; its posterior mean and four
+      metrics are held against the same restored model on the CPU in
+      float64 with the same kept mask, and one ``posterior_sample`` runs
+      at T=1024;
 5. timing: train steps/s and device µs per step of each path, and each
    kernel at its main-path shape against its plain version, the one
    PyTorch call that computes the same function where there is one, and
    the least time the card could take: CUDA-event medians of back-to-back
-   calls, and the card's own time per call from ``torch.profiler``.
+   calls, and the card's own time per call from ``torch.profiler``; the
+   T=1024 evaluate path's sequences imputed per second; ``hist_panel``
+   and the whole pre-built factorization at the path's N=64, T=1024.
 
 Then one JSON line with the kernels' results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -41,10 +53,13 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # Bands of phase 3 (kernel vs its plain version in float64 on the card).
@@ -82,6 +97,23 @@ LOG_LS_GRAD_REL_T1024 = 3.1e-3
 ELBO_VS_LIBRARY = 4.0
 # the batches (toy data and noise from each seed) of phase 4's comparison
 ELBO_SEEDS = (7, 8, 9, 10)
+# Phase 3, the pre-built bank: ops.chol.cholesky within 2.5x the library's
+# own float32 error of float64 (the gram-path factorization reached 1.89x
+# on an H100), floored at L_MAX_ABS; hist_panel and the triangular solve
+# against float64.
+CHOL_VS_LIBRARY = 2.5
+PANEL_ABS = 1e-4
+TRSM_REL = 1e-4
+# Phase 4, the evaluate path on the card (float32, kernels) against the
+# same restored model on the CPU (float64, plain versions), same kept mask
+# and noise: the posterior mean's max abs error over its largest entry,
+# each metric's relative error, and a posterior draw's max abs error over
+# its largest entry; each widened to ELBO_VS_LIBRARY x the same model's
+# float32 error on the CPU where that is larger.
+IMPUTE_MEAN_REL = 1e-4
+METRIC_REL = 1e-4
+SAMPLE_REL = 1e-3
+METRICS = ("nll_gp_impute", "mse_gp_impute", "nll_baseline", "mse_baseline")
 
 SYN_B, SYN_T, SYN_Z, SYN_D = 20, 45, 2, 15
 MAIN_STEPS = 400
@@ -89,6 +121,11 @@ BENCH_B, BENCH_T = 32, 100
 BENCH_STEPS = 300
 LONG_T = 1024
 LONG_STEPS = 20
+# the sides of phase 3's pre-built banks: one chol_block launch (45, 100),
+# the blocked loop, whole blocks and a ragged last one (1000)
+PREBUILT_TS = (SYN_T, BENCH_T, 256, 1000, LONG_T)
+# sequences each evaluate run generates (the CLI scores the last 10%)
+EVAL_SEQS = {"syn_data": 200, "bench_t100": 320}
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): float32 outside the
 # tensor cores and HBM3 bandwidth; a bound is the larger of the two times
 PEAK_FP32_FLOPS = 67e12
@@ -150,7 +187,8 @@ def cuda_ms(fn, budget_ms: float = 60.0, reps: int = 7) -> float:
     return times[len(times) // 2]
 
 
-def device_profile(fn, calls: int = 1, kernel: str | None = None) -> dict:
+def device_profile(fn, calls: int = 1, kernel: str | None = None,
+                   label: str = "") -> dict:
     """``calls`` back-to-back calls of ``fn`` under ``torch.profiler``,
     after as many calls in a warm-up cycle whose events are dropped (the
     first kernels of a window otherwise go missing from the trace).  Per
@@ -160,50 +198,57 @@ def device_profile(fn, calls: int = 1, kernel: str | None = None) -> dict:
     took most of the device time, with their µs per call.  With ``kernel``
     (a launch counter's name): ``kernel_us``, the mean duration of that
     hand-written kernel's launches, ``kernel_seen``, how many the profiler
-    saw, and ``kernel_counted``, how many its counter counted."""
+    saw, and ``kernel_counted``, how many its counter counted.  A window
+    in which the profiler saw no kernel at all is taken again, up to three
+    windows in all (``empty_windows`` counts them)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    traces = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: traces.append(list(p.events()))
-                 ) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        prof.step()
-        before = read_counts()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        after = read_counts()
-        prof.step()
-    if len(traces) != 1:
-        fail(f"the profiler returned {len(traces)} traces, not 1")
-    kernels = [e for e in traces[0]
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    if not kernels:
-        fail("the profiler saw no kernel on the card")
+    for empty in range(3):
+        traces = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: traces.append(list(p.events()))
+                     ) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+            before = read_counts()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = read_counts()
+            prof.step()
+        if len(traces) != 1:
+            fail(f"{label}: the profiler returned {len(traces)} traces, "
+                 f"not 1")
+        kernels = [e for e in traces[0]
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+        if kernels:
+            break
+    else:
+        fail(f"{label}: the profiler saw no kernel on the card in three "
+             f"windows")
     busy = sum(e.time_range.elapsed_us() for e in kernels)
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {"device_us": busy / calls, "kernels": len(kernels) / calls,
-           "wall_us": wall * 1e6 / calls,
+           "wall_us": wall * 1e6 / calls, "empty_windows": empty,
            "top": [(n[:80], us / calls) for n, us in top]}
     if kernel is not None:
         symbol = f"{kernel}_kernel"  # the __global__ function's name
         mine = [e.time_range.elapsed_us() for e in kernels if symbol in e.name]
         if not mine:
-            fail(f"the profiler saw no {symbol} on the card")
+            fail(f"{label}: the profiler saw no {symbol} on the card")
         out.update(kernel_us=sum(mine) / len(mine), kernel_seen=len(mine),
                    kernel_counted=after[kernel] - before[kernel])
     return out
@@ -229,7 +274,8 @@ def counters():
             "chol_block": (chol_block, "LAUNCHES"),
             "gram_panel": (blocked, "PANEL_LAUNCHES"),
             "panel_solve": (blocked, "SOLVE_LAUNCHES"),
-            "diag_logdet": (logdet, "LAUNCHES")}
+            "diag_logdet": (logdet, "LAUNCHES"),
+            "hist_panel": (blocked, "HIST_LAUNCHES")}
 
 
 def reset_counts() -> None:
@@ -258,13 +304,12 @@ def plain_versions():
 
 @contextlib.contextmanager
 def library_calls():
-    """Counts the calls of ``torch.linalg.cholesky`` and
-    ``torch.linalg.solve_triangular`` made inside the block: the plain
-    versions' factorization and solve, which a path on the kernels never
-    calls."""
+    """Counts the calls of ``torch.linalg.cholesky``, ``cholesky_ex`` and
+    ``solve_triangular`` made inside the block: the plain versions'
+    factorization and solve, which a path on the kernels never calls."""
     import torch
 
-    counts = {"cholesky": 0, "solve_triangular": 0}
+    counts = {"cholesky": 0, "cholesky_ex": 0, "solve_triangular": 0}
     real = {name: getattr(torch.linalg, name) for name in counts}
 
     def counting(name):
@@ -311,15 +356,17 @@ def flat_inputs(rng, n, t, dev, masked=True):
     return gram_chol.flat_bank(times, ls, mask, var)
 
 
-def check_l(name, l, ref, lib) -> tuple[float, float]:
+def check_l(name, l, ref, lib,
+            vs_library: float = L_VS_LIBRARY) -> tuple[float, float]:
     """Max abs error of the factor ``l`` against the float64 ``ref`` and
     its ratio to the library's float32 factor ``lib``; fails outside the
-    band or on a nonzero strict upper triangle."""
+    band (``L_MAX_ABS`` or ``vs_library`` x the library's error) or on a
+    nonzero strict upper triangle."""
     import torch
 
     err = (l.double() - ref).abs().max().item()
     err_lib = (lib.double() - ref).abs().max().item()
-    band = max(L_MAX_ABS, L_VS_LIBRARY * err_lib)
+    band = max(L_MAX_ABS, vs_library * err_lib)
     if not math.isfinite(err) or err > band:
         fail(f"{name}: max abs err {err:.3e} > {band:.3e} (library "
              f"float32: {err_lib:.3e})")
@@ -524,6 +571,102 @@ def check_large_t_kernels(dev) -> dict:
     return worst
 
 
+def check_prebuilt_kernels(dev) -> dict:
+    """Phase 3, the imputation path's factorization and solve: returns the
+    worst error of each."""
+    import numpy as np
+    import torch
+
+    from gpvae_tpu_torch import kernels as kernels_lib
+    from gpvae_tpu_torch.ops import blocked, chol, trsm
+
+    rng = np.random.default_rng(3)
+    worst = {"hist_panel": 0.0, "cholesky": 0.0, "cholesky_vs_library": 0.0,
+             "solve_triangular_rel": 0.0}
+    cases = 0
+
+    def bank(n, t):
+        """A masked [n, t, t] gram bank on the card: float64 and float32."""
+        times, mask, ls, var = flat_inputs(rng, n, t, dev)
+        k64 = kernels_lib.gram(times.double(), ls.double()[:, None, None],
+                               variance=var.double()[:, None, None],
+                               mask=mask)
+        return k64, k64.float()
+
+    # hist_panel against its plain version in float64 on the same inputs,
+    # on a factor's own history; K read, never written
+    mid = LONG_T // 2
+    for n, t, r0, o, w in ((64, LONG_T, mid, mid, 128),
+                           (16, 300, 256, 256, 44), (16, 300, 280, 256, 44)):
+        k64, k = bank(n, t)
+        l = torch.linalg.cholesky(k64).float().contiguous()
+        k_copy = k.clone()
+        got, ref = l.clone(), l.double()
+        blocked.hist_panel(got, k, r0, o, w)
+        blocked.hist_panel_plain(ref, k.double(), r0, o, w)
+        err = (got.double() - ref).abs().max().item()
+        if not err <= PANEL_ABS:
+            fail(f"hist_panel N={n} T={t} r0={r0} o={o} w={w}: max abs err "
+                 f"{err:.3e} > {PANEL_ABS:.1e}")
+        if not torch.equal(k, k_copy):
+            fail("hist_panel wrote into K")
+        worst["hist_panel"] = max(worst["hist_panel"], err)
+        cases += 1
+        del k64, k, l, k_copy, got, ref
+
+    # ops.cholesky of pre-built banks [B, 2, T, T], every route
+    for t in PREBUILT_TS:
+        for n in (16, 128):
+            k64, k = bank(n, t)
+            kb = k.reshape(n // 2, 2, t, t)
+            k_copy = kb.clone()
+            l = chol.cholesky(kb).reshape(n, t, t)
+            name = f"cholesky T={t} N={n}"
+            err, ratio = check_l(name, l, torch.linalg.cholesky(k64),
+                                 torch.linalg.cholesky(k),
+                                 vs_library=CHOL_VS_LIBRARY)
+            if not torch.equal(kb, k_copy):
+                fail(f"{name} wrote into K")
+            worst["cholesky"] = max(worst["cholesky"], err)
+            worst["cholesky_vs_library"] = max(worst["cholesky_vs_library"],
+                                               ratio)
+            cases += 1
+            del k64, k, kb, k_copy, l
+
+    # solve_triangular, four forms, against float64 on the same factor
+    for t in (SYN_T, BENCH_T, LONG_T):
+        k64, k = bank(8, t)
+        a = chol.cholesky(k)
+        for left_side in (True, False):
+            for transpose_a in (False, True):
+                b = torch.randn((8, t, 5) if left_side else (8, 5, t),
+                                device=dev)
+                x = trsm.solve_triangular(a, b, left_side=left_side,
+                                          transpose_a=transpose_a)
+                op = a.double().mT if transpose_a else a.double()
+                ref = torch.linalg.solve_triangular(
+                    op, b.double(), upper=transpose_a, left=left_side)
+                lib = torch.linalg.solve_triangular(
+                    a.mT if transpose_a else a, b, upper=transpose_a,
+                    left=left_side)
+
+                def rel(y):
+                    return (torch.linalg.norm(y.double() - ref)
+                            / torch.linalg.norm(ref)).item()
+
+                err, err_lib = rel(x), rel(lib)
+                band = max(TRSM_REL, L_VS_LIBRARY * err_lib)
+                if not (math.isfinite(err) and err <= band):
+                    fail(f"solve_triangular T={t} left={left_side} "
+                         f"transpose={transpose_a}: rel err {err:.3e} > "
+                         f"{band:.3e} (library float32 {err_lib:.3e})")
+                worst["solve_triangular_rel"] = max(
+                    worst["solve_triangular_rel"], err)
+                cases += 1
+    worst["prebuilt_cases"] = cases
+    return worst
+
+
 # -- phase 4 ------------------------------------------------------------------
 
 def toy_batch(seed, b, t):
@@ -624,11 +767,12 @@ def probe_loss(model, probe, eps, beta) -> float:
                      eps=eps).loss.item()
 
 
-def train_path(dev, preset_name, t, steps, num_seqs):
+def train_path(dev, preset_name, t, steps, num_seqs, ckpt_dir):
     """Train ``preset_name`` at sequence length ``t`` for ``steps`` steps
     through ``train.fit`` with every counter set to 0 just before and read
-    just after, and check the loss.  Returns the model, the phase fields
-    and a function that trains it further (for timing)."""
+    just after, saving a checkpoint into ``ckpt_dir`` at the end, and check
+    the loss.  Returns the model, the phase fields and a function that
+    trains it further (for timing; it saves no checkpoint)."""
     import torch
 
     from gpvae_tpu_torch import configs, train as train_lib
@@ -652,8 +796,10 @@ def train_path(dev, preset_name, t, steps, num_seqs):
         beta=preset.train.beta, log_every=max(1, steps // 10))
     reset_counts()
     with library_calls() as lib_calls:
-        state, log = train_lib.fit(model, batcher, main_cfg, device=dev,
-                                   verbose=False)
+        state, log = train_lib.fit(
+            model, batcher,
+            dataclasses.replace(main_cfg, checkpoint_dir=ckpt_dir),
+            device=dev, verbose=False)
         torch.cuda.synchronize()
     launches = read_counts()
     if any(lib_calls.values()):
@@ -670,6 +816,9 @@ def train_path(dev, preset_name, t, steps, num_seqs):
         fail(f"{preset_name} T={t}: posterior_log_ls did not move")
     if state.step != steps:
         fail(f"{preset_name} T={t}: trained {state.step} steps")
+    if train_lib.CheckpointManager(ckpt_dir).steps() != [steps]:
+        fail(f"{preset_name} T={t}: no checkpoint of step {steps} in "
+             f"{ckpt_dir}")
     out = {"preset": preset_name, "time_len": t, "batch": b, "steps": steps,
            "probe_loss_before": before, "probe_loss_after": after,
            "loss_logged": losses,
@@ -692,7 +841,8 @@ def time_path(fit_more, window, windows=5) -> dict:
     kernels of one profiled window."""
     timed = fit_more(window * windows, window)
     sps = sorted(r["steps_per_sec"] for r in timed.rows)
-    win = device_profile(lambda: fit_more(window, window))
+    win = device_profile(lambda: fit_more(window, window),
+                         label="a training window")
     return {"train_steps_per_s": sps[len(sps) // 2],
             "train_steps_per_s_windows": sps, "window_steps": window,
             "device_us_per_step": win["device_us"] / window,
@@ -703,23 +853,260 @@ def time_path(fit_more, window, windows=5) -> dict:
                                         for n, us in win["top"]]}
 
 
-def main_path(dev, name, t, steps, num_seqs, window, *, kl_band,
+def check_launches(label, launches, needs, absent) -> None:
+    """Fail unless each of ``needs`` launched and none of ``absent``."""
+    for kernel in needs:
+        if launches[kernel] < 1:
+            fail(f"{label} launched the {kernel} kernel {launches[kernel]} "
+                 f"times")
+    for kernel in absent:
+        if launches[kernel]:
+            fail(f"{label} launched the {kernel} kernel")
+
+
+def main_path(dev, name, t, steps, num_seqs, window, ckpt_dir, *, kl_band,
               log_ls_band, needs, absent=()) -> tuple[dict, dict]:
     """One main path: trained (``train_path``), its ``needs`` kernels
     launched and its ``absent`` ones not, its ELBO held against the CPU,
     then timed.  Returns the phase fields and the timing."""
-    model, out, fit_more = train_path(dev, name, t, steps, num_seqs)
-    for kernel in needs:
-        if out["launches"][kernel] < 1:
-            fail(f"{name} T={t} launched the {kernel} kernel "
-                 f"{out['launches'][kernel]} times")
-    for kernel in absent:
-        if out["launches"][kernel]:
-            fail(f"{name} T={t} launched the {kernel} kernel")
+    model, out, fit_more = train_path(dev, name, t, steps, num_seqs,
+                                      ckpt_dir)
+    check_launches(f"{name} T={t}", out["launches"], needs, absent)
     out["elbo_vs_cpu_fp64"] = elbo_vs_cpu(model, dev, 2, t, kl_band=kl_band,
                                           log_ls_band=log_ls_band)
     phase("main_path", **out)
     return out, time_path(fit_more, window)
+
+
+def eval_batch(preset_name, t, eval_b):
+    """The sequences ``evaluate --seed 0`` scores: the first ``eval_b`` of
+    the last 10% of its ``EVAL_SEQS`` toy sequences (``__main__.py``)."""
+    batch = toy_batch(0, EVAL_SEQS[preset_name], t)
+    n_train = int(0.9 * EVAL_SEQS[preset_name])
+    return {k: v[n_train:n_train + eval_b] for k, v in batch.items()}
+
+
+def restored_model(preset_name, t, ckpt_dir, dev):
+    """The model ``evaluate`` scores: the preset at ``t``, the newest
+    checkpoint of ``ckpt_dir`` loaded, on ``dev`` (the card: the
+    checkpoint holds the state of a CUDA noise generator)."""
+    import torch
+
+    from gpvae_tpu_torch import configs, train as train_lib
+    from gpvae_tpu_torch.models import GPVAE
+
+    cfg = dataclasses.replace(configs.get(preset_name).model, time_len=t)
+    model = GPVAE(cfg, generator=torch.Generator().manual_seed(0))
+    state = train_lib.create_train_state(model, train_lib.TrainConfig(), dev)
+    if train_lib.CheckpointManager(ckpt_dir).restore_latest(state) is None:
+        fail(f"no checkpoint in {ckpt_dir}")
+    return model
+
+
+def evaluate_path(dev, preset_name, t, eval_b, ckpt_dir, *, needs,
+                  absent=()) -> tuple[dict, dict]:
+    """``python -m gpvae_tpu_torch evaluate`` through ``__main__.main`` on
+    the checkpoint of ``ckpt_dir``, with every counter set to 0 just
+    before and read just after and no library factorization or solve in
+    between; its metrics and the restored model's posterior mean held
+    against the same model on the CPU in float64 (and float32, for the
+    bands) with the same kept mask and baseline noise.  Returns the phase
+    fields and what phase 5 needs to time the path."""
+    import torch
+
+    from gpvae_tpu_torch import analysis
+    from gpvae_tpu_torch.__main__ import main as cli
+
+    argv = ["evaluate", "--preset", preset_name, "--time-len", str(t),
+            "--num-seqs", str(EVAL_SEQS[preset_name]), "--eval-batch",
+            str(eval_b), "--ckpt-dir", ckpt_dir, "--seed", "0"]
+    out = io.StringIO()
+    reset_counts()
+    with library_calls() as lib_calls, contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        cli(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = read_counts()
+    label = f"evaluate {preset_name} T={t}"
+    if any(lib_calls.values()):
+        fail(f"{label} called the library's factorization or solve: "
+             f"{lib_calls}")
+    check_launches(label, launches, needs, absent)
+    printed = out.getvalue().splitlines()
+    if len(printed) != 2 or not printed[0].startswith("restored step "):
+        fail(f"{label} printed {printed!r}")
+    got = json.loads(printed[1])
+
+    # the same restored model and draws on the CPU: the CLI's kept mask and
+    # baseline noise come from a CPU generator seeded with --seed 0
+    batch = eval_batch(preset_name, t, eval_b)
+    card = restored_model(preset_name, t, ckpt_dir, dev)
+    cpu32 = copy.deepcopy(card).to("cpu")
+    cpu64 = copy.deepcopy(cpu32).double()
+
+    def metrics(model, device, dtype):
+        x = torch.tensor(batch["x"], dtype=dtype, device=device)
+        times = torch.tensor(batch["times"], dtype=dtype, device=device)
+        mask = torch.tensor(batch["mask"], device=device)
+        return analysis.imputation_metrics(
+            model, x, times, mask, drop_fraction=0.5,
+            generator=torch.Generator().manual_seed(0))
+
+    want, lib = metrics(cpu64, "cpu", torch.float64), metrics(
+        cpu32, "cpu", torch.float32)
+    if got["dropped_steps"] != want["dropped_steps"] or not got[
+            "dropped_steps"]:
+        fail(f"{label}: {got['dropped_steps']} dropped steps, the CPU "
+             f"{want['dropped_steps']}")
+    errors, bands = {}, {}
+    for k in METRICS:
+        errors[k] = abs(got[k] - want[k]) / abs(want[k])
+        bands[k] = max(METRIC_REL,
+                       ELBO_VS_LIBRARY * abs(lib[k] - want[k]) / abs(want[k]))
+
+    # the posterior mean, on the card and on the CPU, the same kept mask
+    kept = analysis.drop_timesteps(torch.tensor(batch["mask"]), 0.5,
+                                   generator=torch.Generator().manual_seed(0))
+
+    def post_mean(model, device, dtype):
+        return analysis.impute(
+            model, torch.tensor(batch["x"], dtype=dtype, device=device),
+            torch.tensor(batch["times"], dtype=dtype, device=device),
+            torch.tensor(batch["mask"], device=device),
+            kept.to(device))[2].mean.double().cpu()
+
+    ref = post_mean(cpu64, "cpu", torch.float64)
+    scale = ref.abs().max().item()
+
+    def mean_err(mean):
+        return (mean - ref).abs().max().item() / scale
+
+    errors["posterior_mean_rel"] = mean_err(post_mean(card, dev,
+                                                      torch.float32))
+    bands["posterior_mean_rel"] = max(
+        IMPUTE_MEAN_REL,
+        ELBO_VS_LIBRARY * mean_err(post_mean(cpu32, "cpu", torch.float32)))
+    for k, v in errors.items():
+        if not (math.isfinite(v) and v <= bands[k]):
+            fail(f"{label} vs CPU float64: {k} {v:.3e} > {bands[k]:.3e}")
+    fields = {"preset": preset_name, "time_len": t, "eval_batch": eval_b,
+              "metrics": got, "metrics_cpu_fp64": want, "errors": errors,
+              "bands": bands, "launches": launches,
+              "library_calls": dict(lib_calls), "cli_seconds": seconds}
+    phase("evaluate_path", **fields)
+    return fields, {"model": card, "cpu_model": cpu32, "batch": batch,
+                    "kept": kept}
+
+
+def check_posterior_sample(dev, model, batch, kept, cpu_model) -> dict:
+    """One ``analysis.impute(sample=True)`` at T=1024 on the card, through
+    ``gp.posterior_sample`` (the Cholesky of ``S* + 1e-5 I``): its draw
+    finite and ``posterior_sample`` within ``SAMPLE_REL`` of its largest
+    entry, or 4x the CPU's float32 error, of the same step in float64 on
+    the card's own posterior (mean and ``S*``), with the same noise.  The
+    draw end to end against the same model on the CPU in float64, and the
+    card's ``S*`` against the CPU's, are reported beside it."""
+    import torch
+
+    from gpvae_tpu_torch import analysis, gp
+
+    b, t = batch["mask"].shape
+    eps = torch.randn((1, b, model.config.latent_dim, t),
+                      generator=torch.Generator().manual_seed(5))
+
+    def impute(m, device, dtype):
+        _, z, post = analysis.impute(
+            m, torch.tensor(batch["x"], dtype=dtype, device=device),
+            torch.tensor(batch["times"], dtype=dtype, device=device),
+            torch.tensor(batch["mask"], device=device), kept.to(device),
+            sample=True, eps=eps.to(device, dtype))
+        return z.double().cpu(), post
+
+    reset_counts()
+    with library_calls() as lib_calls:
+        z, post = impute(model, dev, torch.float32)
+        torch.cuda.synchronize()
+    launches = read_counts()
+    if any(lib_calls.values()):
+        fail(f"posterior_sample called the library: {lib_calls}")
+    check_launches("posterior_sample", launches,
+                   ("hist_panel", "chol_block", "panel_solve", "tri_inv"), ())
+    if not bool(torch.isfinite(z).all()):
+        fail(f"posterior_sample T={t}: {int((~torch.isfinite(z)).sum())} "
+             f"entries not finite")
+
+    # posterior_sample alone, on the card's posterior
+    mean, cov = post.mean.cpu(), post.cov.cpu()
+    draw = gp.posterior_sample(post, eps=eps.to(dev)).double().cpu()
+    ref = gp.posterior_sample(gp.GPPosterior(mean.double(), cov.double()),
+                              eps=eps.double())
+    lib = gp.posterior_sample(gp.GPPosterior(mean, cov), eps=eps)
+    scale = ref.abs().max().item()
+    err = (draw - ref).abs().max().item() / scale
+    err_lib = (lib.double() - ref).abs().max().item() / scale
+    band = max(SAMPLE_REL, ELBO_VS_LIBRARY * err_lib)
+    if not err <= band:
+        fail(f"posterior_sample T={t} vs float64 on the card's posterior: "
+             f"{err:.3e} > {band:.3e} (CPU float32 {err_lib:.3e})")
+
+    # end to end, against the same model on the CPU
+    z64, post64 = impute(copy.deepcopy(cpu_model).double(), "cpu",
+                         torch.float64)
+    z32, post32 = impute(cpu_model, "cpu", torch.float32)
+    zscale = z64.abs().max().item()
+    jitter = 1e-5 * torch.eye(t, dtype=torch.float64)
+    low = torch.linalg.eigvalsh(cov[:4].double() + jitter).min().item()
+    low64 = torch.linalg.eigvalsh(post64.cov[:4] + jitter).min().item()
+    return {"time_len": t, "batch": b, "rel_err": err, "band": band,
+            "cpu_float32_rel_err": err_lib, "launches": launches,
+            "end_to_end_rel_err": (z - z64).abs().max().item() / zscale,
+            "end_to_end_cpu_float32_rel_err":
+                (z32 - z64).abs().max().item() / zscale,
+            "cov_abs_err": (cov.double() - post64.cov).abs().max().item(),
+            "cov_abs_err_cpu_float32":
+                (post32.cov.double() - post64.cov).abs().max().item(),
+            "min_eig_cov_plus_jitter_first4": low,
+            "min_eig_cov_plus_jitter_first4_fp64": low64}
+
+
+def main_paths(dev, ck: str) -> tuple[dict, dict, dict]:
+    """Phase 4: the three training paths and the evaluate path on each of
+    their checkpoints (under ``ck``), and one posterior draw at T=1024.
+    Returns every path's phase fields (launches included), the training
+    paths' timings, and the T=1024 evaluate path's model and batch."""
+    paths, timing = {}, {}
+    gp_only = ("gram_chol", "gram_panel", "diag_logdet")
+    for name, preset, t, steps, seqs, window, bands, needs, absent, eb in (
+            ("syn_data", "syn_data", SYN_T, MAIN_STEPS, 2000, 200,
+             (KL_REL_TERMS, LOG_LS_GRAD_REL), ("gram_chol", "tri_inv"),
+             ("chol_block", "gram_panel", "panel_solve", "diag_logdet",
+              "hist_panel"), SYN_B),
+            ("bench_t100", "bench_t100", BENCH_T, BENCH_STEPS, 2000, 100,
+             (KL_REL_TERMS, LOG_LS_GRAD_REL), ("chol_block", "tri_inv"),
+             ("hist_panel",), BENCH_B),
+            ("bench_t100_t1024", "bench_t100", LONG_T, LONG_STEPS, 256, 5,
+             (KL_REL_TERMS_T1024, LOG_LS_GRAD_REL_T1024),
+             ("chol_block", "gram_panel", "panel_solve", "diag_logdet",
+              "tri_inv"), ("hist_panel",), BENCH_B)):
+        ckpt_dir = os.path.join(ck, name)
+        paths[name], timing[name] = main_path(
+            dev, preset, t, steps, seqs, window, ckpt_dir,
+            kl_band=bands[0], log_ls_band=bands[1], needs=needs,
+            absent=absent)
+        # evaluate: hist_panel and panel_solve only past one 128 block
+        blocked_t = t > 128
+        ev_needs = ("chol_block", "tri_inv") + (
+            ("hist_panel", "panel_solve") if blocked_t else ())
+        ev_absent = gp_only + (() if blocked_t else ("hist_panel",
+                                                     "panel_solve"))
+        paths[f"evaluate_{name}"], context = evaluate_path(
+            dev, preset, t, eb, ckpt_dir, needs=ev_needs, absent=ev_absent)
+    # context: the last path's, T=1024
+    sample = check_posterior_sample(dev, context["model"], context["batch"],
+                                    context["kept"], context["cpu_model"])
+    phase("posterior_sample", **sample)
+    return paths, timing, context
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -739,11 +1126,13 @@ def time_kernel(name, kernel_fn, plain_fn, library_fn, nbytes, flops,
     library_ms = cuda_ms(library_fn) if library_fn is not None else None
     for attempt in range(1, 4):
         # a trace that lost launches of the kernel is taken again
-        dev = device_profile(kernel_fn, PROFILED_CALLS, kernel)
+        dev = device_profile(kernel_fn, PROFILED_CALLS, kernel, label=name)
         if kernel is None or dev["kernel_seen"] == dev["kernel_counted"]:
             break
-    plain = device_profile(plain_fn, PROFILED_CALLS)
-    library = (device_profile(library_fn, PROFILED_CALLS)
+    plain = device_profile(plain_fn, PROFILED_CALLS,
+                           label=f"{name} (plain)")
+    library = (device_profile(library_fn, PROFILED_CALLS,
+                              label=f"{name} (library)")
                if library_fn is not None else None)
     b_ms, b_by = bound_ms(nbytes, flops)
     out = {"name": name, "shape": shape, "ms": ms, "plain_ms": plain_ms,
@@ -900,7 +1289,80 @@ def time_kernels(dev) -> dict:
             (n // 2) * tt ** 3 / 3, f"N={n // 2}, T={tt}",
             kernel="tri_inv")
         del kk, lf, eye
+
+    # the imputation path at its T=1024 shape: N = 32 sequences x 2
+    # latents of a pre-built bank; hist_panel at the middle step
+    n = BENCH_B * SYN_Z
+    times, mask, ls, var = flat_inputs(rng, n, t, dev)
+    k = kernels_lib.gram(times, ls[:, None, None],
+                         variance=var[:, None, None], mask=mask)
+    lk = blocked.cholesky_inplace(k)
+    scratch = lk.clone()
+    kp = k[:, o:, o:o + w]
+    rows, cols = scratch[:, o:, :o], scratch[:, o:o + w, :o]
+    res["hist_panel"] = time_kernel(
+        "hist_panel", lambda: blocked.hist_panel(scratch, k, o, o, w),
+        lambda: blocked.hist_panel_plain(scratch, k, o, o, w),
+        lambda: torch.baddbmm(kp, rows, cols.mT, alpha=-1.0),
+        # the K panel read, L[:, o:, :o] read once (its rows o..o+w are
+        # the history's second operand), the panel written
+        f * n * ((t - o) * w + (t - o) * o + (t - o) * w),
+        2.0 * n * (t - o) * w * o,
+        f"N={n}, T={t}, block 4 (rows {o}-{t}, history {o})",
+        kernel="hist_panel")
+    del scratch, rows, cols, kp, lk
+
+    def factor_plain():
+        with plain_versions():
+            return blocked.cholesky_inplace(k)
+
+    whole["prebuilt_factorization_T1024"] = time_kernel(
+        "prebuilt factorization", lambda: blocked.cholesky_inplace(k),
+        factor_plain, lambda: torch.linalg.cholesky(k),
+        # K's lower triangle read, L written whole
+        f * n * (t * (t + 1) / 2 + t * t), n * t ** 3 / 3.0,
+        f"N={n}, T={t}, pre-built", kernel="hist_panel")
     return res, whole
+
+
+def time_evaluate(ctx) -> dict:
+    """The T=1024 evaluate path (``imputation_metrics`` of the restored
+    model on its B=32 batch, the kept mask and baseline noise given):
+    sequences imputed per second by the host clock, median of 5 calls
+    (each ends in the host reading the metrics), and the card's time and
+    busy share of one profiled call."""
+    import torch
+
+    from gpvae_tpu_torch import analysis, train as train_lib
+
+    model, kept = ctx["model"], ctx["kept"]
+    dev = next(model.parameters()).device
+    b = train_lib.device_arrays(ctx["batch"], dev)
+    kept = kept.to(dev)
+    noise = torch.randn((kept.shape[0], kept.shape[1],
+                         model.config.latent_dim),
+                        generator=torch.Generator().manual_seed(2)).to(dev)
+
+    def call():
+        return analysis.imputation_metrics(model, b["x"], b["times"],
+                                           b["mask"], kept=kept,
+                                           baseline_eps=noise)
+
+    call()
+    secs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        call()
+        secs.append(time.perf_counter() - t0)
+    secs.sort()
+    prof = device_profile(call, label="the T=1024 evaluate call")
+    return {"sequences_per_call": kept.shape[0],
+            "seqs_imputed_per_s": kept.shape[0] / secs[2],
+            "seconds_per_call": secs, "device_us_per_call":
+            prof["device_us"], "kernels_per_call": prof["kernels"],
+            "wall_us_per_call_under_profiler": prof["wall_us"],
+            "device_busy_share": prof["device_us"] / prof["wall_us"],
+            "top_kernels_us_per_call": prof["top"]}
 
 
 def main() -> int:
@@ -949,28 +1411,22 @@ def run(dev) -> int:
     # -- 3. kernels vs plain ---------------------------------------------
     worst = check_kernels(dev)
     worst_large = check_large_t_kernels(dev)
-    phase("kernels_vs_plain", **worst, **worst_large, l_band=L_MAX_ABS,
-          l_vs_library=L_VS_LIBRARY, tri_inv_band_rel_fro=TRI_INV_REL_FRO)
+    worst_pre = check_prebuilt_kernels(dev)
+    phase("kernels_vs_plain", **worst, **worst_large, **worst_pre,
+          l_band=L_MAX_ABS, l_vs_library=L_VS_LIBRARY,
+          cholesky_band_vs_library=CHOL_VS_LIBRARY,
+          tri_inv_band_rel_fro=TRI_INV_REL_FRO)
 
     # -- 4. main paths ---------------------------------------------------
-    paths, timing = {}, {}
-    paths["syn_data"], timing["syn_data"] = main_path(
-        dev, "syn_data", SYN_T, MAIN_STEPS, 2000, 200,
-        kl_band=KL_REL_TERMS, log_ls_band=LOG_LS_GRAD_REL,
-        needs=("gram_chol", "tri_inv"),
-        absent=("chol_block", "gram_panel", "panel_solve", "diag_logdet"))
-    paths["bench_t100"], timing["bench_t100"] = main_path(
-        dev, "bench_t100", BENCH_T, BENCH_STEPS, 2000, 100,
-        kl_band=KL_REL_TERMS, log_ls_band=LOG_LS_GRAD_REL,
-        needs=("chol_block", "tri_inv"))
-    paths["bench_t100_t1024"], timing["bench_t100_t1024"] = main_path(
-        dev, "bench_t100", LONG_T, LONG_STEPS, 256, 5,
-        kl_band=KL_REL_TERMS_T1024, log_ls_band=LOG_LS_GRAD_REL_T1024,
-        needs=("chol_block", "gram_panel", "panel_solve", "diag_logdet",
-               "tri_inv"))
+    # training (a-c), then evaluate on each checkpoint (d); checkpoints go
+    # to a directory of the checkout that is removed at the end
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="_smoke_ckpt_", dir=root) as ck:
+        paths, timing, context = main_paths(dev, ck)
 
     # -- 5. timing -------------------------------------------------------
     per_kernel, whole = time_kernels(dev)
+    timing["evaluate_bench_t100_t1024"] = time_evaluate(context)
     phase("timing", paths=timing, kernels=per_kernel, whole_functions=whole,
           seconds_so_far=time.perf_counter() - t_start)
 
@@ -980,13 +1436,15 @@ def run(dev) -> int:
               "chol_block": worst_large["chol_block"],
               "gram_panel": worst_large["gram_panel"],
               "panel_solve": worst_large["panel_solve"],
-              "diag_logdet": worst_large["diag_logdet"]}
+              "diag_logdet": worst_large["diag_logdet"],
+              "hist_panel": worst_pre["hist_panel"]}
     sources = {"gram_chol": ("gram_chol.cu", "pallas_chol.py:673"),
                "tri_inv": ("tri_inv.cu", "pallas_tri.py:39"),
                "chol_block": ("chol_block.cu", "pallas_chol.py:198"),
                "gram_panel": ("gram_panel.cu", "pallas_big.py:556"),
                "panel_solve": ("gram_panel.cu", "pallas_big.py:1005"),
-               "diag_logdet": ("diag_logdet.cu", "pallas_big.py:237")}
+               "diag_logdet": ("diag_logdet.cu", "pallas_big.py:237"),
+               "hist_panel": ("gram_panel.cu", "pallas_big.py:105")}
     lines = []
     for name, (src, tpu) in sources.items():
         r = per_kernel[name]

@@ -1,13 +1,18 @@
 """Command-line entry point: ``python -m gpvae_tpu_torch <command>``.
 
     python -m gpvae_tpu_torch list-presets
-    python -m gpvae_tpu_torch train --preset syn_data --steps 5000
+    python -m gpvae_tpu_torch train --preset syn_data --steps 5000 --ckpt-dir D
     python -m gpvae_tpu_torch train --preset syn_data --steps 5 --device cpu
     python -m gpvae_tpu_torch train --preset bench_t100 --time-len 1024
+    python -m gpvae_tpu_torch evaluate --preset syn_data --ckpt-dir D
+    python -m gpvae_tpu_torch evaluate --preset bench_t100 --time-len 1024 \
+        --num-seqs 320 --eval-batch 32 --ckpt-dir D
 
-``train`` runs on ``cuda`` unless ``--device`` says otherwise, and fails
-when no CUDA device is present.  The data are toy GP draws generated
-from ``--seed``.
+``train`` and ``evaluate`` run on ``cuda`` unless ``--device`` says
+otherwise, and fail when no CUDA device is present.  The data are toy GP
+draws generated from ``--seed`` (``evaluate --data`` reads a ``.npz`` of
+the same fields instead); ``evaluate`` scores the 10% of the sequences
+that ``train`` holds out.
 """
 from __future__ import annotations
 
@@ -26,39 +31,65 @@ def cmd_list_presets(_args):
         print(f"{name:20s} batch={p.batch_size:<5d} {p.description}")
 
 
+def _device(name: str):
+    import torch
+
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            "no CUDA device: pass --device cpu to run on the CPU"
+        )
+    return device
+
+
+def _model_config(args, preset):
+    if args.time_len:
+        return dataclasses.replace(preset.model, time_len=args.time_len)
+    return preset.model
+
+
+def _toy_split(args, model_cfg, data: str | None = None
+               ) -> tuple[dict, dict]:
+    """``(train, test)``: the first 90% of the toy sequences generated from
+    ``--seed`` (or read from the ``.npz`` ``data``) and the rest
+    (``gpvae_tpu/__main__.py:82-100``)."""
+    from gpvae_tpu_torch.data import generate_toy_data, toy_to_masked_batch
+
+    if data:
+        with np.load(data) as f:
+            raw = dict(f)
+    else:
+        raw = generate_toy_data(np.random.default_rng(args.seed),
+                                args.num_seqs, t=model_cfg.time_len,
+                                obs_dim=model_cfg.obs_dim)
+    batch = toy_to_masked_batch(raw)
+    n_train = int(0.9 * batch["x"].shape[0])
+    return ({k: v[:n_train] for k, v in batch.items()},
+            {k: v[n_train:] for k, v in batch.items()})
+
+
 def cmd_train(args):
     import torch
 
     from gpvae_tpu_torch import configs, train as train_lib
-    from gpvae_tpu_torch.data import (
-        Batcher, generate_toy_data, toy_to_masked_batch,
-    )
+    from gpvae_tpu_torch.data import Batcher
     from gpvae_tpu_torch.models import GPVAE
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(
-            "no CUDA device: pass --device cpu to train on the CPU"
-        )
+    device = _device(args.device)
     preset = configs.get(args.preset)
-    model_cfg = preset.model
-    if args.time_len:
-        model_cfg = dataclasses.replace(model_cfg, time_len=args.time_len)
+    model_cfg = _model_config(args, preset)
     train_cfg = preset.train
     overrides = {"seed": args.seed}
     if args.steps:
         overrides["num_steps"] = args.steps
     if args.log_every:
         overrides["log_every"] = args.log_every
+    if args.ckpt_dir:
+        overrides["checkpoint_dir"] = args.ckpt_dir
     train_cfg = dataclasses.replace(train_cfg, **overrides)
     batch_size = args.batch_size or preset.batch_size
 
-    rng = np.random.default_rng(args.seed)
-    batch = toy_to_masked_batch(generate_toy_data(
-        rng, args.num_seqs, t=model_cfg.time_len, obs_dim=model_cfg.obs_dim,
-    ))
-    n_train = int(0.9 * batch["x"].shape[0])
-    train = {k: v[:n_train] for k, v in batch.items()}
+    train, _ = _toy_split(args, model_cfg)
     model = GPVAE(model_cfg,
                   generator=torch.Generator().manual_seed(args.seed))
     state, log = train_lib.fit(
@@ -68,6 +99,52 @@ def cmd_train(args):
     final = log.rows[-1] if log.rows else {}
     print(f"done at step {state.step}: "
           f"loss={final.get('loss', float('nan')):.4f}")
+
+
+def cmd_evaluate(args):
+    """Restore the newest checkpoint of ``--ckpt-dir`` (without one, the
+    model's seeded initial weights) and print the imputation metrics of
+    the held-out sequences as one JSON line (``gpvae_tpu/__main__.py:
+    152-272``).  The kept mask and the baseline's noise come from a CPU
+    generator seeded with ``--seed``, so the card and the CPU score the
+    same dropped steps."""
+    import json
+
+    import torch
+
+    from gpvae_tpu_torch import analysis, configs, train as train_lib
+    from gpvae_tpu_torch.models import GPVAE
+
+    if args.plots or args.traversal is not None:
+        raise NotImplementedError(
+            "evaluate --plots/--traversal (utils/plotting, which needs "
+            "matplotlib): ROADMAP queue A item 11")
+    device = _device(args.device)
+    preset = configs.get(args.preset)
+    model_cfg = _model_config(args, preset)
+    _, test = _toy_split(args, model_cfg, args.data)
+    batch = train_lib.device_arrays(
+        {k: v[: args.eval_batch] for k, v in test.items()}, device)
+    model = GPVAE(model_cfg,
+                  generator=torch.Generator().manual_seed(args.seed))
+    state = train_lib.create_train_state(
+        model, train_lib.TrainConfig(seed=args.seed), device)
+    if args.ckpt_dir:
+        mgr = train_lib.CheckpointManager(args.ckpt_dir)
+        if mgr.restore_latest(state) is None:
+            raise SystemExit(f"no checkpoint found in {args.ckpt_dir}")
+        print(f"restored step {state.step}")
+    x, times, mask = batch["x"], batch["times"], batch["mask"]
+    metrics = analysis.imputation_metrics(
+        model, x, times, mask, drop_fraction=args.drop_fraction,
+        generator=torch.Generator().manual_seed(args.seed))
+    print(json.dumps(metrics))
+    if args.stats:
+        _, var_sorted = analysis.activation_stats(
+            model, x, times, mask, num_samples=args.stats_samples,
+            generator=torch.Generator().manual_seed(args.seed + 3))
+        print(json.dumps({"activation_variance_sorted": [
+            round(float(v), 6) for v in var_sorted.cpu()]}))
 
 
 def main(argv=None):
@@ -82,6 +159,8 @@ def main(argv=None):
                    help="toy sequences to generate (90%% train)")
     t.add_argument("--steps", type=int)
     t.add_argument("--log-every", type=int)
+    t.add_argument("--ckpt-dir", help="resume from and save checkpoints "
+                   "in this directory")
     t.add_argument("--csv")
     t.add_argument("--batch-size", type=int,
                    help="override the preset's batch size")
@@ -92,6 +171,30 @@ def main(argv=None):
                    "PyTorch versions of the kernels)")
     t.add_argument("--seed", type=int, default=0)
     t.set_defaults(fn=cmd_train)
+
+    e = sub.add_parser("evaluate")
+    e.add_argument("--preset", required=True)
+    e.add_argument("--ckpt-dir")
+    e.add_argument("--data", help=".npz of toy data (the fields of "
+                   "generate_toy_data) in place of generated sequences")
+    e.add_argument("--num-seqs", type=int, default=128,
+                   help="toy sequences to generate (the last 10%% scored)")
+    e.add_argument("--time-len", type=int)
+    e.add_argument("--eval-batch", type=int, default=16)
+    e.add_argument("--drop-fraction", type=float, default=0.5)
+    e.add_argument("--plots", help="not ported (needs matplotlib)")
+    e.add_argument("--traversal", type=int, help="not ported (a plot)")
+    e.add_argument("--stats", action="store_true",
+                   help="print MC activation/variance statistics")
+    e.add_argument("--stats-samples", type=int, default=100)
+    e.add_argument("--batch-size", type=int,
+                   help="the training batch size; evaluate scores "
+                   "--eval-batch sequences at once and does not read it")
+    e.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain "
+                   "PyTorch versions of the kernels)")
+    e.add_argument("--seed", type=int, default=0)
+    e.set_defaults(fn=cmd_evaluate)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -1,0 +1,245 @@
+"""Imputation and analysis of a trained GP-VAE.
+
+Counterpart of ``gpvae_tpu/analysis.py:36-293`` and ``:346-353``:
+
+* :func:`encode`, :func:`decode`, :func:`reconstruct`;
+* :func:`drop_timesteps` -- drop a fraction of the observed steps;
+* :func:`impute` -- GP-posterior imputation of the dropped steps, through
+  ``gp.posterior_conditional`` (the Cholesky of a pre-built gram on the
+  hand-written kernels, ``ops.chol.cholesky``, and ``ops.trsm``);
+* :func:`impute_vae_prior` -- the N(0, 1)-fill baseline;
+* :func:`latent_traversal`, :func:`traversal_from_gp`, :func:`prior_draws`
+  (dense prior only), :func:`activation_stats`;
+* :func:`imputation_metrics` -- the synthetic-imputation evaluation.
+
+The model is the port's ``GPVAE`` module, which holds its parameters, so
+no ``params`` argument goes with it.  Every function runs under
+``torch.no_grad()``.  Each random draw is an explicit argument (``eps``,
+``kept``) or comes from ``generator``; a draw from a generator is made in
+float32 on the generator's device and then moved to the data, so a CPU
+generator with one seed gives the same draws for a run on the card and
+one on the CPU, in either dtype.  (The JAX package draws from keys; its
+tests and this port's feed both the same numpy draws instead.)
+``pixel_imputation_metrics`` and ``make_artifact_callback`` arrive with
+the conv nets (ROADMAP slice 4).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gpvae_tpu_torch import gp
+from gpvae_tpu_torch.models import GPVAE
+
+
+def _draw(kind, shape: tuple, generator: torch.Generator | None):
+    """``torch.randn`` or ``torch.rand`` of ``shape`` from ``generator``
+    (the default CPU generator when None), float32 on its device."""
+    dev = generator.device if generator is not None else torch.device("cpu")
+    return kind(shape, generator=generator, dtype=torch.float32, device=dev)
+
+
+def _given(eps: torch.Tensor | None, shape: tuple, like: torch.Tensor,
+           generator: torch.Generator | None) -> torch.Tensor:
+    """``eps`` (its shape checked), else a standard normal draw moved to
+    the dtype and device of ``like``."""
+    if eps is None:
+        return _draw(torch.randn, shape, generator).to(like)
+    if tuple(eps.shape) != shape:
+        raise ValueError(f"eps must be {shape}, got {tuple(eps.shape)}")
+    return eps
+
+
+def _param_or_const(model: GPVAE, name: str) -> torch.Tensor:
+    """The log-lengthscales ``name`` the JAX package's analysis reads: the
+    learned parameter where the model learns it, else the config's
+    constant, ``log`` taken in float32 as the JAX model takes it (the
+    port's model holds that constant as a buffer of the same name)."""
+    params = dict(model.named_parameters())
+    if name in params:
+        return params[name]
+    cfg = model.config
+    raw = (cfg.prior_lengthscales if name == "prior_log_ls"
+           else cfg.posterior_lengthscales)
+    return torch.log(torch.tensor(cfg._ls_tuple(raw), dtype=torch.float32,
+                                  device=getattr(model, name).device))
+
+
+@torch.no_grad()
+def encode(model: GPVAE, x: torch.Tensor) -> torch.Tensor:
+    """``[B, T, obs_dim]`` -> latent means ``[B, T, Z]``."""
+    return model.encode(x)
+
+
+@torch.no_grad()
+def decode(model: GPVAE, z: torch.Tensor) -> torch.Tensor:
+    """Latents ``[..., Z]`` -> Bernoulli logits ``[..., obs_dim]``."""
+    return model.decode(z)
+
+
+@torch.no_grad()
+def reconstruct(model: GPVAE, x, times=None, mask=None, *,
+                num_samples: int = 1, eps=None, generator=None):
+    """Encode, draw from the posterior (``eps [S, B, Z, T]``), decode;
+    returns ``(probs [S, B, T, obs_dim], z [S, B, T, Z])``.  ``times``
+    defaults to ``0 .. T-1``."""
+    b, t = x.shape[:2]
+    if times is None:
+        times = torch.arange(t, dtype=x.dtype, device=x.device).expand(b, t)
+    eps = _given(eps, (num_samples, b, model.config.latent_dim, t), x,
+                 generator)
+    z, *_ = model.sample_posterior(x, times, mask, num_samples, eps=eps)
+    return torch.sigmoid(model.decode(z)), z
+
+
+@torch.no_grad()
+def drop_timesteps(mask: torch.Tensor, drop_fraction: float, *,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
+    """The kept mask: each observed step of ``mask [B, T]`` is dropped
+    with probability ``drop_fraction``."""
+    u = _draw(torch.rand, tuple(mask.shape), generator).to(mask.device)
+    return mask & (u >= drop_fraction)
+
+
+@torch.no_grad()
+def impute(model: GPVAE, x, times, mask, kept_mask, *, sample: bool = False,
+           use_prior_lengthscales: bool = True, eps=None, generator=None):
+    """GP-posterior imputation: encode, condition each latent dim's GP on
+    the kept steps, predict (``sample=False``) or draw (``eps [1, B, Z,
+    T]``) the latents on the full grid, keep the encoder means where kept,
+    decode.  Returns ``(probs [B, T, obs_dim], z_imputed [B, T, Z],
+    post)``.  The GP is the prior's (its lengthscales, learned or the
+    config's constant) unless ``use_prior_lengthscales=False``, which takes
+    the posterior's.  ``mask`` is not read: ``kept_mask`` already lies
+    inside it."""
+    mean = model.encode(x)
+    cfg = model.config
+    name = ("prior_log_ls" if cfg.prior in ("gp", "sparse_gp")
+            and use_prior_lengthscales else "posterior_log_ls")
+    ls = torch.exp(_param_or_const(model, name)).to(times.dtype)
+    post = gp.posterior_conditional(
+        times, mean * kept_mask[..., None].to(mean.dtype), times, ls,
+        mask_obs=kept_mask, kernel=cfg.kernel, noise=cfg.noise,
+        with_cov=sample)
+    if sample:
+        b, t, z = mean.shape
+        z_full = gp.posterior_sample(
+            post, eps=_given(eps, (1, b, z, t), mean, generator))[0]
+    else:
+        z_full = post.mean
+    z_imputed = torch.where(kept_mask[..., None], mean, z_full)
+    return torch.sigmoid(model.decode(z_imputed)), z_imputed, post
+
+
+@torch.no_grad()
+def impute_vae_prior(model: GPVAE, x, kept_mask, *, eps=None,
+                     generator=None):
+    """The baseline: dropped steps' latents are N(0, 1) draws (``eps [B, T,
+    Z]``).  Returns ``(probs, z)``."""
+    mean = model.encode(x)
+    noise = _given(eps, tuple(mean.shape), mean, generator)
+    z = torch.where(kept_mask[..., None], mean, noise)
+    return torch.sigmoid(model.decode(z)), z
+
+
+@torch.no_grad()
+def latent_traversal(model: GPVAE, z_base: torch.Tensor, dim: int, *,
+                     num_points: int = 8,
+                     prob_range: tuple[float, float] = (0.05, 0.95)):
+    """Tile ``z_base [Z]`` and sweep ``dim`` over a probit grid; returns
+    probs ``[num_points, obs_dim]``."""
+    from scipy.stats import norm
+
+    grid = torch.as_tensor(norm.ppf(np.linspace(*prob_range, num_points)),
+                           dtype=z_base.dtype, device=z_base.device)
+    z = z_base[None].repeat(num_points, 1)
+    z[:, dim] = grid
+    return torch.sigmoid(model.decode(z[None, :, None, :]))[0, :, 0]
+
+
+@torch.no_grad()
+def traversal_from_gp(model: GPVAE, times: torch.Tensor, dim: int, *,
+                      z_base=None, eps=None, generator=None):
+    """Sweep ``dim`` along a draw (``eps [1, 1, Z, T]``) from the learned
+    posterior GP over ``times [T]``; returns probs ``[T, obs_dim]``."""
+    cfg = model.config
+    ls = torch.exp(_param_or_const(model, "posterior_log_ls")).to(times.dtype)
+    l = gp.chol_gram_bank(times[None], ls, kernel=cfg.kernel, noise=cfg.noise)
+    t = times.shape[0]
+    eps = _given(eps, (1, 1, cfg.latent_dim, t), l, generator)
+    draw = gp.prior_sample(l, eps=eps)[0, 0]                  # [T, Z]
+    if z_base is None:
+        z_base = torch.zeros(cfg.latent_dim, dtype=draw.dtype,
+                             device=draw.device)
+    z = z_base[None].repeat(t, 1)
+    z[:, dim] = draw[:, dim]
+    return torch.sigmoid(model.decode(z[None, None]))[0, 0]
+
+
+@torch.no_grad()
+def prior_draws(model: GPVAE, times: torch.Tensor, *, num_samples: int = 1,
+                eps=None, generator=None) -> torch.Tensor:
+    """Latent trajectories from the model's GP prior over ``times [T]``
+    (``eps [S, 1, Z, T]``) -> ``[S, T, Z]``, through a dense Cholesky."""
+    cfg = model.config
+    if cfg.toeplitz_prior:
+        raise NotImplementedError(
+            "prior_draws with the Toeplitz structured prior (circulant "
+            "sampling): ROADMAP slice 5")
+    ls = torch.exp(_param_or_const(model, "prior_log_ls")).to(times.dtype)
+    l = gp.chol_gram_bank(times[None], ls, kernel=cfg.kernel, noise=cfg.noise)
+    eps = _given(eps, (num_samples, 1, cfg.latent_dim, times.shape[0]), l,
+                 generator)
+    return gp.prior_sample(l, num_samples, eps=eps)[:, 0]
+
+
+@torch.no_grad()
+def activation_stats(model: GPVAE, x, times, mask, *,
+                     num_samples: int = 100, eps=None, generator=None):
+    """Monte-Carlo per-dim latent statistics over ``eps [S, B, Z, T]``:
+    ``(mc_means [B, T, Z], per-dim variance of those means [Z], sorted
+    descending)``."""
+    b, t = x.shape[:2]
+    eps = _given(eps, (num_samples, b, model.config.latent_dim, t), x,
+                 generator)
+    z, *_ = model.sample_posterior(x, times, mask, num_samples, eps=eps)
+    mc_mean = z.mean(dim=0)
+    if mask is not None:
+        w = mask[..., None].to(mc_mean.dtype)
+        flat_mean = (mc_mean * w).sum((0, 1)) / w.sum((0, 1))
+        var = ((mc_mean - flat_mean) ** 2 * w).sum((0, 1)) / w.sum((0, 1))
+    else:
+        var = mc_mean.var(dim=(0, 1), unbiased=False)
+    return mc_mean, var[torch.argsort(-var)]
+
+
+@torch.no_grad()
+def imputation_metrics(model: GPVAE, x, times, mask, *,
+                       drop_fraction: float = 0.5, kept=None,
+                       baseline_eps=None, generator=None) -> dict:
+    """Drop ``drop_fraction`` of the observed steps (or take the kept mask
+    ``kept``), GP-impute their latents, decode, and score against ``x`` on
+    exactly the dropped steps: per-element Bernoulli NLL and MSE, beside
+    the N(0, 1)-fill baseline (noise ``baseline_eps [B, T, Z]``).  Draws
+    not given come from ``generator``, the kept mask first."""
+    if kept is None:
+        kept = drop_timesteps(mask, drop_fraction, generator=generator)
+    dropped = mask & ~kept
+
+    def score(probs):
+        p = torch.clamp(probs, 1e-6, 1.0 - 1e-6)
+        nll = -(x * torch.log(p) + (1.0 - x) * torch.log1p(-p))
+        mse = (probs - x) ** 2
+        w = dropped[..., None].to(p.dtype).expand_as(nll)
+        denom = torch.clamp(w.sum(), min=1.0)
+        return (float((nll * w).sum() / denom),
+                float((mse * w).sum() / denom))
+
+    probs_gp, _, _ = impute(model, x, times, mask, kept)
+    nll_gp, mse_gp = score(probs_gp)
+    probs_base, _ = impute_vae_prior(model, x, kept, eps=baseline_eps,
+                                     generator=generator)
+    nll_b, mse_b = score(probs_base)
+    return {"dropped_steps": int(dropped.sum()),
+            "nll_gp_impute": nll_gp, "mse_gp_impute": mse_gp,
+            "nll_baseline": nll_b, "mse_baseline": mse_b}

@@ -34,8 +34,12 @@
 // substitution with one thread per column and four partial sums.
 //
 // Numerics follow _chol_lane_body and _chol_inv_body_flat:
-// d_j = rsqrt(max(a_jj, 1e-20)), L[:, j] = a[:, j] d_j, and row j of X is
-// (e_j - L[j, :j] X[:j]) d_j.
+// d_j = rsqrt(a_jj), L[:, j] = a[:, j] d_j, and row j of X is
+// (e_j - L[j, :j] X[:j]) d_j.  The TPU kernels floor a_jj at 1e-20; this
+// one does not, so a block that is not positive definite in float32 gets
+// NaN (a negative pivot) or inf/NaN (a zero one) from that column on, as
+// the library factorization the JAX package takes off the TPU gives NaN,
+// where the floor would give finite garbage.
 
 #include <cuda_runtime.h>
 
@@ -47,7 +51,6 @@ constexpr int kMaxT = 128;
 constexpr int kPitch = kMaxT + 1;  // row pitch of the shared matrices
 constexpr int kThreads = 512;
 constexpr int kGroups = kThreads / kMaxT;  // rows a column's threads split
-constexpr float kDiagEps = 1e-20f;
 // dinv, times and mask, then the block, then X
 constexpr int kSmallFloats = 3 * kMaxT;
 constexpr size_t kMaxSmem =
@@ -122,7 +125,7 @@ __global__ void __launch_bounds__(kThreads) chol_block_kernel(Params p) {
   const int g = tid / kMaxT;
   for (int j = 0; j < t; ++j) {
     __syncthreads();
-    const float d = rsqrtf(fmaxf(a[j * kPitch + j], kDiagEps));
+    const float d = rsqrtf(a[j * kPitch + j]);
     if (tid == 0) dinv[j] = d;
     if (k > j && k < t) {
       const float ck = a[k * kPitch + j] * d;

@@ -1,14 +1,19 @@
-// The two panel kernels of the blocked, left-looking Cholesky with the
-// gram built in-kernel (ops/blocked.py cholesky_gram_inplace).  Block
-// column b starts at column o and is w <= 128 wide; L is [n, T, T] with
-// its rows at stride ld, and every write goes into L in place.
+// The panel kernels of the blocked, left-looking Cholesky (ops/blocked.py):
+// cholesky_gram_inplace, with the gram built in-kernel, and
+// cholesky_inplace, of a pre-built gram bank.  Block column b starts at
+// column o and is w <= 128 wide; L is [n, T, T] with its rows at stride
+// ld, and every write goes into L in place.
 //
-// gram_panel (K2): for rows r in [r0, T) and columns c in [o, o + w)
+// The panel, for rows r in [r0, T) and columns c in [o, o + w):
 //
 //   L[r, c] = K[r, c] - sum_{k < o} L[r, k] L[c, k]
 //
-// with K built from the time vectors (gram.cuh), so the [n, T, T] gram
-// never exists in device memory.
+// with K, by template parameter, either
+//   gram_panel (K2): built from the time vectors (gram.cuh), so the
+//     [n, T, T] gram never exists in device memory, or
+//   hist_panel (K5): read from a pre-built bank K [n, T, T] at its own
+//     matrix and row strides.  K is only read: the caller's K comes back
+//     unchanged.  At o = 0 the panel is a copy of K's column block.
 //
 // panel_solve (K3): for rows r in [o + w, T), once the diagonal block
 // L_d = L[o:o+w, o:o+w] is factored in place,
@@ -18,24 +23,34 @@
 // by substitution against L_d, and zeros into the mirrored upper tile
 // L[o:o+w, r].
 //
-// Together they replace the TPU kernels pallas_big._make_defer1_kernel
-// (B9, the b = 1 step) and _make_defer_kernel with the gram (B10, b >= 2).
+// gram_panel and panel_solve replace the TPU kernels
+// pallas_big._make_defer1_kernel (B9, the b = 1 step) and
+// _make_defer_kernel with the gram (B10, b >= 2).  hist_panel replaces
+// the pre-built-gram history kernels: pallas_big._hist_kernel (B14) and
+// _hist2_kernel (B15, the same panel split in two outputs), the panel half
+// of _make_defer_kernel without the gram (B18), and
+// pallas_left._make_kernel (B19, the streamed panel of the 64 < T < 768
+// route); with panel_solve it also does the column work of
+// pallas_big._init_kernel (B16) and _wb_kernel (B17).
 // The TPU defers each column's product with the block's inverse into the
-// next step's kernel to save a pass over HBM on its in-order grid, and
-// multiplies by an explicit inverse so that its matrix unit does the
-// work.  Here blocks run in parallel and the column is finished in its
-// own step, and it is solved, not multiplied: in float32 the explicit
-// inverse left the factor 3-4x the library's error from the float64
-// factor at T = 256-1024, the substitution 1.5-2x (CPU emulation of both
-// on the same inputs).  The solve multiplies by 1 / L_d[c, c], which may
-// differ from a division in the last bit.
+// next step's kernel to save a pass over HBM on its in-order grid, cuts
+// the panel into VMEM-sized slabs, and multiplies by an explicit inverse
+// so that its matrix unit does the work.  Here blocks run in parallel and
+// the column is finished in its own step, and it is solved, not
+// multiplied: in float32 the explicit inverse left the factor 3-4x the
+// library's error from the float64 factor at T = 256-1024, the
+// substitution 1.5-2x (CPU emulation of both on the same inputs).  The
+// solve multiplies by 1 / L_d[c, c], which may differ from a division in
+// the last bit.
 //
-// What bounds them on Hopper: gram_panel is the factorization's floating
+// What bounds them on Hopper: the panel is the factorization's floating
 // point work (n T^3 / 3 over all steps: 46 GFLOP at T = 1024, n = 128), a
 // batched fp32 product with a history depth of up to T - 128.  It is a
 // classic shared-memory SGEMM tile: 64 x 64 outputs per block, depth 16 per
 // stage, 4 x 4 outputs per thread in registers, plain fp32 FMA (no TF32,
-// no tensor cores: the covariance path stays fp32).  panel_solve is
+// no tensor cores: the covariance path stays fp32).  hist_panel reads its
+// 64 x 64 K tile (16 KB) where gram_panel builds it, beside the 2 * 64 * o
+// floats of history a block streams.  panel_solve is
 // serial in the w columns of a row but rows are independent: a block
 // holds L_d (66 KB) in shared memory and 32 rows in registers, eight
 // lanes a row, and the column loop is unrolled so each lane's 16 values
@@ -59,6 +74,7 @@ struct PanelParams {
   float* l;
   long long l_mat;
   int ld;
+  // gram_panel: K built from the time vectors
   const float* times;  // [n, tlen]
   const float* mask;   // [n, tlen]
   const float* ls;     // [n]
@@ -67,11 +83,17 @@ struct PanelParams {
   int code;
   float noise;
   float one_minus_noise;
+  // hist_panel: K read from a pre-built bank
+  const float* k;
+  long long k_mat;
+  int kld;
   int r0, o, w, t;
 };
 
-__global__ void __launch_bounds__(kPanelThreads)
-gram_panel_kernel(PanelParams p) {
+// One 64 x 64 tile of the panel; kGram says where K comes from.  The
+// history loop and its bounds checks are the same for both.
+template <bool kGram>
+__device__ __forceinline__ void panel_tile(const PanelParams& p) {
   __shared__ __align__(16) float as[kBK][kBM + 4];  // as[k][m] = L[row m, k]
   __shared__ __align__(16) float bs[kBK][kBN + 4];  // bs[k][c] = L[col c, k]
   __shared__ float tr[kBM], mr[kBM], tc[kBN], mc[kBN];
@@ -83,18 +105,20 @@ gram_panel_kernel(PanelParams p) {
   const int tx = tid % 16;  // columns tx*4 .. tx*4+3
   const int ty = tid / 16;  // rows ty*4 .. ty*4+3
   float* lm = p.l + (size_t)n * p.l_mat;
-  const size_t vb = (size_t)n * p.tlen;
 
-  if (tid < kBM) {
-    const int r = row0 + tid;
-    tr[tid] = (r < p.t) ? p.times[vb + r] : 0.0f;
-    mr[tid] = (r < p.t) ? p.mask[vb + r] : 0.0f;
-  } else if (tid < kBM + kBN) {
-    const int c = col0 + tid - kBM;
-    tc[tid - kBM] = (c < p.w) ? p.times[vb + p.o + c] : 0.0f;
-    mc[tid - kBM] = (c < p.w) ? p.mask[vb + p.o + c] : 0.0f;
+  if constexpr (kGram) {
+    const size_t vb = (size_t)n * p.tlen;
+    if (tid < kBM) {
+      const int r = row0 + tid;
+      tr[tid] = (r < p.t) ? p.times[vb + r] : 0.0f;
+      mr[tid] = (r < p.t) ? p.mask[vb + r] : 0.0f;
+    } else if (tid < kBM + kBN) {
+      const int c = col0 + tid - kBM;
+      tc[tid - kBM] = (c < p.w) ? p.times[vb + p.o + c] : 0.0f;
+      mc[tid - kBM] = (c < p.w) ? p.mask[vb + p.o + c] : 0.0f;
+    }
+    __syncthreads();  // the time vectors, for the epilogue
   }
-  __syncthreads();  // the time vectors, for the epilogue
 
   float acc[4][4] = {};
   for (int k0 = 0; k0 < p.o; k0 += kBK) {
@@ -131,8 +155,14 @@ gram_panel_kernel(PanelParams p) {
     __syncthreads();
   }
 
-  const float lsn = p.ls[n];
-  const float varn = p.var[n];
+  float lsn = 0.0f, varn = 0.0f;
+  const float* km = nullptr;
+  if constexpr (kGram) {
+    lsn = p.ls[n];
+    varn = p.var[n];
+  } else {
+    km = p.k + (size_t)n * p.k_mat;
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = ty * 4 + i;
@@ -143,12 +173,26 @@ gram_panel_kernel(PanelParams p) {
       const int c = tx * 4 + j;
       const int gc = p.o + col0 + c;
       if (col0 + c >= p.w) continue;
-      const float kv = gpvae::gram_value(p.code, tr[m], tc[c], mr[m], mc[c],
-                                         lsn, varn, p.noise,
-                                         p.one_minus_noise, r == gc);
+      float kv;
+      if constexpr (kGram) {
+        kv = gpvae::gram_value(p.code, tr[m], tc[c], mr[m], mc[c], lsn, varn,
+                               p.noise, p.one_minus_noise, r == gc);
+      } else {
+        kv = km[(size_t)r * p.kld + gc];
+      }
       lm[(size_t)r * p.ld + gc] = kv - acc[i][j];
     }
   }
+}
+
+__global__ void __launch_bounds__(kPanelThreads)
+gram_panel_kernel(PanelParams p) {
+  panel_tile<true>(p);
+}
+
+__global__ void __launch_bounds__(kPanelThreads)
+hist_panel_kernel(PanelParams p) {
+  panel_tile<false>(p);
 }
 
 // -- panel_solve -------------------------------------------------------------
@@ -258,14 +302,50 @@ int gpvae_gram_panel_f32(void* l, long long l_mat, int ld, const void* times,
       r0 < o || n > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  PanelParams p = {(float*)l,          l_mat,          ld,
-                   (const float*)times, (const float*)mask,
-                   (const float*)ls,   (const float*)var,
-                   tlen,               code,           noise,
-                   one_minus_noise,    r0,             o,
-                   w,                  t};
+  PanelParams p = {};
+  p.l = (float*)l;
+  p.l_mat = l_mat;
+  p.ld = ld;
+  p.times = (const float*)times;
+  p.mask = (const float*)mask;
+  p.ls = (const float*)ls;
+  p.var = (const float*)var;
+  p.tlen = tlen;
+  p.code = code;
+  p.noise = noise;
+  p.one_minus_noise = one_minus_noise;
+  p.r0 = r0;
+  p.o = o;
+  p.w = w;
+  p.t = t;
   const dim3 grid((w + kBN - 1) / kBN, (t - r0 + kBM - 1) / kBM, n);
   gram_panel_kernel<<<grid, kPanelThreads, 0, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// l as above; k: [n, t, t] float32 at matrix stride k_mat and row stride
+// kld, read only (it must not overlap l).  Writes rows [r0, t) of columns
+// [o, o + w) of l.
+int gpvae_hist_panel_f32(void* l, long long l_mat, int ld, const void* k,
+                         long long k_mat, int kld, int r0, int o, int w,
+                         int t, int n, void* stream) {
+  if (n <= 0 || r0 >= t) return 0;
+  if (w < 1 || o < 0 || o + w > t || r0 < o || n > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  PanelParams p = {};
+  p.l = (float*)l;
+  p.l_mat = l_mat;
+  p.ld = ld;
+  p.k = (const float*)k;
+  p.k_mat = k_mat;
+  p.kld = kld;
+  p.r0 = r0;
+  p.o = o;
+  p.w = w;
+  p.t = t;
+  const dim3 grid((w + kBN - 1) / kBN, (t - r0 + kBM - 1) / kBM, n);
+  hist_panel_kernel<<<grid, kPanelThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

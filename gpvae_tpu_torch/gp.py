@@ -1,26 +1,31 @@
-"""GP machinery of the main path: the differentiable factored gram bank,
-the GP KL on the inverse route, and correlated latent sampling.
+"""GP machinery: the differentiable factored gram bank, the GP KL on the
+inverse route, correlated latent sampling, and GP-posterior conditioning.
 
-Counterpart of four pieces of ``gpvae_tpu/gp.py``: ``_tri_tri_frob2``
+Counterpart of these pieces of ``gpvae_tpu/gp.py``: ``_tri_tri_frob2``
 (:60-92), ``chol_gram_bank`` with its custom gradient and its two
-forward routes (:108-232), ``gp_kl`` on its inverse route (:270-302) and
-``gp_sample`` (:526-557).  The port has a single route for each: on a
-CUDA tensor the factors come from the hand-written kernels (T <= 64:
-``gram_chol``; larger T: the blocked ``ops.blocked`` factorization) and
-the KL's inverse from ``ops.tri_inv``, on a CPU tensor from their plain
-versions.
+forward routes (:108-232), ``gp_kl`` on its inverse route (:270-302),
+``gp_sample`` (:526-557), ``prior_sample`` (:606-619) and the imputation
+path, ``GPPosterior``, ``posterior_conditional`` and ``posterior_sample``
+(:626-721).  The port has a single route for each: on a CUDA tensor the
+factors come from the hand-written kernels (T <= 64: ``gram_chol``;
+larger T: the blocked ``ops.blocked`` factorization; a pre-built gram:
+``ops.chol.cholesky``) and the inverses from ``ops.tri_inv``, on a CPU
+tensor from their plain versions.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from gpvae_tpu_torch import kernels as kernels_lib
 from gpvae_tpu_torch.ops import gram_chol
 from gpvae_tpu_torch.ops.blocked import cholesky_gram_inplace
-from gpvae_tpu_torch.ops.chol import cholesky_bwd_from_l
+from gpvae_tpu_torch.ops.chol import cholesky, cholesky_bwd_from_l
 from gpvae_tpu_torch.ops.gram_chol import flat_bank, gram_chol_fused
 from gpvae_tpu_torch.ops.logdet import logdet_from_chol
 from gpvae_tpu_torch.ops.tri_inv import tri_inv
+from gpvae_tpu_torch.ops.trsm import solve_triangular
 
 
 def _tri_tri_frob2(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -115,7 +120,7 @@ def chol_gram_bank(
     """
     if diff_times:
         raise NotImplementedError(
-            "chol_gram_bank(diff_times=True): ROADMAP slice 3"
+            "chol_gram_bank(diff_times=True): ROADMAP slice 4"
         )
     if kernel not in kernels_lib.KERNELS:
         raise ValueError(
@@ -172,6 +177,19 @@ def gp_kl(
 # Reparameterized sampling
 # ---------------------------------------------------------------------------
 
+def _noise(shape: tuple, like: torch.Tensor, eps: torch.Tensor | None,
+           generator: torch.Generator | None) -> torch.Tensor:
+    """``eps`` when given (tests feed the JAX package's own draws; its
+    shape is checked), else standard normal of ``shape`` from
+    ``generator`` on the device of ``like``."""
+    if eps is None:
+        return torch.randn(shape, generator=generator, dtype=like.dtype,
+                           device=like.device)
+    if eps.shape != shape:
+        raise ValueError(f"eps must be {shape}, got {tuple(eps.shape)}")
+    return eps
+
+
 def gp_sample(
     mu: torch.Tensor,
     l_q: torch.Tensor,
@@ -183,20 +201,13 @@ def gp_sample(
 ) -> torch.Tensor:
     """Correlated reparameterized samples ``z = mu + L eps`` -> [S, B, T, Z].
 
-    The noise is ``eps [S, B, Z, T]`` when given (tests feed the JAX
-    package's own draws), else standard normal from ``generator`` on the
-    device of ``mu``.  ``l_q`` with leading dim 1 is shared across the
-    batch.
+    The noise is ``eps [S, B, Z, T]`` when given, else standard normal
+    from ``generator`` on the device of ``mu``.  ``l_q`` with leading dim
+    1 is shared across the batch.
     """
     b = mu.shape[0]
     _, z, t, _ = l_q.shape
-    if eps is None:
-        eps = torch.randn((num_samples, b, z, t), generator=generator,
-                          dtype=mu.dtype, device=mu.device)
-    elif eps.shape != (num_samples, b, z, t):
-        raise ValueError(
-            f"eps must be {(num_samples, b, z, t)}, got {tuple(eps.shape)}"
-        )
+    eps = _noise((num_samples, b, z, t), mu, eps, generator)
     if l_q.shape[0] == 1 and b > 1:
         corr = torch.einsum("zij,sbzj->sbiz", l_q[0], eps)
     else:
@@ -205,3 +216,108 @@ def gp_sample(
     if mask is not None:
         out = out * mask.to(out.dtype)[None, :, :, None]
     return out
+
+
+def prior_sample(
+    l_p: torch.Tensor,
+    num_samples: int = 1,
+    *,
+    eps: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """Latent trajectories from the GP prior, ``z = L_p eps`` -> ``[S, B,
+    T, Z]``; ``eps [S, B, Z, T]`` or drawn from ``generator``."""
+    b, z, t, _ = l_p.shape
+    eps = _noise((num_samples, b, z, t), l_p, eps, generator)
+    return torch.einsum("bzij,sbzj->sbiz", l_p, eps)
+
+
+# ---------------------------------------------------------------------------
+# GP posterior conditioning (imputation)
+# ---------------------------------------------------------------------------
+
+class GPPosterior(NamedTuple):
+    mean: torch.Tensor         # [B, Tq, Z]
+    cov: torch.Tensor | None   # [B, Z, Tq, Tq], None without the covariance
+
+
+def _jitter(dtype: torch.dtype) -> float:
+    """The diagonal added before a factorization: float32 needs about 1e-5
+    of headroom on near-singular RBF grams, 1e-6 is a float64 habit."""
+    return 1e-6 if dtype.itemsize >= 8 else 1e-5
+
+
+def posterior_conditional(
+    times_obs: torch.Tensor,
+    z_obs: torch.Tensor,
+    times_query: torch.Tensor,
+    lengthscales: torch.Tensor,
+    *,
+    mask_obs: torch.Tensor | None = None,
+    kernel: str = "rbf",
+    noise: float = kernels_lib.DEFAULT_NOISE,
+    variance: torch.Tensor | float = 1.0,
+    jitter: float | None = None,
+    with_cov: bool = True,
+) -> GPPosterior:
+    """Batched GP conditioning ``p(z(t_query) | z(t_obs))`` per latent dim:
+
+        L   = chol(K_oo + jitter I)
+        A   = L^{-1} K_oq
+        m*  = A^T L^{-1} z_obs
+        S*  = K_qq - A^T A
+
+    Masked observations are identity rows of ``K_oo`` and zero rows of
+    ``K_oq`` and ``z_obs``, contributing nothing.  ``times_obs [B, To]``,
+    ``z_obs [B, To, Z]``, ``times_query [B, Tq]``.  ``with_cov=False``
+    skips ``K_qq`` and ``S*`` and returns ``cov=None``.
+
+    ``A`` and ``L^{-1} z`` come from ONE solve against the columns of
+    ``[K_oq, z]`` (one inverse of ``L`` on CUDA, where the JAX package
+    solves twice and leaves XLA to merge the two).
+    """
+    if jitter is None:
+        jitter = _jitter(times_obs.dtype)
+    k_oo = kernels_lib.gram_bank(times_obs, lengthscales, kernel=kernel,
+                                 noise=noise, variance=variance,
+                                 mask=mask_obs)
+    t_o, t_q = times_obs.shape[-1], times_query.shape[-1]
+    k_oo = k_oo + jitter * torch.eye(t_o, dtype=k_oo.dtype,
+                                     device=k_oo.device)
+    k_oq = kernels_lib.cross_gram(times_obs, times_query, lengthscales,
+                                  kernel=kernel, noise=noise,
+                                  variance=variance, mask_a=mask_obs)
+    l = cholesky(k_oo)
+    z_bz = z_obs.mT[..., None]                          # [B, Z, To, 1]
+    if mask_obs is not None:
+        z_bz = z_bz * mask_obs.to(z_bz.dtype)[:, None, :, None]
+    solved = solve_triangular(l, torch.cat([k_oq, z_bz], dim=-1))
+    a, alpha = solved[..., :t_q], solved[..., t_q:]     # L^{-1} K_oq, L^{-1} z
+    mean = (a.mT @ alpha)[..., 0].mT                    # [B, Tq, Z]
+    if not with_cov:
+        return GPPosterior(mean=mean, cov=None)
+    k_qq = kernels_lib.gram_bank(times_query, lengthscales, kernel=kernel,
+                                 noise=noise, variance=variance)
+    return GPPosterior(mean=mean, cov=k_qq - a.mT @ a)
+
+
+def posterior_sample(
+    post: GPPosterior,
+    num_samples: int = 1,
+    jitter: float | None = None,
+    *,
+    eps: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """Trajectories from a conditioned posterior (with its covariance) ->
+    ``[S, B, Tq, Z]``; ``eps [S, B, Z, Tq]`` or drawn from ``generator``.
+    Where ``S* + jitter I`` is not positive definite in its dtype the
+    factor, and so the draw, holds NaN."""
+    b, z, tq, _ = post.cov.shape
+    if jitter is None:
+        jitter = _jitter(post.cov.dtype)
+    cov = post.cov + jitter * torch.eye(tq, dtype=post.cov.dtype,
+                                        device=post.cov.device)
+    l = cholesky(cov)
+    eps = _noise((num_samples, b, z, tq), post.mean, eps, generator)
+    return post.mean[None] + torch.einsum("bzij,sbzj->sbiz", l, eps)

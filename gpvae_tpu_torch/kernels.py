@@ -1,6 +1,6 @@
 """Stationary GP kernel functions and batched gram construction.
 
-Counterpart of ``gpvae_tpu/kernels.py:42-183``.  The gram keeps the JAX
+Counterpart of ``gpvae_tpu/kernels.py:42-222``.  The gram keeps the JAX
 package's semantics exactly: ``K = (1 - noise) * variance * k(dt) +
 noise * I``, and with a mask (True = observed) masked rows and columns
 become identity, ``K = M K M + (I - diag m)``, so the factorization stays
@@ -143,3 +143,35 @@ def gram_bank(
     return _masked_identity(
         k, None if mask is None else mask[:, None, :], noise
     )
+
+
+def cross_gram(
+    times_a: torch.Tensor,
+    times_b: torch.Tensor,
+    lengthscales: torch.Tensor,
+    *,
+    kernel: str | KernelFn = "rbf",
+    noise: float = DEFAULT_NOISE,
+    variance: torch.Tensor | float = 1.0,
+    mask_a: torch.Tensor | None = None,
+    mask_b: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Rectangular cross-covariance ``K [B, Z, Ta, Tb]`` between the grids
+    ``times_a [B, Ta]`` and ``times_b [B, Tb]``: ``(1 - noise) * variance
+    * k(dt)``, the signal part of the square gram with no noise diagonal.
+    Masked rows (``mask_a``) and columns (``mask_b``) are zero."""
+    kfn = get_kernel(kernel) if isinstance(kernel, str) else kernel
+    dt = times_a[:, None, :, None] - times_b[:, None, None, :]  # [B,1,Ta,Tb]
+    if lengthscales.dim() == 1:
+        ls = lengthscales[None, :, None, None]
+    else:
+        ls = lengthscales[:, :, None, None]
+    variance = torch.as_tensor(variance, dtype=dt.dtype, device=dt.device)
+    if variance.dim() == 1:
+        variance = variance[None, :, None, None]
+    k = (1.0 - noise) * variance * kfn(dt, ls.to(dt.dtype))
+    if mask_a is not None:
+        k = k * mask_a.to(k.dtype)[:, None, :, None]
+    if mask_b is not None:
+        k = k * mask_b.to(k.dtype)[:, None, None, :]
+    return k

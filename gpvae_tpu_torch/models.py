@@ -1,6 +1,7 @@
 """The GP-VAE as a PyTorch module.
 
-Counterpart of ``gpvae_tpu/models.py:49-172`` and ``:251-511``.
+Counterpart of ``gpvae_tpu/models.py:49-172`` and ``:251-511``, with
+``sample_posterior`` (:396-418) for the GP posterior.
 ``GPVAEConfig`` keeps the JAX package's field names and validation, so a
 preset reads the same in both packages.  ``GPVAE`` ports the main path:
 a GP posterior with learnable lengthscales against a GP prior, dense
@@ -120,27 +121,32 @@ class GPVAEConfig:
             or self.posterior in ("gp", "gp_plus_diag")
         )
 
+    @property
+    def toeplitz_prior(self) -> bool:
+        return (self.prior == "gp" and self.shared_time_grid
+                and self.structured_prior == "toeplitz")
+
 
 def check_ported(config: GPVAEConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration outside the
     port's first slice, naming the ROADMAP slice that brings it."""
     if config.prior == "sparse_gp":
-        raise NotImplementedError("sparse_gp (FITC) prior: ROADMAP slice 4")
+        raise NotImplementedError("sparse_gp (FITC) prior: ROADMAP slice 5")
     if config.structured_prior == "toeplitz":
         raise NotImplementedError(
-            "toeplitz structured prior: ROADMAP slice 4"
+            "toeplitz structured prior: ROADMAP slice 5"
         )
     if config.prior != "gp" or config.posterior != "gp":
         raise NotImplementedError(
             f"prior={config.prior!r} posterior={config.posterior!r}: "
-            "ROADMAP slice 3 (the port has gp/gp)"
+            "ROADMAP slice 4 (the port has gp/gp)"
         )
     if config.encoder != "dense" or config.decoder != "dense":
-        raise NotImplementedError("conv nets: ROADMAP slice 3")
+        raise NotImplementedError("conv nets: ROADMAP slice 4")
     if config.likelihood != "bernoulli":
-        raise NotImplementedError("gaussian likelihood: ROADMAP slice 3")
+        raise NotImplementedError("gaussian likelihood: ROADMAP slice 4")
     if config.shared_time_grid:
-        raise NotImplementedError("shared_time_grid: ROADMAP slice 3")
+        raise NotImplementedError("shared_time_grid: ROADMAP slice 4")
     if config.cov_impl == "xla":
         raise NotImplementedError(
             "cov_impl='xla' (the composed baseline): ROADMAP slice 6"
@@ -215,6 +221,31 @@ class GPVAE(nn.Module):
         return {"l_q": l_all[:, : c.latent_dim],
                 "l_p": l_all[:, c.latent_dim:]}
 
+    def sample_posterior(
+        self,
+        x: torch.Tensor,
+        times: torch.Tensor,
+        mask: torch.Tensor | None,
+        num_samples: int,
+        *,
+        aux: dict[str, torch.Tensor] | None = None,
+        eps: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ):
+        """Encode and draw from the GP posterior (``models.py:396-418``):
+        ``(z [S, B, T, Z], mean [B, T, Z], log_var, aux)``, with ``log_var``
+        None (the GP posterior has none) and ``aux`` the factors of
+        :meth:`chol_banks` unless given.  The noise is ``eps [S, B, Z, T]``
+        when given, else drawn from ``generator`` on ``x``'s device."""
+        mean = self.encode(x)
+        if mask is not None:
+            mean = mean * mask.to(mean.dtype)[..., None]
+        if aux is None:
+            aux = self.chol_banks(times, mask)
+        z = gp.gp_sample(mean, aux["l_q"], num_samples, mask, eps=eps,
+                         generator=generator)
+        return z, mean, None, aux
+
     def forward(
         self,
         x: torch.Tensor,
@@ -231,12 +262,8 @@ class GPVAE(nn.Module):
         when given, else drawn from ``generator`` on ``x``'s device."""
         c = self.config
         s = num_samples if num_samples is not None else c.num_samples
-        mean = self.encode(x)
-        if mask is not None:
-            mean = mean * mask.to(mean.dtype)[..., None]
-        aux = self.chol_banks(times, mask)
-        z = gp.gp_sample(mean, aux["l_q"], s, mask, eps=eps,
-                         generator=generator)
+        z, mean, _, aux = self.sample_posterior(x, times, mask, s, eps=eps,
+                                                generator=generator)
         kl_b = torch.sum(gp.gp_kl(mean, aux["l_q"], aux["l_p"], mask), dim=-1)
         logits = self.decode(z)
         nll_b = elbo_lib.bernoulli_nll(logits, x, mask)

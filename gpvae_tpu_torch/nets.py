@@ -6,7 +6,7 @@ Counterpart of ``gpvae_tpu/nets.py:35-93``: the reference's ReLU MLPs
 biases.  Decoders return Bernoulli logits.  A float32 matmul runs in full
 float32 as long as ``torch.backends.cuda.matmul.allow_tf32`` stays False
 (PyTorch's default), the counterpart of the JAX package's
-``precision=HIGHEST``.  The conv nets are ROADMAP slice 3.
+``precision=HIGHEST``.  The conv nets are ROADMAP slice 4.
 """
 from __future__ import annotations
 

@@ -4,15 +4,18 @@
   kernel, T <= 64 (``csrc/gram_chol.cu``),
 * :mod:`.chol_block` -- the factor (and inverse) of SPD blocks of side
   <= 128, pre-built or built from the time vectors (``csrc/chol_block.cu``),
-* :mod:`.blocked` -- ``cholesky_gram_inplace``: the blocked large-T
-  factorization with in-kernel gram tiles (``csrc/gram_panel.cu`` and
-  ``chol_block``),
+* :mod:`.blocked` -- the blocked large-T factorizations
+  (``csrc/gram_panel.cu`` and ``chol_block``): ``cholesky_gram_inplace``
+  with in-kernel gram tiles, ``cholesky_inplace`` of a pre-built bank,
 * :mod:`.tri_inv` -- ``tri_inv``: batched lower-triangular inverse
   (``csrc/tri_inv.cu`` at the base, matmul merges above), differentiable,
-* :mod:`.chol` -- ``cholesky_bwd_from_l``: the Cholesky reverse mode on
-  the inverse route,
+* :mod:`.chol` -- ``cholesky``: the differentiable Cholesky of a
+  pre-built matrix, and ``cholesky_bwd_from_l``, its reverse mode on the
+  inverse route,
+* :mod:`.trsm` -- ``solve_triangular``: through ``tri_inv`` on CUDA,
 * :mod:`.logdet` -- ``logdet_from_chol``: logdet from the factor's
-  diagonal (``csrc/diag_logdet.cu`` for large factors).
+  diagonal (``csrc/diag_logdet.cu`` for large factors); ``chol_logdet``,
+  ``slogdet_psd``.
 
 A CUDA tensor goes to the kernel, a CPU tensor to the plain PyTorch
 version beside it (:mod:`.dispatch`).  The submodules keep their names
@@ -20,8 +23,8 @@ here: ``ops.tri_inv`` is the module, whose ``LAUNCHES`` counter a run
 reads.
 """
 from gpvae_tpu_torch.ops import (
-    blocked, chol, chol_block, dispatch, gram_chol, logdet, tri_inv,
+    blocked, chol, chol_block, dispatch, gram_chol, logdet, tri_inv, trsm,
 )
 
 __all__ = ["blocked", "chol", "chol_block", "dispatch", "gram_chol",
-           "logdet", "tri_inv"]
+           "logdet", "tri_inv", "trsm"]

@@ -1,15 +1,20 @@
-"""Fused gram construction + blocked in-place Cholesky for large T.
+"""Blocked in-place Cholesky for large T: of a gram built in-kernel, and of
+a pre-built gram bank.
 
 Counterpart of ``gpvae_tpu/ops/pallas_big.py:1126-1253``
-(``cholesky_gram_inplace``, ``_nb_for_t``) and of what its kernels
-compute: ``_gram_tile`` :489 and the TPU kernels B7, B9, B10, B11 and B12
-(ROADMAP queue B).  ``L [N, T, T]`` is factored left-looking in column
-blocks of ``NB`` = 128 and every ``K`` tile is built from the ``O(N T)`` time
-vectors, so the ``[N, T, T]`` gram never exists in device memory.  Per
-block column ``b`` at offset ``o`` and width ``w``:
+(``cholesky_gram_inplace``, ``_nb_for_t``) and ``:1256-1317``
+(``cholesky_inplace``), of the JAX package's 64 < T < 768 route
+``chol.cholesky_blocked_left_streamed`` (``chol.py:338-392``), and of what
+their kernels compute: ``_gram_tile`` :489 and the TPU kernels B7, B9-B12
+and B14-B21 (ROADMAP queue B).  ``L [N, T, T]`` is factored left-looking
+in column blocks of ``NB`` = 128.  Per block column ``b`` at offset ``o``
+and width ``w``:
 
-* ``gram_panel`` (``csrc/gram_panel.cu``): the panel
-  ``L[:, o:, o:o+w] = K[:, o:, o:o+w] - L[:, o:, :o] L[:, o:o+w, :o]^T``;
+* the panel ``L[:, o:, o:o+w] = K[:, o:, o:o+w] - L[:, o:, :o]
+  L[:, o:o+w, :o]^T``: ``gram_panel`` (``csrc/gram_panel.cu``) with each
+  ``K`` tile built from the ``O(N T)`` time vectors, so the ``[N, T, T]``
+  gram never exists in device memory; ``hist_panel`` (the same tile) with
+  ``K`` read from a pre-built bank, which it never writes;
 * ``chol_block`` (``csrc/chol_block.cu``): the diagonal block of the
   panel factored in place;
 * ``panel_solve`` (``csrc/gram_panel.cu``): the rows below it,
@@ -18,9 +23,11 @@ block column ``b`` at offset ``o`` and width ``w``:
   float32 costs about twice the factor error), and zeros into the
   mirrored strictly upper tile.
 
-Block 0 is factored straight from the time vectors (``chol_block`` in its
-gram mode) and its panel has no history.  The last block may be narrower
-than ``NB``; nothing is padded.  ``L`` comes from ``torch.empty`` and
+With the gram built in-kernel, block 0 is factored straight from the time
+vectors (``chol_block`` in its gram mode) and its panel has no history;
+from a pre-built bank, block 0's panel is a copy of K's first column
+block.  The last block may be narrower than ``NB``; nothing is padded
+(the JAX drivers pad with identity).  ``L`` comes from ``torch.empty`` and
 every element of it is written by one of the three kernels, the strict
 upper triangle as exact zeros.
 
@@ -42,11 +49,12 @@ from gpvae_tpu_torch.ops import _build, chol_block, dispatch
 # T=2048 for its VMEM budget, pallas_big._nb_for_t :1244.)
 NB = chol_block.MAX_T
 
-# launches of the two kernels of csrc/gram_panel.cu in this process
+# launches of the three kernels of csrc/gram_panel.cu in this process
 # (callers may reset them): lets a run show that its main path went
 # through them
 PANEL_LAUNCHES = 0
 SOLVE_LAUNCHES = 0
+HIST_LAUNCHES = 0
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
@@ -54,6 +62,8 @@ _ENTRY_POINTS = {
     "gpvae_gram_panel_f32": [_P, _LL, _I, _P, _P, _P, _P, _I, _I, _F, _F,
                              _I, _I, _I, _I, _I, _P],
     "gpvae_panel_solve_f32": [_P, _LL, _I, _I, _I, _I, _I, _P],
+    "gpvae_hist_panel_f32": [_P, _LL, _I, _P, _LL, _I, _I, _I, _I, _I, _I,
+                             _P],
 }
 
 
@@ -132,6 +142,49 @@ def gram_panel(l, times, mask, ls, var, r0: int, o: int, w: int, *,
     PANEL_LAUNCHES += 1
 
 
+def hist_panel_plain(l: torch.Tensor, k: torch.Tensor, r0: int, o: int,
+                     w: int) -> None:
+    """Plain PyTorch version of :func:`hist_panel`, any dtype and
+    device."""
+    p = k[:, r0:, o:o + w]
+    if o:
+        p = p - l[:, r0:, :o] @ l[:, o:o + w, :o].mT
+    l[:, r0:, o:o + w] = p
+
+
+def hist_panel(l: torch.Tensor, k: torch.Tensor, r0: int, o: int,
+               w: int) -> None:
+    """``L[:, r0:, o:o+w] = K[:, r0:, o:o+w] - L[:, r0:, :o]
+    L[:, o:o+w, :o]^T`` in place (``r0 >= o``), with ``K [N, T, T]`` a
+    pre-built bank read at its own matrix and row strides (unit column
+    stride) and never written."""
+    global HIST_LAUNCHES
+    n, t, _ = l.shape
+    if not dispatch.on_cuda(l):
+        hist_panel_plain(l, k, r0, o, w)
+        return
+    _check_factor(l)
+    if not k.is_cuda or k.dtype != torch.float32:
+        raise TypeError(f"hist_panel: K must be float32 on CUDA, got "
+                        f"{k.dtype} on {k.device}")
+    if k.shape != l.shape or k.stride(2) != 1 or k.stride(1) < t:
+        raise ValueError(f"hist_panel: K must be {tuple(l.shape)} with "
+                         f"unit-stride rows apart, got {tuple(k.shape)} at "
+                         f"strides {k.stride()}")
+    if not 0 <= o <= r0 or w < 1 or o + w > t:
+        raise ValueError(f"hist_panel: bad block r0={r0} o={o} w={w} T={t}")
+    if n == 0 or r0 >= t:
+        return
+    lib = _build.load("gram_panel", _ENTRY_POINTS)
+    with torch.cuda.device(l.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.gpvae_hist_panel_f32(
+            l.data_ptr(), l.stride(0), l.stride(1), k.data_ptr(),
+            k.stride(0), k.stride(1), r0, o, w, t, n, stream)
+    _build.check_status(lib, status, "hist_panel")
+    HIST_LAUNCHES += 1
+
+
 def panel_solve_plain(l: torch.Tensor, o: int, w: int) -> None:
     """Plain PyTorch version of :func:`panel_solve`, any dtype and
     device."""
@@ -194,6 +247,26 @@ def cholesky_gram_inplace(
     for o in range(NB, t, NB):
         w = min(NB, t - o)
         gram_panel(l, times, mk, ls, var, o, o, w, **gram)
+        d = l[:, o:o + w, o:o + w]
+        chol_block.chol_block(d, out=d)
+        if o + w < t:
+            panel_solve(l, o, w)
+    return l
+
+
+def cholesky_inplace(k: torch.Tensor) -> torch.Tensor:
+    """``L [N, T, T]`` of the pre-built SPD bank ``k [N, T, T]`` (any view
+    with unit-stride rows; only its lower triangle enters ``L``, and it
+    is never written), in the dtype of ``k`` (float32 on CUDA).  T <= ``NB``
+    is one ``chol_block`` launch."""
+    n, t, _ = k.shape
+    l = torch.empty((n, t, t), dtype=k.dtype, device=k.device)
+    if t <= NB:
+        chol_block.chol_block(k, out=l)
+        return l
+    for o in range(0, t, NB):
+        w = min(NB, t - o)
+        hist_panel(l, k, o, o, w)
         d = l[:, o:o + w, o:o + w]
         chol_block.chol_block(d, out=d)
         if o + w < t:

@@ -1,7 +1,12 @@
-"""The Cholesky reverse mode from the factor on the inverse route.
+"""The differentiable Cholesky of a pre-built matrix, and its reverse mode
+from the factor on the inverse route.
 
 Counterpart of ``gpvae_tpu/ops/chol.py``:
 
+* ``cholesky`` :616-640 with ``method="auto"``: the forward is
+  ``ops.blocked.cholesky_inplace`` at every T (one ``chol_block`` launch
+  up to T = 128, the blocked factorization with ``hist_panel`` above),
+  where the TPU picks among three routes by T (:453-465);
 * ``_phi`` :492, ``_phi_w_blocks`` :497, ``_tri_sandwich`` and
   ``_tri_sandwich_blocks`` :526-578, and ``cholesky_bwd_from_l`` :581-602
   on the route the JAX package takes on a TPU: one triangular inverse
@@ -17,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from gpvae_tpu_torch.ops.blocked import cholesky_inplace
 from gpvae_tpu_torch.ops.tri_inv import tri_inv
 
 
@@ -75,3 +81,26 @@ def cholesky_bwd_from_l(l: torch.Tensor, l_bar: torch.Tensor) -> torch.Tensor:
         return _tri_sandwich_blocks(x, *_phi_w_blocks(l, l_bar))
     p = _phi(l.mT @ l_bar)
     return _tri_sandwich(x, 0.5 * (p + p.mT))
+
+
+class _Cholesky(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, k):
+        t = k.shape[-1]
+        l = cholesky_inplace(k.reshape(-1, t, t)).reshape(k.shape)
+        ctx.save_for_backward(l)
+        return l
+
+    @staticmethod
+    def backward(ctx, l_bar):
+        (l,) = ctx.saved_tensors
+        return cholesky_bwd_from_l(l, l_bar)
+
+
+def cholesky(k: torch.Tensor) -> torch.Tensor:
+    """Differentiable batched lower Cholesky factor of SPD ``k [..., T,
+    T]`` (only its lower triangle is read; ``k`` is never written).  A
+    matrix that is not positive definite in its dtype gives NaN entries,
+    never an exception.  The gradient is symmetric, the convention of
+    ``jnp.linalg.cholesky``."""
+    return _Cholesky.apply(k)

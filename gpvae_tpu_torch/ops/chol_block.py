@@ -83,9 +83,12 @@ def _outputs(like: torch.Tensor, out, inverse: bool):
 def chol_block_plain(d: torch.Tensor, *, inverse: bool = False,
                      out: torch.Tensor | None = None):
     """Plain PyTorch version of :func:`chol_block`: ``torch.linalg.
-    cholesky`` (which reads the lower triangle) and ``tri_inv_plain``, any
-    dtype and device."""
-    l = torch.linalg.cholesky(d)
+    cholesky_ex`` (which reads the lower triangle) and ``tri_inv_plain``,
+    any dtype and device.  A matrix that is not positive definite comes
+    back all NaN, as ``jnp.linalg.cholesky`` returns it, where
+    ``torch.linalg.cholesky`` would raise."""
+    l, info = torch.linalg.cholesky_ex(d)
+    l = torch.where((info == 0)[..., None, None], l, float("nan"))
     inv = tri_inv_plain(l) if inverse else None
     if out is None:
         return l, inv

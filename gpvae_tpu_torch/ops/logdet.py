@@ -1,6 +1,6 @@
 """Log-determinants from the Cholesky diagonal.
 
-Counterpart of ``gpvae_tpu/ops/logdet.py:21-39`` and of
+Counterpart of ``gpvae_tpu/ops/logdet.py:21-51`` and of
 ``pallas_big.diag_extract`` :271-292: ``logdet K = 2 sum log diag L``, no
 determinant is ever formed.  Large factors (T >= 256, T % 128 == 0, a
 [N] or [B, Z] batch of matrices: the JAX package's routing) go through
@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 from gpvae_tpu_torch.ops import _build, dispatch
+from gpvae_tpu_torch.ops.chol import cholesky
 
 # launches of csrc/diag_logdet.cu in this process (callers may reset it):
 # lets a run show that its main path went through the kernel
@@ -96,3 +97,14 @@ def logdet_from_chol(l: torch.Tensor) -> torch.Tensor:
     if t >= 256 and t % 128 == 0 and l.dim() in (3, 4):
         return _DiagLogdet.apply(l)
     return diag_logdet_plain(l)
+
+
+def chol_logdet(k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Factor SPD ``k [..., T, T]`` and return ``(L, logdet k)``."""
+    l = cholesky(k)
+    return l, logdet_from_chol(l)
+
+
+def slogdet_psd(k: torch.Tensor) -> torch.Tensor:
+    """``logdet`` of SPD ``k [..., T, T]`` through its Cholesky factor."""
+    return logdet_from_chol(cholesky(k))

@@ -1,18 +1,22 @@
-"""Training: the Adam step on the ELBO, metrics, and the training loop.
+"""Training: the Adam step on the ELBO, metrics, checkpoints, and the
+training loop.
 
 Counterpart of ``gpvae_tpu/train.py:55-232`` (config, step, the
-device-resident sampled loop), ``:307-372`` (``MetricsLog``) and
-``:375-519`` (``fit``).  PyTorch runs eagerly, so the JAX package's jitted
-``lax.scan`` over ``k`` steps becomes a Python loop of steps whose work is
-all queued on the device: the dataset lives on the device, each step
-gathers its batch there from a row of a ``[k, B]`` index tensor, and the
-host waits for the device only at a log point.  Checkpoints are not
-ported yet.
+device-resident sampled loop), ``:250-300`` (``CheckpointManager``),
+``:307-372`` (``MetricsLog``) and ``:375-519`` (``fit``).  PyTorch runs
+eagerly, so the JAX package's jitted ``lax.scan`` over ``k`` steps
+becomes a Python loop of steps whose work is all queued on the device:
+the dataset lives on the device, each step gathers its batch there from a
+row of a ``[k, B]`` index tensor, and the host waits for the device only
+at a log point or a checkpoint.  Checkpoints are ``torch.save`` files,
+not the JAX package's orbax directories (weights cross from JAX through
+``convert.load_flax_params``).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import re
 import time
 import warnings
 
@@ -32,7 +36,9 @@ class TrainConfig:
     num_steps: int = 10_000
     beta: elbo_lib.BetaSchedule = elbo_lib.BetaSchedule()
     log_every: int = 500         # reference print cadence
-    checkpoint_dir: str | None = None  # not ported yet: fit raises
+    checkpoint_every: int = 25_000  # reference Saver cadence
+    checkpoint_dir: str | None = None
+    keep_checkpoints: int = 3
     seed: int = 0
 
 
@@ -80,6 +86,64 @@ def train_step(state: TrainState, batch: dict, beta: float, *,
         "beta": beta,
         **metrics,
     }
+
+
+class CheckpointManager:
+    """The last ``keep`` checkpoints of a run in ``directory``, one
+    ``torch.save`` file per step, ``ckpt_<step>.pt``: the model's
+    ``state_dict`` (parameters and buffers), Adam's state, the step and
+    the noise generator's state.  ``restore_latest`` resumes a run
+    exactly on the kind of device that saved it, and on another (a run
+    trained on the card, scored on the CPU) restores all but the
+    generator, whose state is device-specific."""
+
+    _NAME = re.compile(r"ckpt_(\d+)\.pt")
+
+    def __init__(self, directory: str, keep: int = 3):
+        if keep < 1:
+            raise ValueError(f"keep must be >= 1, got {keep}")
+        self.directory = os.path.abspath(directory)
+        self.keep = keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def steps(self) -> list[int]:
+        """The saved steps, oldest first."""
+        found = (self._NAME.fullmatch(f) for f in os.listdir(self.directory))
+        return sorted(int(m.group(1)) for m in found if m)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"ckpt_{step:010d}.pt")
+
+    def save(self, state: TrainState) -> str:
+        """Write ``state`` (atomically: a reader sees all of a file or
+        none) and drop all but the newest ``keep``; returns the path."""
+        path = self._path(state.step)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save({"model": state.model.state_dict(),
+                    "optimizer": state.optimizer.state_dict(),
+                    "step": state.step,
+                    "generator": state.generator.get_state(),
+                    "generator_device": state.generator.device.type}, tmp)
+        os.replace(tmp, path)
+        for step in self.steps()[:-self.keep]:
+            os.remove(self._path(step))
+        return path
+
+    def restore_latest(self, state: TrainState) -> TrainState | None:
+        """Load the newest checkpoint into ``state``'s model, optimizer and
+        generator (on their devices) and return it; None if there is
+        none."""
+        steps = self.steps()
+        if not steps:
+            return None
+        payload = torch.load(self._path(steps[-1]), map_location="cpu",
+                             weights_only=True)
+        state.model.load_state_dict(payload["model"])
+        state.optimizer.load_state_dict(payload["optimizer"])
+        if payload["generator_device"] == state.generator.device.type:
+            state.generator.set_state(payload["generator"])
+        state.step = int(payload["step"])
+        return state
 
 
 class MetricsLog:
@@ -170,16 +234,22 @@ def fit(
     The Batcher's arrays are staged on ``device`` once; each step gathers
     its batch on the device from the Batcher's index stream (same wrap and
     reshuffle semantics as iterating it).  The host reads the device only
-    at each log point (every ``config.log_every`` steps and at the end).
-    Pass ``state`` to continue a run.
+    at each log point (every ``config.log_every`` steps and at the end)
+    and checkpoint.  Pass ``state`` to continue a run.  With
+    ``config.checkpoint_dir`` the run resumes from the newest checkpoint
+    there, saves one every ``config.checkpoint_every`` steps and one at
+    the end.
     """
     if not isinstance(batches, Batcher):
         raise TypeError("fit takes a gpvae_tpu_torch.data.Batcher")
-    if config.checkpoint_dir:
-        raise NotImplementedError("checkpoints: ROADMAP queue A item 6")
     device = torch.device(device)
     if state is None:
         state = create_train_state(model, config, device)
+    ckpt = (CheckpointManager(config.checkpoint_dir, config.keep_checkpoints)
+            if config.checkpoint_dir else None)
+    if ckpt is not None and ckpt.restore_latest(state) is not None \
+            and verbose:
+        print(f"resumed from step {state.step}")
     dev = device_arrays(batches.arrays, device)
     log = MetricsLog(csv_path)
     step = state.step
@@ -196,6 +266,8 @@ def fit(
             batch = {key: v.index_select(0, row) for key, v in dev.items()}
             metrics = train_step(state, batch, config.beta(step))
             step += 1
+            if ckpt is not None and step % config.checkpoint_every == 0:
+                ckpt.save(state)
         host = {name: MetricsLog._host(v) for name, v in metrics.items()}
         now = time.perf_counter()
         sps = len(idx) / max(now - t_last, 1e-9)
@@ -208,4 +280,6 @@ def fit(
                 f"kl={float(host['kl']):.4f} "
                 f"beta={float(host['beta']):.2e} ({sps:.1f} steps/s)"
             )
+    if ckpt is not None:
+        ckpt.save(state)
     return state, log

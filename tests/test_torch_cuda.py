@@ -15,7 +15,9 @@ import torch
 from gpvae_tpu_torch import configs, kernels, train
 from gpvae_tpu_torch.data import Batcher, generate_toy_data, toy_to_masked_batch
 from gpvae_tpu_torch.models import GPVAE
-from gpvae_tpu_torch.ops import blocked, chol_block, gram_chol, logdet, tri_inv
+from gpvae_tpu_torch.ops import (
+    blocked, chol, chol_block, gram_chol, logdet, tri_inv, trsm,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -254,3 +256,145 @@ def test_bench_t100_step_goes_through_the_large_t_kernels(card):
                                               blocked.SOLVE_LAUNCHES]
     assert all(a > b for a, b in zip(after, before)), (before, after)
     assert np.isfinite(log.rows[-1]["loss"])
+
+
+# -- the imputation path: the Cholesky of a pre-built bank ---------------------
+
+def _prebuilt(card, seed, n, t):
+    """A masked gram bank ``[n, t, t]`` on the card, float32 and float64."""
+    times, mask, ls, var = _flat(card, seed, n, t)
+    k = kernels.gram(times.double(), ls.double()[:, None, None],
+                     variance=var.double()[:, None, None], mask=mask)
+    return k.float(), k
+
+
+@pytest.mark.parametrize("t,r0,o,w", [
+    (1024, 512, 512, 128), (300, 280, 256, 44), (256, 0, 0, 128)])
+def test_hist_panel_matches_plain(card, t, r0, o, w):
+    """At the T=1024 path's middle step, at a ragged last block with r0 > o,
+    and at o = 0 (a copy of K's columns); K read inside a larger buffer at
+    its row stride and left unchanged."""
+    k, k64 = _prebuilt(card, t, 8, t)
+    big = torch.full((8, t + 8, t + 16), float("nan"), device=card)
+    big[:, 4:t + 4, 8:t + 8] = k
+    kv = big[:, 4:t + 4, 8:t + 8]
+    before_k = big.clone()
+    l0 = torch.linalg.cholesky(k64).float().contiguous()
+    got, ref = l0.clone(), l0.double()
+    before = blocked.HIST_LAUNCHES
+    blocked.hist_panel(got, kv, r0, o, w)
+    assert blocked.HIST_LAUNCHES == before + 1
+    blocked.hist_panel_plain(ref, k.double(), r0, o, w)
+    torch.cuda.synchronize()
+    assert (got.double() - ref).abs().max().item() <= 1e-4
+    assert torch.equal(big.isnan(), before_k.isnan())
+    assert torch.equal(torch.nan_to_num(big), torch.nan_to_num(before_k))
+
+
+@pytest.mark.parametrize("t", [45, 100, 128, 256, 300, 1024])
+def test_cholesky_of_a_prebuilt_bank_matches_float64(card, t):
+    """``ops.chol.cholesky`` on a [B, Z, T, T] bank: one ``chol_block``
+    launch up to T = 128, the blocked loop with ``hist_panel`` above; within
+    the band of ``_l_band``; the strict upper triangle exactly 0; K
+    unchanged."""
+    k, k64 = _prebuilt(card, 50 + t, 16, t)
+    kb = k.reshape(8, 2, t, t)
+    k_before = kb.clone()
+    counts = (chol_block.LAUNCHES, blocked.HIST_LAUNCHES)
+    l = chol.cholesky(kb)
+    blocks = -(-t // blocked.NB)
+    assert (chol_block.LAUNCHES - counts[0],
+            blocked.HIST_LAUNCHES - counts[1]) == (
+                blocks, blocks if blocks > 1 else 0)
+    ref = torch.linalg.cholesky(k64).reshape(8, 2, t, t)
+    lib = torch.linalg.cholesky(k).reshape(8, 2, t, t)
+    err, band = _l_band(l, ref, lib)
+    assert err <= band
+    assert torch.all(torch.triu(l, 1) == 0)
+    assert torch.equal(kb, k_before)
+
+
+def test_cholesky_gives_nan_where_not_positive_definite(card):
+    """No clamp and no exception: the matrix whose pivot goes negative
+    holds NaN from that column on, the others are untouched."""
+    k, _ = _prebuilt(card, 7, 4, 200)
+    k[2, 150, 150] = -1.0
+    l = chol.cholesky(k)
+    torch.cuda.synchronize()
+    assert torch.isnan(l[2, 150:, 150]).all()
+    assert torch.isfinite(l[[0, 1, 3]]).all()
+
+
+@pytest.mark.parametrize("t", [45, 100, 1024])
+@pytest.mark.parametrize("left_side,transpose_a", [
+    (True, False), (True, True), (False, False), (False, True)])
+def test_solve_triangular_takes_tri_inv(card, t, left_side, transpose_a):
+    k, k64 = _prebuilt(card, t, 4, t)
+    a = torch.linalg.cholesky(k64).float().contiguous()
+    rng = np.random.default_rng(t)
+    b = torch.tensor(rng.standard_normal((4, t, 6) if left_side
+                                         else (4, 6, t)),
+                     dtype=torch.float32, device=card)
+    before = tri_inv.LAUNCHES
+    x = trsm.solve_triangular(a, b, left_side=left_side,
+                              transpose_a=transpose_a)
+    assert tri_inv.LAUNCHES > before
+    ref = torch.linalg.solve_triangular(
+        a.double().mT if transpose_a else a.double(), b.double(),
+        upper=transpose_a, left=left_side)
+    rel = (torch.linalg.norm(x.double() - ref) / torch.linalg.norm(ref))
+    # the inverse route amplifies rounding by about cond(L) = sqrt(cond K)
+    assert rel.item() <= 1e-3
+
+
+def test_evaluate_path_goes_through_the_kernels(card, tmp_path):
+    """``imputation_metrics`` of a ``bench_t100`` model at T=256 on the
+    card: every kernel of the path launches, no library factorization or
+    solve is called, and the metrics agree with the same model on the CPU
+    in float64 with the same kept mask and baseline noise."""
+    from gpvae_tpu_torch import analysis
+
+    preset = configs.get("bench_t100")
+    t = 256
+    cfg = dataclasses.replace(preset.model, time_len=t)
+    batch = toy_to_masked_batch(generate_toy_data(np.random.default_rng(0),
+                                                  4, t=t))
+    model = GPVAE(cfg, generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    kept = analysis.drop_timesteps(torch.tensor(batch["mask"]), 0.5,
+                                   generator=gen)
+    noise = torch.randn((4, t, cfg.latent_dim), generator=gen)
+
+    def run(m, device, dtype):
+        d = {k: torch.tensor(v, device=device) for k, v in batch.items()}
+        return analysis.imputation_metrics(
+            m, d["x"].to(dtype), d["times"].to(dtype), d["mask"],
+            kept=kept.to(device), baseline_eps=noise.to(device, dtype))
+
+    counters = (chol_block, tri_inv)
+    before = [m.LAUNCHES for m in counters] + [blocked.HIST_LAUNCHES,
+                                               blocked.SOLVE_LAUNCHES]
+    got = run(model.to(card), card, torch.float32)
+    after = [m.LAUNCHES for m in counters] + [blocked.HIST_LAUNCHES,
+                                              blocked.SOLVE_LAUNCHES]
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    _, _, post = analysis.impute(
+        model, *(torch.tensor(batch[k], device=card) for k in (
+            "x", "times", "mask")), kept.to(card))
+    cpu = model.to("cpu")
+    _, _, post32 = analysis.impute(
+        cpu, *(torch.tensor(batch[k]) for k in ("x", "times", "mask")), kept)
+    want = run(cpu.double(), "cpu", torch.float64)
+    assert got["dropped_steps"] == want["dropped_steps"] > 0
+    for name in ("nll_gp_impute", "mse_gp_impute", "nll_baseline",
+                 "mse_baseline"):
+        assert got[name] == pytest.approx(want[name], rel=1e-4), name
+    _, _, post64 = analysis.impute(
+        cpu, *(torch.tensor(batch[k]).double() if k != "mask"
+               else torch.tensor(batch[k]) for k in ("x", "times", "mask")),
+        kept)
+    # 1e-4 of the largest entry, or 4x the CPU's float32 plain route
+    scale = post64.mean.abs().max().item()
+    err = (post.mean.double().cpu() - post64.mean).abs().max().item()
+    err32 = (post32.mean.double() - post64.mean).abs().max().item()
+    assert err <= max(1e-4 * scale, 4.0 * err32)
