@@ -6,7 +6,7 @@
 Phases, each printing one line (a failed check exits nonzero at once):
 
 1. device: the card, its power limit, and the float32 matmul setting;
-2. build: the five CUDA sources of ``gpvae_tpu_torch/csrc`` (seven
+2. build: the five CUDA sources of ``gpvae_tpu_torch/csrc`` (nine
    kernels), one ``nvcc`` each, all started together;
 3. kernels: each kernel against its plain PyTorch version in float64 on
    the card: ``gram_chol`` and ``tri_inv`` at T in {8, 45, 64}, N in
@@ -17,8 +17,11 @@ Phases, each printing one line (a failed check exits nonzero at once):
    {100, 1024}; for the imputation path, ``hist_panel`` at T=1024 (o=512)
    and at a ragged T=300, ``ops.chol.cholesky`` of pre-built masked banks
    at T in {45, 100, 256, 1000, 1024}, N up to 128 (K left unchanged),
-   and ``ops.trsm.solve_triangular`` in its four forms.  Every L and
-   L^-1 has an exactly zero strict upper triangle;
+   and ``ops.trsm.solve_triangular`` in its four forms; for the
+   right-looking route, ``trail_panel`` and ``trail_update`` at nb in
+   {64, 128}, R in {256, 1024}, N=128, and ``ops.chol.cholesky(method=m)``
+   for every method on the same pre-built banks.  Every L and L^-1 has an
+   exactly zero strict upper triangle;
 4. main paths, each with every kernel counter set to 0 just before it and
    read just after (and no call of ``torch.linalg.cholesky`` or
    ``solve_triangular`` in between), and the trained model's ELBO and
@@ -36,13 +39,23 @@ Phases, each printing one line (a failed check exits nonzero at once):
       metrics are held against the same restored model on the CPU in
       float64 with the same kept mask, and one ``posterior_sample`` runs
       at T=1024;
+   e. ``ops.chol.cholesky(method="blocked_fused")`` of a pre-built bank
+      at T=1024, N=128, forward and backward: exactly 8 ``chol_block``
+      (7 with L^-1), 7 ``trail_panel`` and 7 ``trail_update`` launches,
+      no other factorization kernel and no library call, its gradient
+      against ``method="xla"`` in float64; ``"blocked_fused_64"`` at
+      T=256 (4 blocks); ``gp.chol_gram_bank(impl="xla")`` against
+      ``impl="auto"`` at T=1024;
 5. timing: train steps/s and device µs per step of each path, and each
    kernel at its main-path shape against its plain version, the one
    PyTorch call that computes the same function where there is one, and
    the least time the card could take: CUDA-event medians of back-to-back
    calls, and the card's own time per call from ``torch.profiler``; the
    T=1024 evaluate path's sequences imputed per second; ``hist_panel``
-   and the whole pre-built factorization at the path's N=64, T=1024.
+   and the whole pre-built factorization at the path's N=64, T=1024;
+   ``trail_panel`` and ``trail_update`` at the T=1024, N=128 middle step,
+   and ``cholesky`` under ``auto``, ``blocked_fused`` and ``xla`` at
+   (T, N) in {(256, 512), (512, 256), (1024, 128)}.
 
 Then one JSON line with the kernels' results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -104,6 +117,27 @@ ELBO_SEEDS = (7, 8, 9, 10)
 CHOL_VS_LIBRARY = 2.5
 PANEL_ABS = 1e-4
 TRSM_REL = 1e-4
+# The right-looking route (method "blocked_fused", "blocked", and
+# "blocked_fused_64") multiplies each panel by the diagonal block's
+# explicit inverse, as the TPU does: in float32 that left the factor 3-4x
+# the library's error of float64 in a CPU emulation, and more on masked
+# banks whose diagonal blocks are ill-conditioned.  Its
+# band is 5x the library's float32 error, or 2x the error of the same
+# algorithm on its plain versions in float32 on the card (library factor,
+# triangular solve for the inverse, cuBLAS products), whichever is larger,
+# floored at L_MAX_ABS.  The other methods keep CHOL_VS_LIBRARY.
+FUSED_VS_LIBRARY = 5.0
+FUSED_VS_PLAIN = 2.0
+FUSED_METHODS = ("blocked", "blocked_fused", "blocked_fused_64")
+# trail_panel and trail_update against their float64 plain versions on the
+# same inputs, per element, over the sum of the magnitudes of the terms
+# (|P| |Ld^-T|, and |S| + |X| |X|^T): depth <= 128 float32 roundings
+TERMS_REL = 1e-5
+# Phase 4, the blocked_fused path's gradient (sum(L * W), W standard
+# normal) against method="xla" in float64, as one vector: 1e-3, or 5x the
+# float32 library route's own error (same reverse mode), whichever is
+# larger
+FUSED_GRAD_REL = 1e-3
 # Phase 4, the evaluate path on the card (float32, kernels) against the
 # same restored model on the CPU (float64, plain versions), same kept mask
 # and noise: the posterior mean's max abs error over its largest entry,
@@ -138,6 +172,8 @@ PROFILED_CALLS = 20
 
 SOURCES = ("gram_chol", "tri_inv", "chol_block", "gram_panel",
            "diag_logdet")
+# the method comparison of phase 5: the JAX package's crossover shapes
+METHOD_SHAPES = ((256, 512), (512, 256), (1024, 128))
 
 
 def fail(msg: str) -> None:
@@ -267,7 +303,7 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 def counters():
     """``{kernel: (module, attribute)}`` of every launch counter."""
     from gpvae_tpu_torch.ops import (
-        blocked, chol_block, gram_chol, logdet, tri_inv,
+        blocked, chol_block, gram_chol, logdet, trail, tri_inv,
     )
     return {"gram_chol": (gram_chol, "LAUNCHES"),
             "tri_inv": (tri_inv, "LAUNCHES"),
@@ -275,7 +311,9 @@ def counters():
             "gram_panel": (blocked, "PANEL_LAUNCHES"),
             "panel_solve": (blocked, "SOLVE_LAUNCHES"),
             "diag_logdet": (logdet, "LAUNCHES"),
-            "hist_panel": (blocked, "HIST_LAUNCHES")}
+            "hist_panel": (blocked, "HIST_LAUNCHES"),
+            "trail_panel": (trail, "PANEL_LAUNCHES"),
+            "trail_update": (trail, "UPDATE_LAUNCHES")}
 
 
 def reset_counts() -> None:
@@ -582,7 +620,8 @@ def check_prebuilt_kernels(dev) -> dict:
 
     rng = np.random.default_rng(3)
     worst = {"hist_panel": 0.0, "cholesky": 0.0, "cholesky_vs_library": 0.0,
-             "solve_triangular_rel": 0.0}
+             "solve_triangular_rel": 0.0,
+             "methods": {m: [0.0, 0.0] for m in chol.METHODS}}
     cases = 0
 
     def bank(n, t):
@@ -631,6 +670,7 @@ def check_prebuilt_kernels(dev) -> dict:
             worst["cholesky_vs_library"] = max(worst["cholesky_vs_library"],
                                                ratio)
             cases += 1
+            cases += check_methods(worst["methods"], kb, k64)
             del k64, k, kb, k_copy, l
 
     # solve_triangular, four forms, against float64 on the same factor
@@ -664,6 +704,119 @@ def check_prebuilt_kernels(dev) -> dict:
                     worst["solve_triangular_rel"], err)
                 cases += 1
     worst["prebuilt_cases"] = cases
+    return worst
+
+
+def fused_band(k, ref, method) -> float:
+    """The band of a right-looking method (``FUSED_VS_LIBRARY``,
+    ``FUSED_VS_PLAIN``) on the float32 bank ``k [N, T, T]`` whose float64
+    factor is ``ref``."""
+    import torch
+
+    from gpvae_tpu_torch.ops import chol
+
+    err_lib = (torch.linalg.cholesky(k).double() - ref).abs().max().item()
+    with plain_versions():
+        plain = chol.cholesky(k, method=method)
+    err_plain = (plain.double() - ref).abs().max().item()
+    return max(L_MAX_ABS, FUSED_VS_LIBRARY * err_lib,
+               FUSED_VS_PLAIN * err_plain)
+
+
+def check_methods(worst, kb, k64) -> int:
+    """``ops.chol.cholesky(kb, method=m)`` for every method on the
+    pre-built bank ``kb [B, 2, T, T]`` against its float64 factor (the
+    right-looking ones in :func:`fused_band`, the others in
+    ``CHOL_VS_LIBRARY``; ``"pallas"`` only at T <= 64): the strict upper
+    triangle exactly 0 and K unchanged.  ``worst[m]`` keeps the largest
+    error and ratio to the band of each method; returns the cases run."""
+    import torch
+
+    from gpvae_tpu_torch.ops import chol
+
+    t = kb.shape[-1]
+    k = kb.reshape(-1, t, t)
+    ref = torch.linalg.cholesky(k64)
+    k_copy = kb.clone()
+    lib = torch.linalg.cholesky(k)
+    cases = 0
+    for method in chol.METHODS:
+        if method == "pallas" and t > chol.PALLAS_MAX_T:
+            continue
+        name = f"cholesky(method={method!r}) T={t} N={k.shape[0]}"
+        l = chol.cholesky(kb, method=method).reshape(k.shape)
+        if method in FUSED_METHODS:
+            band = fused_band(k, ref, method)
+            err = (l.double() - ref).abs().max().item()
+            if not (math.isfinite(err) and err <= band):
+                fail(f"{name}: max abs err {err:.3e} > {band:.3e}")
+            if bool((torch.triu(l, 1) != 0).any()):
+                fail(f"{name}: strict upper triangle of L not zero")
+        else:
+            err, _ = check_l(name, l, ref, lib, vs_library=CHOL_VS_LIBRARY)
+            band = max(L_MAX_ABS, CHOL_VS_LIBRARY
+                       * (lib.double() - ref).abs().max().item())
+        if not torch.equal(kb, k_copy):
+            fail(f"{name} wrote into K")
+        worst[method] = [max(worst[method][0], err),
+                         max(worst[method][1], err / band)]
+        cases += 1
+    return cases
+
+
+def check_trail_kernels(dev) -> dict:
+    """Phase 3, B23's two kernels: one right-looking step at o=0 on a
+    pre-built masked bank (nb in {64, 128}, R in {256, 1024}, N=128), each
+    against its float64 plain version on the same inputs (``trail_update``
+    from the kernel's X), on ``trail.lower_tiles`` only.  Returns the worst
+    error of each over its terms (``TERMS_REL``)."""
+    import numpy as np
+    import torch
+
+    from gpvae_tpu_torch import kernels as kernels_lib
+    from gpvae_tpu_torch.ops import chol_block, trail
+
+    rng = np.random.default_rng(4)
+    worst = {"trail_panel": 0.0, "trail_update": 0.0,
+             "trail_panel_abs": 0.0, "trail_update_abs": 0.0}
+    for nb in trail.WIDTHS:
+        for r in (256, LONG_T):
+            times, mask, ls, var = flat_inputs(rng, 128, r, dev)
+            l = kernels_lib.gram(times, ls[:, None, None],
+                                 variance=var[:, None, None], mask=mask)
+            d = l[:, :nb, :nb]
+            _, inv = chol_block.chol_block(d, inverse=True, out=d)
+            p = l[:, nb:, :nb].double()
+            got, ref = l.clone(), l.double()
+            trail.trail_panel(got, inv, 0)
+            trail.trail_panel_plain(ref, inv.double(), 0)
+            diff = (got[:, nb:, :nb].double() - ref[:, nb:, :nb]).abs()
+            terms = p.abs() @ inv.double().abs().mT
+            panel = (diff / terms.clamp_min(1e-30)).max().item()
+            panel_abs = diff.max().item()
+            if not (panel <= TERMS_REL
+                    and bool((got[:, :nb, nb:] == 0).all())):
+                fail(f"trail_panel nb={nb} R={r}: err over terms "
+                     f"{panel:.3e} > {TERMS_REL:.1e}, or upper tile not 0")
+            x = got[:, nb:, :nb].double()
+            ref = got.double()
+            s22 = got[:, nb:, nb:].double()
+            trail.trail_update(got, 0, nb)
+            trail.trail_update_plain(ref, 0, nb)
+            low = trail.lower_tiles(r - nb, dev)
+            diff = (got[:, nb:, nb:].double() - ref[:, nb:, nb:])[:, low]
+            terms = (s22.abs() + x.abs() @ x.abs().mT)[:, low]
+            update = (diff.abs() / terms.clamp_min(1e-30)).max().item()
+            if not update <= TERMS_REL:
+                fail(f"trail_update nb={nb} R={r}: err over terms "
+                     f"{update:.3e} > {TERMS_REL:.1e}")
+            worst["trail_panel"] = max(worst["trail_panel"], panel)
+            worst["trail_update"] = max(worst["trail_update"], update)
+            worst["trail_panel_abs"] = max(worst["trail_panel_abs"],
+                                           panel_abs)
+            worst["trail_update_abs"] = max(worst["trail_update_abs"],
+                                            diff.abs().max().item())
+            del l, got, ref, p, x, s22, diff, terms
     return worst
 
 
@@ -1109,6 +1262,172 @@ def main_paths(dev, ck: str) -> tuple[dict, dict, dict]:
     return paths, timing, context
 
 
+@contextlib.contextmanager
+def inverse_calls():
+    """Counts the calls of ``chol_block.chol_block`` with ``inverse=True``
+    made inside the block."""
+    from gpvae_tpu_torch.ops import chol_block
+
+    counts = {"inverse": 0}
+    real = chol_block.chol_block
+
+    def call(*args, **kwargs):
+        counts["inverse"] += bool(kwargs.get("inverse"))
+        return real(*args, **kwargs)
+
+    chol_block.chol_block = call
+    try:
+        yield counts
+    finally:
+        chol_block.chol_block = real
+
+
+def fused_path(dev, t, n, method, *, needs, with_grad) -> dict:
+    """``ops.chol.cholesky(k, method=method)`` of a pre-built masked bank
+    ``k [n/2, 2, t, t]`` with every counter set to 0 just before and read
+    just after, and no library factorization or solve in between: the
+    launches exactly ``needs`` (name: count; ``"inverse"``, the
+    ``chol_block`` launches with L^-1) and no other factorization kernel,
+    the factor within :func:`fused_band` of float64.  With ``with_grad``
+    the backward of ``sum(L * W)`` runs inside the counted window too
+    (``tri_inv`` launches there), and its gradient is held against
+    ``method="xla"`` in float64 (plain versions on the card) within
+    ``FUSED_GRAD_REL`` or 5x the float32 library route's error."""
+    import numpy as np
+    import torch
+
+    from gpvae_tpu_torch import kernels as kernels_lib
+    from gpvae_tpu_torch.ops import chol
+
+    rng = np.random.default_rng(t)
+    times, mask, ls, var = flat_inputs(rng, n, t, dev)
+    k64 = kernels_lib.gram(times.double(), ls.double()[:, None, None],
+                           variance=var.double()[:, None, None], mask=mask)
+    k = k64.float().reshape(n // 2, 2, t, t).requires_grad_(with_grad)
+    w = torch.tensor(rng.standard_normal((t, t)), dtype=torch.float32,
+                     device=dev)
+    label = f"cholesky(method={method!r}) T={t} N={n}"
+    reset_counts()
+    with library_calls() as lib_calls, inverse_calls() as inv_calls:
+        t0 = time.perf_counter()
+        l = chol.cholesky(k, method=method)
+        if with_grad:
+            torch.sum(l * w).backward()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = read_counts()
+    if any(lib_calls.values()):
+        fail(f"{label} called the library: {lib_calls}")
+    got = dict(launches, inverse=inv_calls["inverse"])
+    factor_kernels = ("gram_chol", "gram_panel", "panel_solve", "hist_panel",
+                      "diag_logdet", "chol_block", "trail_panel",
+                      "trail_update")
+    for name in factor_kernels + ("inverse",):
+        if got[name] != needs.get(name, 0):
+            fail(f"{label} launched {name} {got[name]} times, not "
+                 f"{needs.get(name, 0)}")
+    if with_grad:  # the reverse mode's inverse of L
+        check_launches(label, launches, ("tri_inv",), ())
+    ref = torch.linalg.cholesky(k64)
+    kf = k.detach().reshape(n, t, t)
+    err = (l.detach().reshape(n, t, t).double() - ref).abs().max().item()
+    band = fused_band(kf, ref, method)
+    if not (math.isfinite(err) and err <= band):
+        fail(f"{label}: max abs err {err:.3e} > {band:.3e}")
+    if bool((torch.triu(l.detach(), 1) != 0).any()):
+        fail(f"{label}: strict upper triangle of L not zero")
+    out = {"method": method, "time_len": t, "matrices": n,
+           "launches": launches, "inverse_launches": inv_calls["inverse"],
+           "library_calls": dict(lib_calls), "seconds": seconds,
+           "max_abs_err": err, "band": band}
+    if not with_grad:
+        return out
+
+    def grad(kk, m):
+        kk = kk.detach().requires_grad_(True)
+        torch.sum(chol.cholesky(kk, method=m) * w.to(kk.dtype)).backward()
+        return kk.grad.double()
+
+    with plain_versions():
+        g64 = grad(k64.reshape(k.shape), "xla")
+    g_lib = grad(k, "xla")
+
+    def rel(g):
+        return (torch.linalg.norm(g - g64) / torch.linalg.norm(g64)).item()
+
+    g_err, g_lib_err = rel(k.grad.double()), rel(g_lib)
+    g_band = max(FUSED_GRAD_REL, FUSED_VS_LIBRARY * g_lib_err)
+    if not (math.isfinite(g_err) and g_err <= g_band):
+        fail(f"{label}: gradient rel err {g_err:.3e} > {g_band:.3e} "
+             f"(method='xla' float32: {g_lib_err:.3e})")
+    out.update(grad_rel_err=g_err, grad_band=g_band,
+               grad_rel_err_xla_float32=g_lib_err)
+    return out
+
+
+def gram_bank_impls(dev) -> dict:
+    """``gp.chol_gram_bank(impl="xla")`` (``kernels.gram_bank`` and the
+    library) against ``impl="auto"`` (the gram-in-kernel factorization) at
+    B=32, Z=2, T=1024, each with the counters reset around it, both against
+    float64: ``auto`` within ``L_VS_LIBRARY`` x the ``xla`` route's
+    error."""
+    import numpy as np
+    import torch
+
+    from gpvae_tpu_torch import gp, kernels as kernels_lib
+
+    times, ls, mask, var = bank_inputs(np.random.default_rng(11), BENCH_B,
+                                       LONG_T, SYN_Z, True, dev)
+    out = {}
+    for impl in ("xla", "auto"):
+        reset_counts()
+        with library_calls() as lib_calls:
+            l = gp.chol_gram_bank(times, ls, mask=mask, variance=var,
+                                  impl=impl)
+            torch.cuda.synchronize()
+        out[impl] = {"launches": read_counts(),
+                     "library_calls": dict(lib_calls), "l": l}
+    if sum(out["xla"]["launches"].values()) or out["xla"]["library_calls"][
+            "cholesky_ex"] != 1:
+        fail(f"chol_gram_bank(impl='xla') launched {out['xla']['launches']}"
+             f", library {out['xla']['library_calls']}")
+    if any(out["auto"]["library_calls"].values()):
+        fail("chol_gram_bank(impl='auto') called the library")
+    check_launches("chol_gram_bank(impl='auto')", out["auto"]["launches"],
+                   ("chol_block", "gram_panel", "panel_solve"),
+                   ("trail_panel", "trail_update", "hist_panel"))
+    ref = torch.linalg.cholesky(kernels_lib.gram_bank(
+        times.double(), ls.double(), mask=mask, variance=var.double()))
+    err, ratio = check_l("chol_gram_bank(impl='auto') T=1024",
+                         out["auto"]["l"], ref, out["xla"]["l"])
+    return {"time_len": LONG_T, "batch": BENCH_B,
+            "launches": {k: v["launches"] for k, v in out.items()},
+            "auto_max_abs_err": err, "auto_vs_xla": ratio}
+
+
+def method_paths(dev) -> dict:
+    """Phase 4e: the right-looking route, each run its own path (counters
+    reset around it); and the two ``chol_gram_bank`` implementations."""
+    def needs(t, nb):  # one chol_block a block, L^-1 and a step but last
+        b = -(-t // nb)
+        return {"chol_block": b, "inverse": b - 1, "trail_panel": b - 1,
+                "trail_update": b - 1}
+
+    paths = {
+        f"cholesky_blocked_fused_T{LONG_T}": fused_path(
+            dev, LONG_T, 128, "blocked_fused", with_grad=True,
+            needs=needs(LONG_T, 128)),
+        "cholesky_blocked_fused_64_T256": fused_path(
+            dev, 256, 128, "blocked_fused_64", with_grad=False,
+            needs=needs(256, 64)),
+    }
+    for name, fields in paths.items():
+        phase("method_path", name=name, **fields)
+    impls = gram_bank_impls(dev)
+    phase("chol_gram_bank_impls", **impls)
+    return paths
+
+
 # -- phase 5 ------------------------------------------------------------------
 
 def time_kernel(name, kernel_fn, plain_fn, library_fn, nbytes, flops,
@@ -1322,7 +1641,84 @@ def time_kernels(dev) -> dict:
         # K's lower triangle read, L written whole
         f * n * (t * (t + 1) / 2 + t * t), n * t ** 3 / 3.0,
         f"N={n}, T={t}, pre-built", kernel="hist_panel")
+    res.update(time_trail_kernels(dev, rng))
+    whole.update(time_methods(dev, rng))
     return res, whole
+
+
+def time_trail_kernels(dev, rng) -> dict:
+    """B23's kernels at the middle step (o=384) of ``cholesky(method=
+    "blocked_fused")`` at T=1024, N=128, each repeated in place on the
+    state the first three steps leave: ``trail_update`` on the X its step
+    made, then ``trail_panel``.  Bounds count what the function needs: the
+    lower triangle of the downdate, and X against the triangular
+    ``Ld^-T``."""
+    import torch
+
+    from gpvae_tpu_torch import kernels as kernels_lib
+    from gpvae_tpu_torch.ops import chol_block, trail
+
+    f, t, nb = 4, LONG_T, trail.WIDTHS[-1]
+    n, o = BENCH_B * 2 * SYN_Z, t // 2 - nb
+    r2 = t - o - nb
+    times, mask, ls, var = flat_inputs(rng, n, t, dev)
+    l = kernels_lib.gram(times, ls[:, None, None],
+                         variance=var[:, None, None], mask=mask)
+    for oo in range(0, o + nb, nb):
+        d = l[:, oo:oo + nb, oo:oo + nb]
+        _, inv = chol_block.chol_block(d, inverse=True, out=d)
+        trail.trail_panel(l, inv, oo)
+        if oo < o:
+            trail.trail_update(l, oo, nb)
+    x, s22 = l[:, o + nb:, o:o + nb], l[:, o + nb:, o + nb:]
+    shape = f"N={n}, T={t}, step 4 (o={o}, {r2} rows below the block)"
+    res = {"trail_update": time_kernel(
+        "trail_update", lambda: trail.trail_update(l, o, nb),
+        lambda: trail.trail_update_plain(l, o, nb),
+        lambda: torch.baddbmm(s22, x, x.mT, alpha=-1.0),
+        # X read, the lower triangle of the square read and written
+        f * n * (r2 * nb + r2 * (r2 + 1)), n * float(nb) * r2 * (r2 + 1),
+        shape, kernel="trail_update")}
+    res["trail_panel"] = time_kernel(
+        "trail_panel", lambda: trail.trail_panel(l, inv, o),
+        lambda: trail.trail_panel_plain(l, inv, o), lambda: x @ inv.mT,
+        # the panel read and X written, Ld^-1's lower triangle read
+        f * n * (2 * r2 * nb + nb * (nb + 1) / 2),
+        n * float(r2) * nb * (nb + 1), shape, kernel="trail_panel")
+    return res
+
+
+def time_methods(dev, rng) -> dict:
+    """``ops.chol.cholesky`` of a pre-built masked bank under ``auto``,
+    ``blocked_fused`` and ``xla`` at each of ``METHOD_SHAPES`` (each
+    method's plain versions beside it; the library's call is ``xla``)."""
+    import torch
+
+    from gpvae_tpu_torch import kernels as kernels_lib
+    from gpvae_tpu_torch.ops import chol
+
+    f = 4
+    out = {}
+    for t, n in METHOD_SHAPES:
+        times, mask, ls, var = flat_inputs(rng, n, t, dev)
+        k = kernels_lib.gram(times, ls[:, None, None],
+                             variance=var[:, None, None], mask=mask)
+        for method in ("auto", "blocked_fused", "xla"):
+            def call(method=method, k=k):
+                return chol.cholesky(k, method=method)
+
+            def call_plain(call=call):
+                with plain_versions():
+                    return call()
+
+            out[f"cholesky_{method}_T{t}_N{n}"] = time_kernel(
+                f"cholesky(method={method!r})", call, call_plain, None,
+                # K's lower triangle read, L written whole
+                f * n * (t * (t + 1) / 2 + t * t), n * t ** 3 / 3.0,
+                f"N={n}, T={t}, pre-built",
+                kernel=None if method == "xla" else "chol_block")
+        del k
+    return out
 
 
 def time_evaluate(ctx) -> dict:
@@ -1387,7 +1783,7 @@ def run(dev) -> int:
     import torch
 
     from gpvae_tpu_torch.ops import (
-        _build, blocked, chol_block, gram_chol, logdet, tri_inv,
+        _build, blocked, chol_block, gram_chol, logdet, trail, tri_inv,
     )
 
     t_start = time.perf_counter()
@@ -1403,7 +1799,7 @@ def run(dev) -> int:
     # -- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
     _build.build_all(SOURCES)
-    for module in (gram_chol, tri_inv, chol_block, blocked, logdet):
+    for module in (gram_chol, tri_inv, chol_block, blocked, logdet, trail):
         module.build()
     phase("build", seconds=time.perf_counter() - t0,
           nvcc_seconds=dict(_build.BUILD_SECONDS))
@@ -1412,9 +1808,12 @@ def run(dev) -> int:
     worst = check_kernels(dev)
     worst_large = check_large_t_kernels(dev)
     worst_pre = check_prebuilt_kernels(dev)
+    worst_trail = check_trail_kernels(dev)
     phase("kernels_vs_plain", **worst, **worst_large, **worst_pre,
-          l_band=L_MAX_ABS, l_vs_library=L_VS_LIBRARY,
+          **worst_trail, l_band=L_MAX_ABS, l_vs_library=L_VS_LIBRARY,
           cholesky_band_vs_library=CHOL_VS_LIBRARY,
+          fused_band_vs_library=FUSED_VS_LIBRARY,
+          fused_band_vs_plain=FUSED_VS_PLAIN, trail_terms_rel=TERMS_REL,
           tri_inv_band_rel_fro=TRI_INV_REL_FRO)
 
     # -- 4. main paths ---------------------------------------------------
@@ -1423,6 +1822,7 @@ def run(dev) -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix="_smoke_ckpt_", dir=root) as ck:
         paths, timing, context = main_paths(dev, ck)
+    paths.update(method_paths(dev))
 
     # -- 5. timing -------------------------------------------------------
     per_kernel, whole = time_kernels(dev)
@@ -1437,14 +1837,18 @@ def run(dev) -> int:
               "gram_panel": worst_large["gram_panel"],
               "panel_solve": worst_large["panel_solve"],
               "diag_logdet": worst_large["diag_logdet"],
-              "hist_panel": worst_pre["hist_panel"]}
+              "hist_panel": worst_pre["hist_panel"],
+              "trail_panel": worst_trail["trail_panel_abs"],
+              "trail_update": worst_trail["trail_update_abs"]}
     sources = {"gram_chol": ("gram_chol.cu", "pallas_chol.py:673"),
                "tri_inv": ("tri_inv.cu", "pallas_tri.py:39"),
                "chol_block": ("chol_block.cu", "pallas_chol.py:198"),
                "gram_panel": ("gram_panel.cu", "pallas_big.py:556"),
                "panel_solve": ("gram_panel.cu", "pallas_big.py:1005"),
                "diag_logdet": ("diag_logdet.cu", "pallas_big.py:237"),
-               "hist_panel": ("gram_panel.cu", "pallas_big.py:105")}
+               "hist_panel": ("gram_panel.cu", "pallas_big.py:105"),
+               "trail_panel": ("gram_panel.cu", "pallas_trail.py:53"),
+               "trail_update": ("gram_panel.cu", "pallas_trail.py:53")}
     lines = []
     for name, (src, tpu) in sources.items():
         r = per_kernel[name]

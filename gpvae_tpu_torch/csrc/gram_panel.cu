@@ -1,6 +1,7 @@
-// The panel kernels of the blocked, left-looking Cholesky (ops/blocked.py):
+// The panel kernels of the blocked Cholesky (ops/blocked.py), left-looking:
 // cholesky_gram_inplace, with the gram built in-kernel, and
-// cholesky_inplace, of a pre-built gram bank.  Block column b starts at
+// cholesky_inplace, of a pre-built gram bank; and right-looking (trail_*,
+// below, ops/trail.py).  Block column b starts at
 // column o and is w <= 128 wide; L is [n, T, T] with its rows at stride
 // ld, and every write goes into L in place.
 //
@@ -42,6 +43,34 @@
 // substitution 1.5-2x (CPU emulation of both on the same inputs).  The
 // solve multiplies by 1 / L_d[c, c], which may differ from a division in
 // the last bit.
+//
+// The right-looking factorization (ops/blocked.py cholesky_blocked_fused,
+// cholesky(method="blocked_fused")) takes two more, which together replace
+// the TPU kernel pallas_trail._make_kernel (B23): one step at column o with
+// a factored diagonal block Ld of width nb in {64, 128} and its explicit
+// inverse,
+//
+//   trail_panel (K6):  X = L[o+nb:, o:o+nb] Ld^-T, in place, and zeros into
+//                      the mirrored upper tile;
+//   trail_update (K7): L[o+nb:, o+nb:] -= X X^T on the lower-triangular
+//                      64 x 64 tiles only (the hist_panel tile, K = L,
+//                      history [o, o+nb)).
+//
+// The TPU kernel does both in one grid: row tiles run in order and each
+// finished X tile waits in a VMEM scratch for the downdates of the later
+// ones.  Blocks on the card run in no order and share nothing, so X is
+// finished by one launch before the next reads it, on the same stream;
+// recomputing X rows in each downdate block instead would triple the
+// work.  X is multiplied by the explicit inverse, as on the TPU, which in
+// float32 costs 3-4x the library's factor error (see panel_solve below):
+// "auto" never takes this route.  What bounds them: at the T = 1024, n =
+// 128 middle step (o = 384, 512 rows below the block) the lower triangle
+// of the downdate needs 4.3 GFLOP against 0.17 GB, bound by float32
+// operations (0.064 ms at 67 TFLOP/s), and X against the triangular
+// inverse 1.1 GFLOP against 0.07 GB, bound by bytes (0.021 ms at 3.35
+// TB/s).  They run the panel's SIMT design, plain FMA, no TF32;
+// trail_update computes the diagonal tiles whole and trail_panel the full
+// product with Ld^-1, zeros included (4.8 and 2.1 GFLOP done).
 //
 // What bounds them on Hopper: the panel is the factorization's floating
 // point work (n T^3 / 3 over all steps: 46 GFLOP at T = 1024, n = 128), a
@@ -88,19 +117,20 @@ struct PanelParams {
   long long k_mat;
   int kld;
   int r0, o, w, t;
+  int h0;  // first history column (0 but in trail_update)
 };
 
-// One 64 x 64 tile of the panel; kGram says where K comes from.  The
-// history loop and its bounds checks are the same for both.
+// One 64 x 64 tile of the panel of matrix n, rows row0 .., panel columns
+// col0 .. (0 .. w); kGram says where K comes from.  The history runs over
+// columns [h0, o).  The history loop and its bounds checks are the same
+// for every kernel of the tile.
 template <bool kGram>
-__device__ __forceinline__ void panel_tile(const PanelParams& p) {
+__device__ __forceinline__ void panel_tile(const PanelParams& p, int n,
+                                           int row0, int col0) {
   __shared__ __align__(16) float as[kBK][kBM + 4];  // as[k][m] = L[row m, k]
   __shared__ __align__(16) float bs[kBK][kBN + 4];  // bs[k][c] = L[col c, k]
   __shared__ float tr[kBM], mr[kBM], tc[kBN], mc[kBN];
 
-  const int n = blockIdx.z;
-  const int row0 = p.r0 + blockIdx.y * kBM;  // first row of the tile
-  const int col0 = blockIdx.x * kBN;         // first panel column (0 .. w)
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // columns tx*4 .. tx*4+3
   const int ty = tid / 16;  // rows ty*4 .. ty*4+3
@@ -121,7 +151,7 @@ __device__ __forceinline__ void panel_tile(const PanelParams& p) {
   }
 
   float acc[4][4] = {};
-  for (int k0 = 0; k0 < p.o; k0 += kBK) {
+  for (int k0 = p.h0; k0 < p.o; k0 += kBK) {
     // 64 x 16 of each operand, four elements a thread, k fastest so a
     // row's 16 floats are one coalesced read
     for (int e = tid; e < kBM * kBK; e += kPanelThreads) {
@@ -187,12 +217,108 @@ __device__ __forceinline__ void panel_tile(const PanelParams& p) {
 
 __global__ void __launch_bounds__(kPanelThreads)
 gram_panel_kernel(PanelParams p) {
-  panel_tile<true>(p);
+  panel_tile<true>(p, blockIdx.z, p.r0 + blockIdx.y * kBM, blockIdx.x * kBN);
 }
 
 __global__ void __launch_bounds__(kPanelThreads)
 hist_panel_kernel(PanelParams p) {
-  panel_tile<false>(p);
+  panel_tile<false>(p, blockIdx.z, p.r0 + blockIdx.y * kBM, blockIdx.x * kBN);
+}
+
+// trail_update: the tile over the lower-triangular tile pairs (i, j <= i)
+// of the trailing square, one pair per blockIdx.x, row-major:
+// x = i (i + 1) / 2 + j.  K is L itself (see gpvae_trail_update_f32).
+__global__ void __launch_bounds__(kPanelThreads)
+trail_update_kernel(PanelParams p) {
+  const int x = blockIdx.x;
+  int i = (int)((sqrtf(8.0f * x + 1.0f) - 1.0f) * 0.5f);
+  while (i * (i + 1) / 2 > x) --i;  // float rounding, either way
+  while ((i + 1) * (i + 2) / 2 <= x) ++i;
+  const int j = x - i * (i + 1) / 2;
+  panel_tile<false>(p, blockIdx.y, p.r0 + i * kBM, j * kBN);
+}
+
+// -- trail_panel -------------------------------------------------------------
+
+constexpr int kTrailRows = 64;  // panel rows per block
+
+// X[r, :] = P[r, :] Ld^-T for the 64 rows of one block, all NB columns,
+// in place over P = L[r, o:o+NB].  The block reads its whole 64 x NB slab
+// into shared memory before it writes any of it, and no other block reads
+// those rows, so the in-place write is safe.  Ld^-1 (lower triangular,
+// zeros above the diagonal) streams through in chunks of depth kBK; the
+// full product is taken, zeros included, as the TPU's matmul does.
+template <int NB>
+__global__ void __launch_bounds__(kPanelThreads)
+trail_panel_kernel(float* l, long long l_mat, int ld, const float* inv,
+                   int o, int t) {
+  constexpr int kGroups = NB / 64;  // float4 column groups a thread owns
+  __shared__ __align__(16) float ps[NB][kTrailRows + 4];  // ps[k][m]
+  __shared__ __align__(16) float bs[kBK][NB + 4];  // bs[k][c] = Ld^-1[c, k]
+
+  const int n = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;  // columns tx*4 + 64 g .. + 3
+  const int ty = tid / 16;  // rows ty*4 .. ty*4+3
+  const int row0 = o + NB + blockIdx.x * kTrailRows;
+  float* lm = l + (size_t)n * l_mat;
+  const float* im = inv + (size_t)n * NB * NB;
+
+  for (int e = tid; e < kTrailRows * NB; e += kPanelThreads) {
+    const int m = e / NB;
+    const int k = e % NB;
+    const int r = row0 + m;
+    ps[k][m] = (r < t) ? lm[(size_t)r * ld + o + k] : 0.0f;
+  }
+
+  float acc[4][4 * kGroups] = {};
+  for (int k0 = 0; k0 < NB; k0 += kBK) {
+    for (int e = tid; e < NB * kBK; e += kPanelThreads) {
+      const int c = e / kBK;
+      const int kk = e % kBK;
+      bs[kk][c] = im[(size_t)c * NB + k0 + kk];
+    }
+    __syncthreads();  // (the first time also the whole slab)
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 a4 =
+          *reinterpret_cast<const float4*>(&ps[k0 + kk][ty * 4]);
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        const float4 b4 =
+            *reinterpret_cast<const float4*>(&bs[kk][tx * 4 + 64 * g]);
+        const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            acc[i][4 * g + jj] = fmaf(av[i], bv[jj], acc[i][4 * g + jj]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty * 4 + i;
+    if (r >= t) continue;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        lm[(size_t)r * ld + o + tx * 4 + 64 * g + jj] = acc[i][4 * g + jj];
+      }
+    }
+  }
+  // the strictly upper tile that mirrors these rows
+  for (int e = tid; e < NB * kTrailRows; e += kPanelThreads) {
+    const int c = e / kTrailRows;
+    const int m = e % kTrailRows;
+    if (row0 + m < t) lm[(size_t)(o + c) * ld + row0 + m] = 0.0f;
+  }
 }
 
 // -- panel_solve -------------------------------------------------------------
@@ -366,6 +492,62 @@ int gpvae_panel_solve_f32(void* l, long long l_mat, int ld, int o, int w,
   const dim3 grid((t - o - w + kSolveRows - 1) / kSolveRows, n);
   panel_solve_kernel<<<grid, kSolveThreads, kSolveSmem,
                        (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// One right-looking step at column o with a diagonal block of width nb in
+// {64, 128}, already factored: rows [o + nb, t) of columns [o, o + nb) of
+// l become X = P Ld^-T in place, with inv: [n, nb, nb] contiguous, the
+// block's inverse; zeros go into rows [o, o + nb) of columns [o + nb, t).
+int gpvae_trail_panel_f32(void* l, long long l_mat, int ld, const void* inv,
+                          int o, int nb, int t, int n, void* stream) {
+  if (n <= 0 || o + nb >= t) return 0;
+  if ((nb != 64 && nb != 128) || o < 0 || n > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((t - o - nb + kTrailRows - 1) / kTrailRows, n);
+  if (nb == 128) {
+    trail_panel_kernel<128><<<grid, kPanelThreads, 0, (cudaStream_t)stream>>>(
+        (float*)l, l_mat, ld, (const float*)inv, o, t);
+  } else {
+    trail_panel_kernel<64><<<grid, kPanelThreads, 0, (cudaStream_t)stream>>>(
+        (float*)l, l_mat, ld, (const float*)inv, o, t);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The same step's trailing downdate, in place: for the lower-triangular
+// 64 x 64 tiles of the square [o + nb, t)^2,
+//
+//   L[r, c] -= sum_{o <= k < o + nb} L[r, k] L[c, k]
+//
+// with X = L[:, o:o+nb] as trail_panel left it.  It is the hist_panel
+// tile with K = L and the history [o, o + nb): each element is read and
+// written by one thread, and no block writes the X columns it reads.
+// Tiles above the diagonal are not computed; the lower triangle of the
+// square, and the next step's diagonal block and panel, lie in the lower
+// tiles because nb is a multiple of 64.
+int gpvae_trail_update_f32(void* l, long long l_mat, int ld, int o, int nb,
+                           int t, int n, void* stream) {
+  if (n <= 0 || o + nb >= t) return 0;
+  if ((nb != 64 && nb != 128) || o < 0 || n > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  PanelParams p = {};
+  p.l = (float*)l;
+  p.l_mat = l_mat;
+  p.ld = ld;
+  p.k = (const float*)l;
+  p.k_mat = l_mat;
+  p.kld = ld;
+  p.h0 = o;
+  p.o = o + nb;
+  p.r0 = o + nb;
+  p.w = t - o - nb;
+  p.t = t;
+  const int tiles = (p.w + kBM - 1) / kBM;
+  const dim3 grid(tiles * (tiles + 1) / 2, n);
+  trail_update_kernel<<<grid, kPanelThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

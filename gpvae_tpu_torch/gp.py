@@ -2,15 +2,15 @@
 inverse route, correlated latent sampling, and GP-posterior conditioning.
 
 Counterpart of these pieces of ``gpvae_tpu/gp.py``: ``_tri_tri_frob2``
-(:60-92), ``chol_gram_bank`` with its custom gradient and its two
-forward routes (:108-232), ``gp_kl`` on its inverse route (:270-302),
-``gp_sample`` (:526-557), ``prior_sample`` (:606-619) and the imputation
-path, ``GPPosterior``, ``posterior_conditional`` and ``posterior_sample``
-(:626-721).  The port has a single route for each: on a CUDA tensor the
-factors come from the hand-written kernels (T <= 64: ``gram_chol``;
-larger T: the blocked ``ops.blocked`` factorization; a pre-built gram:
-``ops.chol.cholesky``) and the inverses from ``ops.tri_inv``, on a CPU
-tensor from their plain versions.
+(:60-92), ``chol_gram_bank`` with its custom gradient, its two forward
+routes and ``impl`` (:98-232), ``gp_kl`` on its inverse route
+(:270-302), ``gp_sample`` (:526-557), ``prior_sample`` (:606-619) and the
+imputation path, ``GPPosterior``, ``posterior_conditional`` and
+``posterior_sample`` (:626-721).  On a CUDA tensor the factors come from
+the hand-written kernels (T <= 64: ``gram_chol``; larger T: the blocked
+``ops.blocked`` factorization; a pre-built gram: ``ops.chol.cholesky``)
+and the inverses from ``ops.tri_inv``, on a CPU tensor from their plain
+versions; ``chol_gram_bank(impl="xla")`` is the library baseline.
 """
 from __future__ import annotations
 
@@ -110,18 +110,20 @@ def chol_gram_bank(
     noise: float = kernels_lib.DEFAULT_NOISE,
     variance: torch.Tensor | float = 1.0,
     diff_times: bool = False,
+    impl: str = "auto",
 ) -> torch.Tensor:
     """Cholesky factors ``L [B, Z, T, T]`` of the per-latent gram bank,
     differentiable with respect to ``lengthscales`` and ``variance``.
 
-    On a CUDA tensor the gram is built inside the kernels that factor it
-    and never reaches device memory.  ``diff_times=True`` (a times
-    gradient) is not ported yet.
+    ``impl`` (``gp.py:189-232``): ``"auto"`` and ``"fused"`` build the
+    gram inside the kernels that factor it, so on a CUDA tensor it never
+    reaches device memory; ``"xla"`` is the composed baseline,
+    ``kernels.gram_bank`` then the library's ``cholesky(method="xla")``,
+    differentiable by autograd (the times too).  ``diff_times=True`` (a
+    times gradient on the fused route) is not ported yet.
     """
-    if diff_times:
-        raise NotImplementedError(
-            "chol_gram_bank(diff_times=True): ROADMAP slice 4"
-        )
+    if impl not in ("auto", "fused", "xla"):
+        raise ValueError("impl must be auto, fused, or xla")
     if kernel not in kernels_lib.KERNELS:
         raise ValueError(
             f"unknown kernel {kernel!r}; available: "
@@ -129,6 +131,14 @@ def chol_gram_bank(
         )
     variance = torch.as_tensor(variance, dtype=times.dtype,
                                device=times.device)
+    if impl == "xla":
+        k = kernels_lib.gram_bank(times, lengthscales, kernel=kernel,
+                                  noise=noise, variance=variance, mask=mask)
+        return cholesky(k, method="xla")
+    if diff_times:
+        raise NotImplementedError(
+            "chol_gram_bank(diff_times=True): ROADMAP slice 4"
+        )
     return _CholGramBank.apply(times, lengthscales, mask, variance, kernel,
                                noise)
 

@@ -7,11 +7,14 @@
 * :mod:`.blocked` -- the blocked large-T factorizations
   (``csrc/gram_panel.cu`` and ``chol_block``): ``cholesky_gram_inplace``
   with in-kernel gram tiles, ``cholesky_inplace`` of a pre-built bank,
+  and the right-looking ``cholesky_blocked_fused`` over :mod:`.trail`,
+* :mod:`.trail` -- one right-looking step: the panel times the diagonal
+  block's inverse and the trailing downdate (``csrc/gram_panel.cu``),
 * :mod:`.tri_inv` -- ``tri_inv``: batched lower-triangular inverse
   (``csrc/tri_inv.cu`` at the base, matmul merges above), differentiable,
 * :mod:`.chol` -- ``cholesky``: the differentiable Cholesky of a
-  pre-built matrix, and ``cholesky_bwd_from_l``, its reverse mode on the
-  inverse route,
+  pre-built matrix, with the JAX package's method menu, and
+  ``cholesky_bwd_from_l``, its reverse mode on the inverse route,
 * :mod:`.trsm` -- ``solve_triangular``: through ``tri_inv`` on CUDA,
 * :mod:`.logdet` -- ``logdet_from_chol``: logdet from the factor's
   diagonal (``csrc/diag_logdet.cu`` for large factors); ``chol_logdet``,
@@ -23,8 +26,9 @@ here: ``ops.tri_inv`` is the module, whose ``LAUNCHES`` counter a run
 reads.
 """
 from gpvae_tpu_torch.ops import (
-    blocked, chol, chol_block, dispatch, gram_chol, logdet, tri_inv, trsm,
+    blocked, chol, chol_block, dispatch, gram_chol, logdet, trail, tri_inv,
+    trsm,
 )
 
 __all__ = ["blocked", "chol", "chol_block", "dispatch", "gram_chol",
-           "logdet", "tri_inv", "trsm"]
+           "logdet", "trail", "tri_inv", "trsm"]

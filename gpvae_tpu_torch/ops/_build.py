@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+_BOUND: dict[str, set[str]] = {}  # entry points given their argtypes
 # seconds spent compiling, per source, in this process (0.0 when loaded)
 BUILD_SECONDS: dict[str, float] = {}
 
@@ -97,19 +98,24 @@ def load(name: str, entry_points: dict[str, list]) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use.
 
     ``entry_points`` maps each C function to its ``argtypes``; every one
-    returns an ``int`` status (a ``cudaError_t``).  Every source also
-    exports ``const char* gpvae_cuda_error_string(int)``."""
+    returns an ``int`` status (a ``cudaError_t``).  Several modules may
+    bind functions of one source, each its own: a name not bound yet is
+    bound on the first call that gives it.  Every source also exports
+    ``const char* gpvae_cuda_error_string(int)``."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name)))
-            for fn_name, argtypes in entry_points.items():
-                fn = getattr(lib, fn_name)
-                fn.restype = ctypes.c_int
-                fn.argtypes = argtypes
             lib.gpvae_cuda_error_string.restype = ctypes.c_char_p
             lib.gpvae_cuda_error_string.argtypes = [ctypes.c_int]
             _LIBS[name] = lib
+            _BOUND[name] = set()
+        missing = entry_points.keys() - _BOUND[name]
+        for fn_name in missing:
+            fn = getattr(lib, fn_name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = entry_points[fn_name]
+        _BOUND[name] |= missing
         return lib
 
 

@@ -1,5 +1,5 @@
 """Blocked in-place Cholesky for large T: of a gram built in-kernel, and of
-a pre-built gram bank.
+a pre-built gram bank, left-looking or right-looking.
 
 Counterpart of ``gpvae_tpu/ops/pallas_big.py:1126-1253``
 (``cholesky_gram_inplace``, ``_nb_for_t``) and ``:1256-1317``
@@ -31,6 +31,10 @@ block.  The last block may be narrower than ``NB``; nothing is padded
 every element of it is written by one of the three kernels, the strict
 upper triangle as exact zeros.
 
+:func:`cholesky_blocked_fused` is the right-looking order of
+``cholesky(method="blocked_fused")``: per block, ``chol_block`` with the
+inverse, then ``ops.trail``'s panel product and trailing downdate.
+
 A CUDA tensor goes to the kernels; a CPU tensor takes the same block loop
 with each kernel's plain version, so the CPU tests exercise its indexing
 too.
@@ -42,7 +46,7 @@ import ctypes
 import torch
 
 from gpvae_tpu_torch import kernels as kernels_lib
-from gpvae_tpu_torch.ops import _build, chol_block, dispatch
+from gpvae_tpu_torch.ops import _build, chol_block, dispatch, trail
 
 # The block width: the widest diagonal block one thread block holds in
 # shared memory.  (The JAX package takes 128 or 256 and clamps to 128 above
@@ -271,4 +275,42 @@ def cholesky_inplace(k: torch.Tensor) -> torch.Tensor:
         chol_block.chol_block(d, out=d)
         if o + w < t:
             panel_solve(l, o, w)
+    return l
+
+
+def cholesky_blocked_fused(k: torch.Tensor,
+                           block_size: int = NB) -> torch.Tensor:
+    """``L [N, T, T]`` of the pre-built SPD bank ``k [N, T, T]``,
+    right-looking: the counterpart of ``gpvae_tpu/ops/chol.py:395-439``
+    (``cholesky(method="blocked_fused")``, ``block_size=64`` for
+    ``"blocked_fused_64"``).
+
+    ``k`` is copied into ``L`` (it is never written), and each step at
+    column ``o`` works on ``L`` in place: ``chol_block`` factors the
+    diagonal block and returns its inverse, ``trail.trail_panel`` turns
+    the panel below it into ``X = P Ld^{-T}`` (zeros into the mirrored
+    upper tile), and ``trail.trail_update`` downdates the lower tiles of
+    the trailing square by ``X X^T``.  The last block, which may be
+    narrower than ``block_size`` (nothing is padded; the JAX function pads
+    with identity), is only factored.  Only the lower triangle of ``k``
+    enters ``L``; its strict upper triangle is exact zeros.  T <=
+    ``block_size`` is one ``chol_block`` launch."""
+    if block_size not in trail.WIDTHS:
+        raise ValueError(f"blocked_fused: block_size in {trail.WIDTHS}, "
+                         f"got {block_size}")
+    n, t, _ = k.shape
+    l = torch.empty((n, t, t), dtype=k.dtype, device=k.device)
+    if t <= block_size:
+        chol_block.chol_block(k, out=l)
+        return l
+    l.copy_(k)
+    for o in range(0, t, block_size):
+        w = min(block_size, t - o)
+        d = l[:, o:o + w, o:o + w]
+        if o + w == t:
+            chol_block.chol_block(d, out=d)
+            break
+        _, inv = chol_block.chol_block(d, inverse=True, out=d)
+        trail.trail_panel(l, inv, o)
+        trail.trail_update(l, o, w)
     return l

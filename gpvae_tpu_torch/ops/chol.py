@@ -3,10 +3,12 @@ from the factor on the inverse route.
 
 Counterpart of ``gpvae_tpu/ops/chol.py``:
 
-* ``cholesky`` :616-640 with ``method="auto"``: the forward is
-  ``ops.blocked.cholesky_inplace`` at every T (one ``chol_block`` launch
-  up to T = 128, the blocked factorization with ``hist_panel`` above),
-  where the TPU picks among three routes by T (:453-465);
+* ``cholesky`` :616-640 and its method menu ``_cholesky_fwd_impl``
+  :453-489 (:data:`METHODS`).  ``"auto"`` is ``ops.blocked.
+  cholesky_inplace`` at every T (one ``chol_block`` launch up to T = 128,
+  the left-looking blocked factorization with ``hist_panel`` above),
+  where the TPU picks among three routes by T with crossovers timed on
+  its v5e (:442-465), which are not carried over;
 * ``_phi`` :492, ``_phi_w_blocks`` :497, ``_tri_sandwich`` and
   ``_tri_sandwich_blocks`` :526-578, and ``cholesky_bwd_from_l`` :581-602
   on the route the JAX package takes on a TPU: one triangular inverse
@@ -22,8 +24,18 @@ from __future__ import annotations
 
 import torch
 
-from gpvae_tpu_torch.ops.blocked import cholesky_inplace
+from gpvae_tpu_torch.ops import chol_block
+from gpvae_tpu_torch.ops.blocked import (
+    cholesky_blocked_fused, cholesky_inplace,
+)
 from gpvae_tpu_torch.ops.tri_inv import tri_inv
+
+# every method name of the JAX package's cholesky (chol.py:453-489)
+METHODS = ("auto", "xla", "pallas", "blocked", "blocked_left",
+           "blocked_left_streamed", "blocked_inplace", "blocked_inplace_128",
+           "blocked_fused", "blocked_fused_64")
+# the largest side of method="pallas" (pallas_chol.chol_small_batched)
+PALLAS_MAX_T = 64
 
 
 def _phi(m: torch.Tensor) -> torch.Tensor:
@@ -83,24 +95,59 @@ def cholesky_bwd_from_l(l: torch.Tensor, l_bar: torch.Tensor) -> torch.Tensor:
     return _tri_sandwich(x, 0.5 * (p + p.mT))
 
 
+def _cholesky_fwd(k: torch.Tensor, method: str) -> torch.Tensor:
+    if method == "xla":
+        # the library (chol_block's plain version), made row-major: its
+        # factor is column-major on the card
+        return chol_block.chol_block_plain(k)[0].contiguous()
+    t = k.shape[-1]
+    if method == "pallas" and t > PALLAS_MAX_T:
+        raise ValueError(f"T={t} > {PALLAS_MAX_T}; use a blocked method for "
+                         f"large T")
+    kb = k.reshape(-1, t, t)
+    if method in ("blocked", "blocked_fused"):
+        lb = cholesky_blocked_fused(kb)
+    elif method == "blocked_fused_64":
+        lb = cholesky_blocked_fused(kb, block_size=64)
+    else:  # left-looking; one chol_block launch up to T = 128
+        lb = cholesky_inplace(kb)
+    return lb.reshape(k.shape)
+
+
 class _Cholesky(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, k):
-        t = k.shape[-1]
-        l = cholesky_inplace(k.reshape(-1, t, t)).reshape(k.shape)
+    def forward(ctx, k, method):
+        l = _cholesky_fwd(k, method)
         ctx.save_for_backward(l)
         return l
 
     @staticmethod
     def backward(ctx, l_bar):
         (l,) = ctx.saved_tensors
-        return cholesky_bwd_from_l(l, l_bar)
+        return cholesky_bwd_from_l(l, l_bar), None
 
 
-def cholesky(k: torch.Tensor) -> torch.Tensor:
+def cholesky(k: torch.Tensor, *, method: str = "auto") -> torch.Tensor:
     """Differentiable batched lower Cholesky factor of SPD ``k [..., T,
     T]`` (only its lower triangle is read; ``k`` is never written).  A
     matrix that is not positive definite in its dtype gives NaN entries,
     never an exception.  The gradient is symmetric, the convention of
-    ``jnp.linalg.cholesky``."""
-    return _Cholesky.apply(k)
+    ``jnp.linalg.cholesky``, and the same for every method.
+
+    ``method`` takes every name of the JAX package (``ValueError`` on any
+    other):
+
+    * ``"auto"``, ``"blocked_left"``, ``"blocked_left_streamed"``,
+      ``"blocked_inplace"``, ``"blocked_inplace_128"``: the left-looking
+      blocked factorization these names compute, at the port's one block
+      width of 128 (``ops.blocked.cholesky_inplace``);
+    * ``"blocked_fused"`` and ``"blocked"`` (on the TPU the same
+      right-looking explicit-inverse algorithm with its update at the XLA
+      level): ``ops.blocked.cholesky_blocked_fused`` with blocks of 128,
+      ``"blocked_fused_64"`` with blocks of 64;
+    * ``"pallas"``: one ``chol_block`` launch, T <= 64;
+    * ``"xla"``: the library, ``torch.linalg.cholesky_ex``.
+    """
+    if method not in METHODS:
+        raise ValueError(f"unknown cholesky method {method!r}")
+    return _Cholesky.apply(k, method)

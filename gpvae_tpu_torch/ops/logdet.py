@@ -99,12 +99,15 @@ def logdet_from_chol(l: torch.Tensor) -> torch.Tensor:
     return diag_logdet_plain(l)
 
 
-def chol_logdet(k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Factor SPD ``k [..., T, T]`` and return ``(L, logdet k)``."""
-    l = cholesky(k)
+def chol_logdet(k: torch.Tensor, *, method: str = "auto"
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Factor SPD ``k [..., T, T]`` by ``cholesky(k, method=method)`` and
+    return ``(L, logdet k)``."""
+    l = cholesky(k, method=method)
     return l, logdet_from_chol(l)
 
 
-def slogdet_psd(k: torch.Tensor) -> torch.Tensor:
-    """``logdet`` of SPD ``k [..., T, T]`` through its Cholesky factor."""
-    return logdet_from_chol(cholesky(k))
+def slogdet_psd(k: torch.Tensor, *, method: str = "auto") -> torch.Tensor:
+    """``logdet`` of SPD ``k [..., T, T]`` through its Cholesky factor
+    (``cholesky(k, method=method)``)."""
+    return logdet_from_chol(cholesky(k, method=method))

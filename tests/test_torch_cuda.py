@@ -16,7 +16,7 @@ from gpvae_tpu_torch import configs, kernels, train
 from gpvae_tpu_torch.data import Batcher, generate_toy_data, toy_to_masked_batch
 from gpvae_tpu_torch.models import GPVAE
 from gpvae_tpu_torch.ops import (
-    blocked, chol, chol_block, gram_chol, logdet, tri_inv, trsm,
+    blocked, chol, chol_block, gram_chol, logdet, trail, tri_inv, trsm,
 )
 
 pytestmark = pytest.mark.cuda
@@ -398,3 +398,161 @@ def test_evaluate_path_goes_through_the_kernels(card, tmp_path):
     err = (post.mean.double().cpu() - post64.mean).abs().max().item()
     err32 = (post32.mean.double() - post64.mean).abs().max().item()
     assert err <= max(1e-4 * scale, 4.0 * err32)
+
+
+# -- the right-looking route: trail_panel + trail_update (B23) ----------------
+
+# The explicit inverse of the diagonal block costs the float32 factor 3-4x
+# the library's error of float64 (a CPU emulation, PERF.md), more on
+# ill-conditioned blocks: the band is 5x the library's error, floored at
+# 5e-5 as in _l_band, or 2x the same algorithm's error on its plain
+# versions in float32 on the CPU (library factor, triangular solve for the
+# inverse, matmuls), whichever is larger.
+FUSED_VS_LIBRARY = 5.0
+FUSED_VS_PLAIN = 2.0
+# a kernel's float32 product against the float64 product of the same
+# inputs, per element, over the sum of the magnitudes of its terms: depth
+# <= 128 float32 roundings
+TERMS_REL = 1e-5
+
+
+def _fused_band(k, ref, block_size=128):
+    lib = (torch.linalg.cholesky(k).double() - ref).abs().max().item()
+    with_plain = k.cpu()  # the CPU takes the plain versions
+    plain = blocked.cholesky_blocked_fused(with_plain, block_size=block_size)
+    err_plain = (plain.to(ref.device).double() - ref).abs().max().item()
+    return max(5e-5, FUSED_VS_LIBRARY * lib, FUSED_VS_PLAIN * err_plain)
+
+
+def _terms_err(got, ref, terms):
+    """max over elements of |got - ref| / terms."""
+    return ((got.double() - ref).abs() / terms.clamp_min(1e-30)).max().item()
+
+
+def _one_step(card, seed, n, t, nb):
+    """A masked bank's float32 copy with its first ``nb`` block column
+    finished by one right-looking step on the kernels, the second diagonal
+    block factored and its inverse: the state in which step 2 starts."""
+    k, _ = _prebuilt(card, seed, n, t)
+    l = k.clone()
+    for o in (0, nb):
+        d = l[:, o:o + nb, o:o + nb]
+        _, inv = chol_block.chol_block(d, inverse=True, out=d)
+        if o == 0:
+            trail.trail_panel(l, inv, 0)
+            trail.trail_update(l, 0, nb)
+    return l, inv
+
+
+@pytest.mark.parametrize("nb", trail.WIDTHS)
+@pytest.mark.parametrize("t", [320, 1000])
+def test_trail_kernels_match_plain(card, nb, t):
+    """Step 2 (o = nb) of a ragged (1000) and a whole-tile T against the
+    plain versions in float64 on the same inputs, X and the downdate on its
+    lower tiles, each within ``TERMS_REL`` of its terms."""
+    l, inv = _one_step(card, t + nb, 8, t, nb)
+    o = nb
+    got, ref = l.clone(), l.double()
+    before = (trail.PANEL_LAUNCHES, trail.UPDATE_LAUNCHES)
+    trail.trail_panel(got, inv, o)
+    trail.trail_panel_plain(ref, inv.double(), o)
+    p = l[:, o + nb:, o:o + nb].double()
+    assert _terms_err(got[:, o + nb:, o:o + nb], ref[:, o + nb:, o:o + nb],
+                      p.abs() @ inv.double().abs().mT) <= TERMS_REL
+    assert torch.all(got[:, o:o + nb, o + nb:] == 0)
+    # the downdate, both from the kernel's X
+    ref = got.double()
+    trail.trail_update(got, o, nb)
+    trail.trail_update_plain(ref, o, nb)
+    assert (trail.PANEL_LAUNCHES - before[0],
+            trail.UPDATE_LAUNCHES - before[1]) == (1, 1)
+    torch.cuda.synchronize()
+    low = trail.lower_tiles(t - o - nb, card)
+    sq = got[:, o + nb:, o + nb:]
+    x = ref[:, o + nb:, o:o + nb]
+    terms = l[:, o + nb:, o + nb:].double().abs() + x.abs() @ x.abs().mT
+    err = _terms_err(sq[:, low], ref[:, o + nb:, o + nb:][:, low],
+                     terms[:, low])
+    assert err <= TERMS_REL
+    # the tiles above the lower ones, and the columns left of X, untouched
+    assert torch.equal(sq[:, ~low], l[:, o + nb:, o + nb:][:, ~low])
+    assert torch.equal(got[:, :, :o], l[:, :, :o])
+
+
+def test_trail_kernels_work_in_place_at_a_row_stride(card):
+    """L a view inside a larger buffer: the same bits as on a contiguous L,
+    and nothing written outside the view."""
+    nb, t = 128, 384
+    l, inv = _one_step(card, 4, 4, t, nb)
+    want = l.clone()
+    trail.trail_panel(want, inv, nb)
+    trail.trail_update(want, nb, nb)
+    big = torch.full((4, t + 10, t + 20), float("nan"), device=card)
+    big[:, 6:t + 6, 12:t + 12] = l
+    view = big[:, 6:t + 6, 12:t + 12]
+    trail.trail_panel(view, inv, nb)
+    trail.trail_update(view, nb, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(view, want)
+    outside = big.clone()
+    outside[:, 6:t + 6, 12:t + 12] = float("nan")
+    assert torch.isnan(outside).all()
+
+
+@pytest.mark.parametrize("t,nb", [(128, 128), (256, 64), (300, 128),
+                                  (1024, 128)])
+def test_cholesky_blocked_fused_matches_float64(card, t, nb):
+    """Counted launches, the band, an exactly zero strict upper triangle
+    (K's upper half was copied into L first), K unchanged."""
+    k, k64 = _prebuilt(card, 90 + t, 16, t)
+    k_before = k.clone()
+    before = (chol_block.LAUNCHES, trail.PANEL_LAUNCHES,
+              trail.UPDATE_LAUNCHES)
+    l = blocked.cholesky_blocked_fused(k, block_size=nb)
+    blocks = -(-t // nb)
+    assert (chol_block.LAUNCHES - before[0],
+            trail.PANEL_LAUNCHES - before[1],
+            trail.UPDATE_LAUNCHES - before[2]) == (blocks, blocks - 1,
+                                                   blocks - 1)
+    ref = torch.linalg.cholesky(k64)
+    err = (l.double() - ref).abs().max().item()
+    assert err <= _fused_band(k, ref, nb)
+    assert torch.all(torch.triu(l, 1) == 0)
+    assert torch.equal(k, k_before)
+
+
+@pytest.mark.parametrize("method", chol.METHODS)
+def test_every_cholesky_method_on_the_card(card, method):
+    t = 64 if method == "pallas" else 300
+    k, k64 = _prebuilt(card, 5, 8, t)
+    l = chol.cholesky(k.reshape(4, 2, t, t), method=method).reshape(8, t, t)
+    assert l.is_contiguous()
+    ref = torch.linalg.cholesky(k64)
+    if method in ("blocked", "blocked_fused", "blocked_fused_64"):
+        band = _fused_band(k, ref, 64 if method.endswith("64") else 128)
+        err = (l.double() - ref).abs().max().item()
+    else:
+        err, band = _l_band(l, ref, torch.linalg.cholesky(k))
+    assert err <= band
+    assert torch.all(torch.triu(l, 1) == 0)
+
+
+def test_trail_kernels_refuse_what_they_do_not_take(card):
+    l = torch.zeros((2, 256, 256), device=card)
+    inv = torch.zeros((2, 128, 128), device=card)
+    with pytest.raises(TypeError, match="float32"):
+        trail.trail_panel(l.double(), inv.double(), 0)
+    with pytest.raises(TypeError, match="float32"):
+        trail.trail_update(l.double(), 0, 128)
+    with pytest.raises(ValueError, match="unit-stride"):
+        trail.trail_update(l.transpose(1, 2), 0, 128)
+    with pytest.raises(ValueError, match="unit-stride"):
+        trail.trail_panel(l.transpose(1, 2), inv, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        trail.trail_panel(l, inv.transpose(1, 2), 0)
+    with pytest.raises(ValueError, match="bad block"):
+        trail.trail_update(l, 0, 96)
+    with pytest.raises(ValueError, match="block_size"):
+        blocked.cholesky_blocked_fused(l, block_size=32)
+    with pytest.raises(ValueError, match="T=100 > 64"):
+        chol.cholesky(torch.eye(100, device=card)[None], method="pallas")
