@@ -7,7 +7,8 @@ Phases, each printing one line (a failed check exits nonzero at once):
 
 1. device: the card, its power limit, and the float32 matmul setting;
 2. build: the five CUDA sources of ``gpvae_tpu_torch/csrc`` (nine
-   kernels), one ``nvcc`` each, all started together;
+   kernels), one ``nvcc`` each, all started together, and each kernel's
+   registers and spills as ptxas reports them;
 3. kernels: each kernel against its plain PyTorch version in float64 on
    the card: ``gram_chol`` and ``tri_inv`` at T in {8, 45, 64}, N in
    {80, 1024}; ``chol_block`` in both modes at T in {64, 100, 128}, N in
@@ -164,6 +165,10 @@ EVAL_SEQS = {"syn_data": 200, "bench_t100": 320}
 # tensor cores and HBM3 bandwidth; a bound is the larger of the two times
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# dense TF32 on the tensor cores: the floor of the panel tile's kernels,
+# which multiply float32 operands as three products of TF32 parts
+# (gram_panel.cu)
+PEAK_TF32_FLOPS = 495e12
 # operations counted per gram element built in a kernel (difference,
 # scale, square, exp, variance, noise, two mask products)
 GRAM_OPS = 8
@@ -183,6 +188,21 @@ def fail(msg: str) -> None:
 
 def phase(label: str, **fields) -> None:
     print(json.dumps({"phase": label, **fields}), flush=True)
+
+
+def kernel_name(mangled: str) -> str:
+    """``trail_panel_kernel<128>`` from the kernel's mangled name."""
+    import re
+
+    # a name is mangled as its length, then itself
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        digits = m.group(1)
+        end = m.start() + len(digits)
+        name = mangled[end:end + int(digits)]
+        if name.endswith("_kernel"):
+            arg = re.match(r"IL[bi](\d+)E", mangled[end + len(name):])
+            return name + (f"<{arg.group(1)}>" if arg else "")
+    return mangled
 
 
 def nvidia_smi_line() -> str:
@@ -621,7 +641,7 @@ def check_prebuilt_kernels(dev) -> dict:
     rng = np.random.default_rng(3)
     worst = {"hist_panel": 0.0, "cholesky": 0.0, "cholesky_vs_library": 0.0,
              "solve_triangular_rel": 0.0,
-             "methods": {m: [0.0, 0.0] for m in chol.METHODS}}
+             "methods": {m: [0.0, 0.0, 0.0] for m in chol.METHODS}}
     cases = 0
 
     def bank(n, t):
@@ -729,7 +749,8 @@ def check_methods(worst, kb, k64) -> int:
     right-looking ones in :func:`fused_band`, the others in
     ``CHOL_VS_LIBRARY``; ``"pallas"`` only at T <= 64): the strict upper
     triangle exactly 0 and K unchanged.  ``worst[m]`` keeps the largest
-    error and ratio to the band of each method; returns the cases run."""
+    error of each method, its largest ratio to the band and to the
+    library's float32 error on the same bank; returns the cases run."""
     import torch
 
     from gpvae_tpu_torch.ops import chol
@@ -739,6 +760,7 @@ def check_methods(worst, kb, k64) -> int:
     ref = torch.linalg.cholesky(k64)
     k_copy = kb.clone()
     lib = torch.linalg.cholesky(k)
+    err_lib = (lib.double() - ref).abs().max().item()
     cases = 0
     for method in chol.METHODS:
         if method == "pallas" and t > chol.PALLAS_MAX_T:
@@ -754,12 +776,12 @@ def check_methods(worst, kb, k64) -> int:
                 fail(f"{name}: strict upper triangle of L not zero")
         else:
             err, _ = check_l(name, l, ref, lib, vs_library=CHOL_VS_LIBRARY)
-            band = max(L_MAX_ABS, CHOL_VS_LIBRARY
-                       * (lib.double() - ref).abs().max().item())
+            band = max(L_MAX_ABS, CHOL_VS_LIBRARY * err_lib)
         if not torch.equal(kb, k_copy):
             fail(f"{name} wrote into K")
         worst[method] = [max(worst[method][0], err),
-                         max(worst[method][1], err / band)]
+                         max(worst[method][1], err / band),
+                         max(worst[method][2], err / err_lib)]
         cases += 1
     return cases
 
@@ -1431,7 +1453,7 @@ def method_paths(dev) -> dict:
 # -- phase 5 ------------------------------------------------------------------
 
 def time_kernel(name, kernel_fn, plain_fn, library_fn, nbytes, flops,
-                shape, kernel=None) -> dict:
+                shape, kernel=None, tensor_flops=None) -> dict:
     """``ms``, ``plain_ms``, ``library_ms``: CUDA-event time per call of
     back-to-back calls, which is the host's time per call wherever that
     exceeds the card's.  ``*_device_ms``: the card's own time per call,
@@ -1439,7 +1461,9 @@ def time_kernel(name, kernel_fn, plain_fn, library_fn, nbytes, flops,
     ``kernel_device_ms``, the mean of the hand-written kernel ``kernel``'s
     launches alone, beside how many of them the profiler saw and its launch
     counter counted (the kernel's window is profiled again, up to three
-    times in all, while the two differ)."""
+    times in all, while the two differ).  ``tensor_flops``: the TF32
+    operations a tensor-core kernel issues for the same work, whose time at
+    the tensor cores' peak is ``tensor_floor_ms``."""
     ms = cuda_ms(kernel_fn)
     plain_ms = cuda_ms(plain_fn)
     library_ms = cuda_ms(library_fn) if library_fn is not None else None
@@ -1463,7 +1487,9 @@ def time_kernel(name, kernel_fn, plain_fn, library_fn, nbytes, flops,
            "kernels_per_call": dev["kernels"],
            "plain_kernels_per_call": plain["kernels"],
            "host_ms_per_call_profiled": dev["wall_us"] / 1e3,
-           "profiled_attempts": attempt}
+           "profiled_attempts": attempt,
+           "tensor_floor_ms": (tensor_flops / PEAK_TF32_FLOPS * 1e3
+                               if tensor_flops is not None else None)}
     if kernel is not None:
         out.update(kernel_device_ms=dev["kernel_us"] / 1e3,
                    kernel_launches_seen=dev["kernel_seen"],
@@ -1551,7 +1577,7 @@ def time_kernels(dev) -> dict:
         f * n * ((t - o) * o + (t - o) * w + 2 * t),
         n * (2.0 * (t - o) * w * o + GRAM_OPS * (t - o) * w),
         f"N={n}, T={t}, block 4 (rows {o}-{t}, history {o})",
-        kernel="gram_panel")
+        kernel="gram_panel", tensor_flops=3 * n * 2.0 * (t - o) * w * o)
     ld = scratch[:, o:o + w, o:o + w]
     sub = scratch[:, o + w:, o:o + w]
     r = t - o - w
@@ -1628,7 +1654,7 @@ def time_kernels(dev) -> dict:
         f * n * ((t - o) * w + (t - o) * o + (t - o) * w),
         2.0 * n * (t - o) * w * o,
         f"N={n}, T={t}, block 4 (rows {o}-{t}, history {o})",
-        kernel="hist_panel")
+        kernel="hist_panel", tensor_flops=3 * 2.0 * n * (t - o) * w * o)
     del scratch, rows, cols, kp, lk
 
     def factor_plain():
@@ -1672,18 +1698,22 @@ def time_trail_kernels(dev, rng) -> dict:
             trail.trail_update(l, oo, nb)
     x, s22 = l[:, o + nb:, o:o + nb], l[:, o + nb:, o + nb:]
     shape = f"N={n}, T={t}, step 4 (o={o}, {r2} rows below the block)"
+    tiles = -(-r2 // trail.TILE)
     res = {"trail_update": time_kernel(
         "trail_update", lambda: trail.trail_update(l, o, nb),
         lambda: trail.trail_update_plain(l, o, nb),
         lambda: torch.baddbmm(s22, x, x.mT, alpha=-1.0),
         # X read, the lower triangle of the square read and written
         f * n * (r2 * nb + r2 * (r2 + 1)), n * float(nb) * r2 * (r2 + 1),
-        shape, kernel="trail_update")}
+        shape, kernel="trail_update",
+        # the 64 x 64 tiles on and below the diagonal, three products each
+        tensor_flops=3 * n * 2.0 * nb * 64 * 64 * tiles * (tiles + 1) / 2)}
     res["trail_panel"] = time_kernel(
         "trail_panel", lambda: trail.trail_panel(l, inv, o),
         lambda: trail.trail_panel_plain(l, inv, o), lambda: x @ inv.mT,
-        # the panel read and X written, Ld^-1's lower triangle read
-        f * n * (2 * r2 * nb + nb * (nb + 1) / 2),
+        # the panel read, X and the zero tile L[o:o+nb, o+nb:] written,
+        # Ld^-1's lower triangle read; x @ inv.mT writes no zero tile
+        f * n * (3 * r2 * nb + nb * (nb + 1) / 2),
         n * float(r2) * nb * (nb + 1), shape, kernel="trail_panel")
     return res
 
@@ -1802,7 +1832,9 @@ def run(dev) -> int:
     for module in (gram_chol, tri_inv, chol_block, blocked, logdet, trail):
         module.build()
     phase("build", seconds=time.perf_counter() - t0,
-          nvcc_seconds=dict(_build.BUILD_SECONDS))
+          nvcc_seconds=dict(_build.BUILD_SECONDS),
+          ptxas={kernel_name(k): v for res in _build.RESOURCES.values()
+                 for k, v in res.items()})
 
     # -- 3. kernels vs plain ---------------------------------------------
     worst = check_kernels(dev)

@@ -53,8 +53,8 @@
 //   trail_panel (K6):  X = L[o+nb:, o:o+nb] Ld^-T, in place, and zeros into
 //                      the mirrored upper tile;
 //   trail_update (K7): L[o+nb:, o+nb:] -= X X^T on the lower-triangular
-//                      64 x 64 tiles only (the hist_panel tile, K = L,
-//                      history [o, o+nb)).
+//                      64 x 64 tiles only (the panel tile, K = L, history
+//                      [o, o+nb)).
 //
 // The TPU kernel does both in one grid: row tiles run in order and each
 // finished X tile waits in a VMEM scratch for the downdates of the later
@@ -63,46 +63,304 @@
 // recomputing X rows in each downdate block instead would triple the
 // work.  X is multiplied by the explicit inverse, as on the TPU, which in
 // float32 costs 3-4x the library's factor error (see panel_solve below):
-// "auto" never takes this route.  What bounds them: at the T = 1024, n =
-// 128 middle step (o = 384, 512 rows below the block) the lower triangle
-// of the downdate needs 4.3 GFLOP against 0.17 GB, bound by float32
-// operations (0.064 ms at 67 TFLOP/s), and X against the triangular
-// inverse 1.1 GFLOP against 0.07 GB, bound by bytes (0.021 ms at 3.35
-// TB/s).  They run the panel's SIMT design, plain FMA, no TF32;
-// trail_update computes the diagonal tiles whole and trail_panel the full
-// product with Ld^-1, zeros included (4.8 and 2.1 GFLOP done).
+// "auto" never takes this route.
 //
-// What bounds them on Hopper: the panel is the factorization's floating
+// What bounds them on Hopper.  The panel is the factorization's floating
 // point work (n T^3 / 3 over all steps: 46 GFLOP at T = 1024, n = 128), a
-// batched fp32 product with a history depth of up to T - 128.  It is a
-// classic shared-memory SGEMM tile: 64 x 64 outputs per block, depth 16 per
-// stage, 4 x 4 outputs per thread in registers, plain fp32 FMA (no TF32,
-// no tensor cores: the covariance path stays fp32).  hist_panel reads its
-// 64 x 64 K tile (16 KB) where gram_panel builds it, beside the 2 * 64 * o
-// floats of history a block streams.  panel_solve is
-// serial in the w columns of a row but rows are independent: a block
-// holds L_d (66 KB) in shared memory and 32 rows in registers, eight
-// lanes a row, and the column loop is unrolled so each lane's 16 values
-// stay in registers; a column costs one shuffle and at most 16 FMAs a
-// lane.
+// batched product with a history depth of up to T - 128: at the T = 1024
+// middle step (o = 512, w = 128, n = 128) 8.6 GFLOP against 35 MB, bound
+// by operations (0.129 ms at the 67 TFLOP/s of plain float32 FMA, 0.052
+// ms for the three TF32 products below at 495 TFLOP/s).  The trailing
+// downdate is the same tile at depth nb; X against the triangular Ld^-1
+// needs 1.1 GFLOP against 104 MB (the panel read, X and the zero tile
+// written), bound by bytes (0.031 ms at 3.35 TB/s).
+//
+// The panel tile (panel_tile) runs on the tensor cores in 3xTF32: each
+// float32 operand x is split into TF32 parts hi = rna(x) and lo = rna(x -
+// hi), x to 2^-22 |x| (rounding both keeps the split unbiased; a truncated
+// one biased a panel's diagonal, a sum of squares, by 2^-20 a term), and
+// a b is taken as al bh + ah bl + ah bh by wgmma (m64nNk8, TF32 inputs,
+// float32 sums), the al bl term (2^-22 of |a b|) dropped.  Plain TF32 (ah
+// bh alone) keeps 11 bits of each operand; the covariance path stays
+// float32.  The tensor cores' float32 sum truncates,
+// which over a depth of 900 biases it and left the pre-built
+// factorization at T = 1024 several times the library's float32 error.
+// So each 32-deep stage's twelve products sum into fresh registers, which
+// an ordinary (rounding) float32 add takes into the tile's sum: the
+// factor's error is then that of the plain float32 route
+// (tests/test_torch_panel_split.py emulates both sums on the CPU).
+// A stage is 32 k, one 128-byte row of each of the tile's BM + BN rows of
+// L.  Stages arrive through a 4-stage ring of cp.async copies (16 bytes
+// where a row starts 16-byte aligned, else 4, in the same kernel; past
+// the history's end, T or w zero-filled by the copy itself), in the
+// 128-byte swizzle that wgmma reads without bank conflicts.  One pass over
+// a landed stage splits each element once, hi in place and lo into one of
+// two planes of the same layout; the split of stage s + 1 runs while the
+// tensor cores multiply stage s, with the loads of stage s + 3 in flight.
+// gram_panel and hist_panel take 128 x 128 tiles, two warpgroups of 64
+// rows: the w = 128 panel is one block column, so each history row is
+// fetched once per row block.  trail_update takes 64 x 64 tiles, one
+// warpgroup: its tile pairs (i, j <= i) must not write above the diagonal
+// outside a block of width nb, which at nb = 64 a 128-wide tile would do.
+// The epilogue goes through shared memory, so that K is built
+// (gram.cuh) or read, and K - sum stored, 16 bytes a thread.
+//
+// trail_panel is a streaming kernel in plain float32 FMA.  Its product
+// with the explicit inverse cancels (the terms |P| |Ld^-T| dwarf X), which
+// the panel's 3xTF32 (2^-22 an operand) magnifies: that took the
+// blocked_fused factor past its band on the card, and six TF32 products
+// of three parts, as accurate as float32, ran slower than this loop.  A
+// block holds Ld^-1 transposed, its lower triangle and zeros above, in
+// shared memory for all of its 64-row tiles of one matrix; each tile of P
+// is stored transposed for the loop while the next one's loads are in
+// flight in registers.  A thread computes 4 rows x 8 columns from k-major
+// operands (16-byte shared loads); a warp's columns are the groups wc and
+// 7 - wc of NB / 8, so that every warp's loop over the triangle (k <= c,
+// half the full product) is as long.  X goes over P's rows, which no other
+// block reads and which the tile already holds, and the zero tile is
+// written with 16-byte stores.  Two blocks fit on an SM, and the grid is
+// one wave of them.
+//
+// panel_solve is serial in the w columns of a row but rows are
+// independent: a block holds L_d (66 KB) in shared memory and 32 rows in
+// registers, eight lanes a row, and the column loop is unrolled so each
+// lane's 16 values stay in registers; a column costs one shuffle and at
+// most 16 FMAs a lane.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <cstdint>
+#include <type_traits>
 
 #include "gram.cuh"
 
 namespace {
 
-// -- gram_panel --------------------------------------------------------------
+// -- building blocks: cp.async and the TF32 split -----------------------------
 
-constexpr int kBM = 64;   // panel rows per block
-constexpr int kBN = 64;   // panel columns per block
-constexpr int kBK = 16;   // history depth per stage
-constexpr int kPanelThreads = 256;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// `bytes` of the 16 (or 4) at src into shared memory at dst; the rest of
+// the 16 (or 4) zero-filled
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// until at most N committed groups of this thread are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x to TF32 (10 mantissa bits), to nearest, ties away from zero, as
+// cvt.rna.tf32.f32 does, in two integer operations (the conversion
+// instruction issues at a fraction of their rate)
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + e, hi and lo TF32, |e| <= 2^-22 |x|, rounded both times
+// (a truncated split biases sums of squares: a panel's diagonal)
+__device__ __forceinline__ void split2(float x, float& hi, float& lo) {
+  hi = __uint_as_float(tf32_rna(x));
+  lo = __uint_as_float(tf32_rna(x - hi));
+}
+
+// rows x 32 floats into shared memory in the 128-byte swizzle (chunk j of
+// row i at chunk j ^ (i % 8) of the row's 128 bytes), asynchronously.
+// row(i, src, valid) gives row i's first element in global memory and how
+// many of its 32 floats are real; the rest, and rows with valid = 0, are
+// zero-filled by the copy.  vec: every src + 4j is 16-byte aligned, so
+// 16-byte copies; else 4-byte ones.
+template <int kRows, int kThreads, class RowFn>
+__device__ __forceinline__ void copy_rows_sw128(float* dst, bool vec,
+                                                RowFn row) {
+  if (vec) {
+    constexpr int kChunks = kRows * 8;
+#pragma unroll
+    for (int i = 0; i < kChunks / kThreads; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const int r = e / 8, j = e % 8;
+      const float* src;
+      int valid;
+      row(r, src, valid);
+      const int bytes = 4 * min(max(valid - 4 * j, 0), 4);
+      cp_async16(dst + r * 32 + ((j ^ (r & 7)) * 4), bytes ? src + 4 * j : src,
+                 bytes);
+    }
+  } else {
+    constexpr int kChunks = kRows * 32;
+#pragma unroll 4
+    for (int i = 0; i < kChunks / kThreads; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const int r = e / 32, k = e % 32;
+      const float* src;
+      int valid;
+      row(r, src, valid);
+      const int bytes = k < valid ? 4 : 0;
+      cp_async4(dst + r * 32 + (((k / 4) ^ (r & 7)) * 4) + k % 4,
+                bytes ? src + k : src, bytes);
+    }
+  }
+}
+
+// -- wgmma: warpgroup products from shared memory --------------------------
+
+// The descriptor of a k-major operand in shared memory in the 128-byte
+// swizzle: rows of 128 bytes (32 TF32), the 16-byte chunk j of row r
+// stored at chunk j ^ (r % 8); 8-row atoms of 1024 bytes, 1024-byte
+// aligned, one after another.  A k offset within the row is added to the
+// start address.
+__device__ __forceinline__ uint64_t smem_desc_sw128(const float* p) {
+  return (uint64_t)((smem_addr(p) & 0x3ffff) >> 4) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// shared-memory writes of this thread made visible to the async proxy
+// (wgmma reads through it)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses of r across an async window
+__device__ __forceinline__ void fence_reg(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// d (+)= a b, a 64 x 8 and b 128 x 8 in shared memory (descriptors),
+// k-major TF32; d is 64 floats a thread; scale_d = 0: d = a b
+__device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (+)= a b, a 64 x 8 and b 64 x 8 in shared memory (descriptors),
+// k-major TF32; d is 32 floats a thread; scale_d = 0: d = a b
+__device__ __forceinline__ void wgmma_m64n64k8(float (&d)[32], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// -- the panel tile: gram_panel, hist_panel, trail_update ---------------------
+
+constexpr int kBK = 32;   // history depth per stage: one 128-byte row
+constexpr int kStages = 4;
+
+// a block tile of BM x BN outputs: BM / 64 warpgroups, each 64 rows x BN
+template <int BM, int BN>
+struct TileShape {
+  static constexpr int kBM = BM, kBN = BN;
+  static constexpr int kThreads = 2 * BM;  // 128 a warpgroup
+  static constexpr int kAcc = BN / 2;      // accumulators a thread
+  // a stage: the BM rows of the first operand, then the BN of the second
+  static constexpr int kStageFloats = (BM + BN) * kBK;
+  // the ring (its stages hold the high parts once split), two planes of
+  // low parts, the gram's time vectors of the tile's rows and columns,
+  // and room to align the ring to 1024 bytes
+  static constexpr size_t kSmem =
+      (size_t)((kStages + 2) * kStageFloats + 2 * (BM + BN)) *
+          sizeof(float) + 1024;
+  static_assert(BM % 64 == 0 && (BN == 64 || BN == 128), "tile");
+};
+using PanelTile = TileShape<128, 128>;  // gram_panel, hist_panel
+using TrailTile = TileShape<64, 64>;    // trail_update
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  if constexpr (BN == 128) {
+    wgmma_m64n128k8(d, a, b, scale_d);
+  } else {
+    wgmma_m64n64k8(d, a, b, scale_d);
+  }
+}
 
 struct PanelParams {
   float* l;
   long long l_mat;
   int ld;
+  int vec;      // L's rows 16-byte aligned at column h0 (the copies)
+  int out_vec;  // ... and at column o, and K's where it is read (the
+                // epilogue's loads and stores)
   // gram_panel: K built from the time vectors
   const float* times;  // [n, tlen]
   const float* mask;   // [n, tlen]
@@ -120,204 +378,473 @@ struct PanelParams {
   int h0;  // first history column (0 but in trail_update)
 };
 
-// One 64 x 64 tile of the panel of matrix n, rows row0 .., panel columns
-// col0 .. (0 .. w); kGram says where K comes from.  The history runs over
-// columns [h0, o).  The history loop and its bounds checks are the same
-// for every kernel of the tile.
-template <bool kGram>
-__device__ __forceinline__ void panel_tile(const PanelParams& p, int n,
-                                           int row0, int col0) {
-  __shared__ __align__(16) float as[kBK][kBM + 4];  // as[k][m] = L[row m, k]
-  __shared__ __align__(16) float bs[kBK][kBN + 4];  // bs[k][c] = L[col c, k]
-  __shared__ float tr[kBM], mr[kBM], tc[kBN], mc[kBN];
+// K from the bank, not from the time vectors
+constexpr int kFromBank = -1;
 
+// L[r, c] = K[r, c] - acc for the tile's outputs, K built with kernel code
+// kCode from the time vectors or, for kFromBank, read from the bank.
+// Accumulator i of a thread of warpgroup wg, warp w (of 4), lane (g, q)
+// holds row 64 wg + 16 w + g (+ 8 if i & 2), column 8 (i / 4) + 2 q (+ 1
+// if odd); the tile goes through shared memory (`stage`, free by now) so
+// that K is read and L written 16 bytes a thread, a row's 128 bytes by
+// eight threads.
+template <int kCode, class S>
+__device__ __forceinline__ void store_tile(const PanelParams& p, int n,
+                                           int row0, int col0,
+                                           const float (&acc)[S::kAcc],
+                                           float* stage, const float* tr,
+                                           const float* mr, const float* tc,
+                                           const float* mc) {
+  constexpr int BM = S::kBM, BN = S::kBN, kOut = BN + 4;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // columns tx*4 .. tx*4+3
-  const int ty = tid / 16;  // rows ty*4 .. ty*4+3
-  float* lm = p.l + (size_t)n * p.l_mat;
-
-  if constexpr (kGram) {
-    const size_t vb = (size_t)n * p.tlen;
-    if (tid < kBM) {
-      const int r = row0 + tid;
-      tr[tid] = (r < p.t) ? p.times[vb + r] : 0.0f;
-      mr[tid] = (r < p.t) ? p.mask[vb + r] : 0.0f;
-    } else if (tid < kBM + kBN) {
-      const int c = col0 + tid - kBM;
-      tc[tid - kBM] = (c < p.w) ? p.times[vb + p.o + c] : 0.0f;
-      mc[tid - kBM] = (c < p.w) ? p.mask[vb + p.o + c] : 0.0f;
-    }
-    __syncthreads();  // the time vectors, for the epilogue
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+#pragma unroll
+  for (int i = 0; i < S::kAcc; i += 2) {
+    const int m = (warp / 4) * 64 + (warp % 4) * 16 + g + 8 * ((i >> 1) & 1);
+    const int c = 8 * (i / 4) + 2 * q;
+    *reinterpret_cast<float2*>(stage + m * kOut + c) =
+        make_float2(acc[i], acc[i + 1]);
   }
-
-  float acc[4][4] = {};
-  for (int k0 = p.h0; k0 < p.o; k0 += kBK) {
-    // 64 x 16 of each operand, four elements a thread, k fastest so a
-    // row's 16 floats are one coalesced read
-    for (int e = tid; e < kBM * kBK; e += kPanelThreads) {
-      const int m = e / kBK;
-      const int kk = e % kBK;
-      const int r = row0 + m;
-      const int k = k0 + kk;
-      as[kk][m] = (r < p.t && k < p.o) ? lm[(size_t)r * p.ld + k] : 0.0f;
-    }
-    for (int e = tid; e < kBN * kBK; e += kPanelThreads) {
-      const int c = e / kBK;
-      const int kk = e % kBK;
-      const int k = k0 + kk;
-      bs[kk][c] = (col0 + c < p.w && k < p.o)
-                      ? lm[(size_t)(p.o + col0 + c) * p.ld + k]
-                      : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
+  __syncthreads();
 
   float lsn = 0.0f, varn = 0.0f;
   const float* km = nullptr;
-  if constexpr (kGram) {
+  if constexpr (kCode == kFromBank) {
+    km = p.k + (size_t)n * p.k_mat;
+  } else {
     lsn = p.ls[n];
     varn = p.var[n];
-  } else {
-    km = p.k + (size_t)n * p.k_mat;
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = ty * 4 + i;
+  float* lw = p.l + (size_t)n * p.l_mat;
+  for (int e = tid; e < BM * BN / 4; e += S::kThreads) {
+    const int m = e / (BN / 4), c = (e % (BN / 4)) * 4;
     const int r = row0 + m;
-    if (r >= p.t) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx * 4 + j;
-      const int gc = p.o + col0 + c;
-      if (col0 + c >= p.w) continue;
-      float kv;
-      if constexpr (kGram) {
-        kv = gpvae::gram_value(p.code, tr[m], tc[c], mr[m], mc[c], lsn, varn,
-                               p.noise, p.one_minus_noise, r == gc);
+    if (r >= p.t || col0 + c >= p.w) continue;
+    const int gc = p.o + col0 + c;
+    const float4 a = *reinterpret_cast<const float4*>(stage + m * kOut + c);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    float kv[4];
+    float* dst = lw + (size_t)r * p.ld + gc;
+    const bool whole = p.out_vec && col0 + c + 4 <= p.w;
+    if constexpr (kCode == kFromBank) {
+      const float* src = km + (size_t)r * p.kld + gc;
+      if (whole) {
+        const float4 k4 = *reinterpret_cast<const float4*>(src);
+        kv[0] = k4.x;
+        kv[1] = k4.y;
+        kv[2] = k4.z;
+        kv[3] = k4.w;
       } else {
-        kv = km[(size_t)r * p.kld + gc];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          kv[j] = (col0 + c + j < p.w) ? src[j] : 0.0f;
+        }
       }
-      lm[(size_t)r * p.ld + gc] = kv - acc[i][j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kv[j] = gpvae::gram_value(kCode, tr[m], tc[c + j], mr[m], mc[c + j],
+                                  lsn, varn, p.noise, p.one_minus_noise,
+                                  r == gc + j);
+      }
+    }
+    if (whole) {
+      *reinterpret_cast<float4*>(dst) = make_float4(
+          kv[0] - av[0], kv[1] - av[1], kv[2] - av[2], kv[3] - av[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (col0 + c + j < p.w) dst[j] = kv[j] - av[j];
+      }
     }
   }
 }
 
-__global__ void __launch_bounds__(kPanelThreads)
-gram_panel_kernel(PanelParams p) {
-  panel_tile<true>(p, blockIdx.z, p.r0 + blockIdx.y * kBM, blockIdx.x * kBN);
+// One S::kBM x S::kBN tile of the panel of matrix n, rows row0 .., panel
+// columns col0 .. (of 0 .. w); kGram says where K comes from.  The history
+// runs over columns [h0, o).
+template <bool kGram, class S>
+__device__ __forceinline__ void panel_tile(const PanelParams& p, int n,
+                                           int row0, int col0,
+                                           float* smem_raw) {
+  constexpr int BM = S::kBM, BN = S::kBN;
+  float* ring = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* lo = ring + kStages * S::kStageFloats;  // two planes of low parts
+  float* tr = lo + 2 * S::kStageFloats;          // the gram's time vectors
+  float* mr = tr + BM;
+  float* tc = mr + BM;
+  float* mc = tc + BN;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const float* lm = p.l + (size_t)n * p.l_mat;
+
+  if constexpr (kGram) {
+    const size_t vb = (size_t)n * p.tlen;
+    for (int i = tid; i < BM + BN; i += S::kThreads) {
+      if (i < BM) {
+        const int r = row0 + i;
+        tr[i] = (r < p.t) ? p.times[vb + r] : 0.0f;
+        mr[i] = (r < p.t) ? p.mask[vb + r] : 0.0f;
+      } else {
+        const int c = col0 + i - BM;
+        tc[i - BM] = (c < p.w) ? p.times[vb + p.o + c] : 0.0f;
+        mc[i - BM] = (c < p.w) ? p.mask[vb + p.o + c] : 0.0f;
+      }
+    }
+  }
+
+  // stage s: rows 0..BM-1 are L[row0 + m, k0 ..], rows BM.. L[o + col0 +
+  // c, k0 ..], for k0 = h0 + s kBK, in the 128-byte swizzle; past o, t or
+  // w zero-filled
+  const int stages = (p.o - p.h0 + kBK - 1) / kBK;
+  auto load_stage = [&](int s) {
+    if (s >= stages) return;
+    const int k0 = p.h0 + s * kBK;
+    const int depth = p.o - k0;
+    float* st = ring + (s % kStages) * S::kStageFloats;
+    copy_rows_sw128<BM + BN, S::kThreads>(
+        st, p.vec != 0, [&](int i, const float*& src, int& valid) {
+          const bool is_row = i < BM;
+          const int rr = is_row ? row0 + i : p.o + col0 + (i - BM);
+          const bool ok = is_row ? rr < p.t : col0 + (i - BM) < p.w;
+          src = ok ? lm + (size_t)rr * p.ld + k0 : lm;
+          valid = ok ? depth : 0;
+        });
+  };
+  // each element of stage s split once into TF32 parts, x = hi + lo +
+  // (2^-22 |x|): hi over x in place, lo at the same place in a plane
+  auto split_stage = [&](int s) {
+    float* st = ring + (s % kStages) * S::kStageFloats;
+    float* pl = lo + (s % 2) * S::kStageFloats;
+    constexpr int kQuads = S::kStageFloats / 4;
+#pragma unroll
+    for (int e = tid; e < kQuads; e += S::kThreads) {
+      float4 v = *reinterpret_cast<const float4*>(st + 4 * e);
+      float4 l4;
+      split2(v.x, v.x, l4.x);
+      split2(v.y, v.y, l4.y);
+      split2(v.z, v.z, l4.z);
+      split2(v.w, v.w, l4.w);
+      *reinterpret_cast<float4*>(st + 4 * e) = v;
+      *reinterpret_cast<float4*>(pl + 4 * e) = l4;
+    }
+    fence_proxy_async();
+  };
+
+  float acc[S::kAcc] = {};
+  float d[S::kAcc];
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    load_stage(s);
+    cp_async_commit();
+  }
+  if (stages > 0) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage 0 landed
+    split_stage(0);
+    __syncthreads();  // and is split
+  }
+  for (int s = 0; s < stages; ++s) {
+    // stage s on the tensor cores: a b = al bh + ah bl + ah bh (al bl
+    // dropped), its twelve products into d, which an ordinary float32 add
+    // rounds into acc (see the top); meanwhile stage s + 1 is split
+    const float* sh = ring + (s % kStages) * S::kStageFloats;
+    const float* sl = lo + (s % 2) * S::kStageFloats;
+#pragma unroll
+    for (int i = 0; i < S::kAcc; ++i) fence_reg(d[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBK / 8; ++ks) {
+      const int a_at = wg * 64 * kBK + ks * 8;  // k offset in the row
+      const int b_at = BM * kBK + ks * 8;
+      const uint64_t ah = smem_desc_sw128(sh + a_at);
+      const uint64_t al = smem_desc_sw128(sl + a_at);
+      const uint64_t bh = smem_desc_sw128(sh + b_at);
+      const uint64_t bl = smem_desc_sw128(sl + b_at);
+      wgmma_tile<BN>(d, al, bh, ks > 0);
+      wgmma_tile<BN>(d, ah, bl, 1);
+      wgmma_tile<BN>(d, ah, bh, 1);
+    }
+    wgmma_commit();
+    if (s + 1 < stages) {
+      cp_async_wait<kStages - 3>();
+      __syncthreads();  // stage s + 1 landed
+      split_stage(s + 1);
+    }
+    __syncthreads();  // stage s + 1 split; stage s - 1's buffer is free
+    load_stage(s + kStages - 1);
+    cp_async_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < S::kAcc; ++i) {
+      fence_reg(d[i]);
+      acc[i] += d[i];
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the time vectors, where no stage ran
+
+  auto store = [&](auto code) {
+    store_tile<decltype(code)::value, S>(p, n, row0, col0, acc, ring, tr, mr,
+                                         tc, mc);
+  };
+  using std::integral_constant;
+  if constexpr (kGram) {
+    // one epilogue for each kernel family, the code a constant in it
+    switch (p.code) {
+      case gpvae::kRbf:
+        store(integral_constant<int, gpvae::kRbf>());
+        break;
+      case gpvae::kMatern12:
+        store(integral_constant<int, gpvae::kMatern12>());
+        break;
+      case gpvae::kMatern32:
+        store(integral_constant<int, gpvae::kMatern32>());
+        break;
+      case gpvae::kMatern52:
+        store(integral_constant<int, gpvae::kMatern52>());
+        break;
+      case gpvae::kCauchy:
+        store(integral_constant<int, gpvae::kCauchy>());
+        break;
+      default:
+        store(integral_constant<int, gpvae::kCosine>());
+    }
+  } else {
+    store(integral_constant<int, kFromBank>());
+  }
 }
 
-__global__ void __launch_bounds__(kPanelThreads)
+__global__ void __launch_bounds__(PanelTile::kThreads)
+gram_panel_kernel(PanelParams p) {
+  extern __shared__ __align__(128) float smem[];
+  panel_tile<true, PanelTile>(p, blockIdx.z,
+                              p.r0 + blockIdx.y * PanelTile::kBM,
+                              blockIdx.x * PanelTile::kBN, smem);
+}
+
+__global__ void __launch_bounds__(PanelTile::kThreads)
 hist_panel_kernel(PanelParams p) {
-  panel_tile<false>(p, blockIdx.z, p.r0 + blockIdx.y * kBM, blockIdx.x * kBN);
+  extern __shared__ __align__(128) float smem[];
+  panel_tile<false, PanelTile>(p, blockIdx.z,
+                               p.r0 + blockIdx.y * PanelTile::kBM,
+                               blockIdx.x * PanelTile::kBN, smem);
 }
 
 // trail_update: the tile over the lower-triangular tile pairs (i, j <= i)
 // of the trailing square, one pair per blockIdx.x, row-major:
 // x = i (i + 1) / 2 + j.  K is L itself (see gpvae_trail_update_f32).
-__global__ void __launch_bounds__(kPanelThreads)
+__global__ void __launch_bounds__(TrailTile::kThreads)
 trail_update_kernel(PanelParams p) {
+  extern __shared__ __align__(128) float smem[];
   const int x = blockIdx.x;
   int i = (int)((sqrtf(8.0f * x + 1.0f) - 1.0f) * 0.5f);
   while (i * (i + 1) / 2 > x) --i;  // float rounding, either way
   while ((i + 1) * (i + 2) / 2 <= x) ++i;
   const int j = x - i * (i + 1) / 2;
-  panel_tile<false>(p, blockIdx.y, p.r0 + i * kBM, j * kBN);
+  panel_tile<false, TrailTile>(p, blockIdx.y, p.r0 + i * TrailTile::kBM,
+                               j * TrailTile::kBN, smem);
 }
 
 // -- trail_panel -------------------------------------------------------------
 
-constexpr int kTrailRows = 64;  // panel rows per block
+constexpr int kTrailRows = 64;      // rows of P a tile
+constexpr int kTrailThreads = 256;  // 2 x 4 warps
+constexpr int kTrailPerSM = 2;      // blocks an SM holds (shared memory)
 
-// X[r, :] = P[r, :] Ld^-T for the 64 rows of one block, all NB columns,
-// in place over P = L[r, o:o+NB].  The block reads its whole 64 x NB slab
-// into shared memory before it writes any of it, and no other block reads
-// those rows, so the in-place write is safe.  Ld^-1 (lower triangular,
-// zeros above the diagonal) streams through in chunks of depth kBK; the
-// full product is taken, zeros included, as the TPU's matmul does.
+// N (4 or 2) consecutive floats from shared memory, or to global memory,
+// in one access (16- or 8-byte aligned)
+template <int N>
+__device__ __forceinline__ void load_f(float* v, const float* src) {
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(src);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(src);
+    v[0] = x.x, v[1] = x.y;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_f(float* dst, const float* v) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  }
+}
+
 template <int NB>
-__global__ void __launch_bounds__(kPanelThreads)
+struct TrailPanelShape {
+  static constexpr int kLPitch = NB + 4;          // lt[k][c]
+  static constexpr int kPPitch = kTrailRows + 4;  // pt[k][r]
+  static constexpr int kGroup = NB / 8;   // columns of a group: a warp
+  static constexpr int kCols = kGroup / 4;  // owns two, a lane kCols of each
+  // the registers that carry the next tile: 4 floats per row and chunk
+  static constexpr int kChunks = kTrailRows * NB / 4 / kTrailThreads;
+  static constexpr size_t kSmem =
+      (size_t)(NB * kLPitch + NB * kPPitch) * sizeof(float);
+};
+
+// X[r, c] = sum_{k <= c} P[r, k] Ld^-1[c, k] over the 64-row tiles
+// blockIdx.x, blockIdx.x + gridDim.x, .. of matrix blockIdx.y, in place
+// over P = L[o + nb + ..., o:o+NB], and zeros into the mirrored upper
+// tile.  vec_l: L's rows are 16-byte aligned at column o (and o + NB).
+// Float32 FMA: both operands k-major in shared memory, lt[k][c] =
+// Ld^-1[c, k] (0 for k > c) once per block, and pt[k][r] = P[r, k] for
+// the current tile, whose successor waits in registers meanwhile.  A
+// thread holds 4 rows x 2 kCols columns; warp (wr, wc) owns rows wr 32 ..
+// and the column groups wc and 7 - wc, so that every warp's k loop over
+// the triangle (to its groups' last column) is as long.
+template <int NB>
+__global__ void __launch_bounds__(kTrailThreads, kTrailPerSM)
 trail_panel_kernel(float* l, long long l_mat, int ld, const float* inv,
-                   int o, int t) {
-  constexpr int kGroups = NB / 64;  // float4 column groups a thread owns
-  __shared__ __align__(16) float ps[NB][kTrailRows + 4];  // ps[k][m]
-  __shared__ __align__(16) float bs[kBK][NB + 4];  // bs[k][c] = Ld^-1[c, k]
+                   int o, int t, int vec_l) {
+  using S = TrailPanelShape<NB>;
+  constexpr int LP = S::kLPitch, PP = S::kPPitch, C = S::kCols;
+  extern __shared__ __align__(16) float smem[];
+  float* lt = smem;
+  float* pt = smem + NB * LP;
 
   const int n = blockIdx.y;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // columns tx*4 + 64 g .. + 3
-  const int ty = tid / 16;  // rows ty*4 .. ty*4+3
-  const int row0 = o + NB + blockIdx.x * kTrailRows;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wr = warp / 4, wc = warp % 4;
+  const int rq = lane % 8, cq = lane / 8;
   float* lm = l + (size_t)n * l_mat;
   const float* im = inv + (size_t)n * NB * NB;
+  const int first = o + NB;  // P's first row
+  const int tiles = (t - first + kTrailRows - 1) / kTrailRows;
+  const int step = gridDim.x;
 
-  for (int e = tid; e < kTrailRows * NB; e += kPanelThreads) {
-    const int m = e / NB;
-    const int k = e % NB;
-    const int r = row0 + m;
-    ps[k][m] = (r < t) ? lm[(size_t)r * ld + o + k] : 0.0f;
+  // lt from Ld^-1 (row-major, c = row), a lane a row so that the stores
+  // are consecutive
+  for (int e = tid; e < NB * NB / 4; e += kTrailThreads) {
+    const int c = e % NB, k = (e / NB) * 4;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      lt[(k + j) * LP + c] = (k + j <= c) ? im[(size_t)c * NB + k + j] : 0.0f;
+    }
   }
 
-  float acc[4][4 * kGroups] = {};
-  for (int k0 = 0; k0 < NB; k0 += kBK) {
-    for (int e = tid; e < NB * kBK; e += kPanelThreads) {
-      const int c = e / kBK;
-      const int kk = e % kBK;
-      bs[kk][c] = im[(size_t)c * NB + k0 + kk];
+  // chunk i of a thread: row m = (tid + i kTrailThreads) % 64, floats 4 kc
+  // .. 4 kc + 3 of its NB; rows past t read as 0
+  float4 next[S::kChunks];
+  auto fetch = [&](int tile) {
+    const int row0 = first + tile * kTrailRows;
+#pragma unroll
+    for (int i = 0; i < S::kChunks; ++i) {
+      const int e = tid + i * kTrailThreads;
+      const int m = e % kTrailRows, kc = e / kTrailRows;
+      const int r = row0 + m;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < t) {
+        const float* src = lm + (size_t)r * ld + o + 4 * kc;
+        if (vec_l) {
+          v = *reinterpret_cast<const float4*>(src);
+        } else {
+          v = make_float4(src[0], src[1], src[2], src[3]);
+        }
+      }
+      next[i] = v;
     }
-    __syncthreads();  // (the first time also the whole slab)
+  };
+  auto put = [&]() {  // the fetched tile into pt, a lane a row
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a4 =
-          *reinterpret_cast<const float4*>(&ps[k0 + kk][ty * 4]);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+    for (int i = 0; i < S::kChunks; ++i) {
+      const int e = tid + i * kTrailThreads;
+      const int m = e % kTrailRows, kc = e / kTrailRows;
+      pt[(4 * kc + 0) * PP + m] = next[i].x;
+      pt[(4 * kc + 1) * PP + m] = next[i].y;
+      pt[(4 * kc + 2) * PP + m] = next[i].z;
+      pt[(4 * kc + 3) * PP + m] = next[i].w;
+    }
+  };
+
+  const int ga = wc * S::kGroup + cq * C;        // the lane's columns in
+  const int gb = (7 - wc) * S::kGroup + cq * C;  // groups wc and 7 - wc
+  const int end_a = (wc + 1) * S::kGroup;        // k runs to these
+  const int end_b = (8 - wc) * S::kGroup;
+  const int r0 = wr * 32 + rq * 4;               // the lane's 4 rows
+
+  int tile = blockIdx.x;
+  if (tile < tiles) fetch(tile);
+  for (; tile < tiles; tile += step) {
+    __syncthreads();  // lt is whole; every warp is done with pt
+    put();
+    __syncthreads();
+    if (tile + step < tiles) fetch(tile + step);  // in flight meanwhile
+
+    // k below group wc's end feeds both groups, then group 7 - wc alone
+    float acc[4][2 * C] = {};
+    int k = 0;
+    for (; k < end_a; ++k) {
+      float pv[4], lv[2 * C];
+      load_f<4>(pv, &pt[k * PP + r0]);
+      load_f<C>(lv, &lt[k * LP + ga]);
+      load_f<C>(lv + C, &lt[k * LP + gb]);
 #pragma unroll
-      for (int g = 0; g < kGroups; ++g) {
-        const float4 b4 =
-            *reinterpret_cast<const float4*>(&bs[kk][tx * 4 + 64 * g]);
-        const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+      for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            acc[i][4 * g + jj] = fmaf(av[i], bv[jj], acc[i][4 * g + jj]);
-          }
+        for (int j = 0; j < 2 * C; ++j) {
+          acc[i][j] = fmaf(pv[i], lv[j], acc[i][j]);
         }
       }
     }
-    __syncthreads();
-  }
-
+    for (; k < end_b; ++k) {
+      float pv[4], lv[C];
+      load_f<4>(pv, &pt[k * PP + r0]);
+      load_f<C>(lv, &lt[k * LP + gb]);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
-    if (r >= t) continue;
+      for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int g = 0; g < kGroups; ++g) {
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        lm[(size_t)r * ld + o + tx * 4 + 64 * g + jj] = acc[i][4 * g + jj];
+        for (int j = 0; j < C; ++j) {
+          acc[i][C + j] = fmaf(pv[i], lv[j], acc[i][C + j]);
+        }
       }
     }
-  }
-  // the strictly upper tile that mirrors these rows
-  for (int e = tid; e < NB * kTrailRows; e += kPanelThreads) {
-    const int c = e / kTrailRows;
-    const int m = e % kTrailRows;
-    if (row0 + m < t) lm[(size_t)(o + c) * ld + row0 + m] = 0.0f;
+
+    const int row0 = first + tile * kTrailRows;
+    // X over P: this tile's rows are in pt and no other block reads them
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + r0 + i;
+      if (r >= t) continue;
+      float* dst = lm + (size_t)r * ld + o;
+      if (vec_l) {
+        store_f<C>(dst + ga, acc[i]);
+        store_f<C>(dst + gb, acc[i] + C);
+      } else {
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          dst[ga + j] = acc[i][j];
+          dst[gb + j] = acc[i][C + j];
+        }
+      }
+    }
+    // the strictly upper tile that mirrors these rows
+    if (vec_l) {
+      constexpr int kQuads = kTrailRows / 4;
+      for (int e = tid; e < NB * kQuads; e += kTrailThreads) {
+        const int c = e / kQuads;
+        const int m = (e - c * kQuads) * 4;
+        float* dst = &lm[(size_t)(o + c) * ld + row0 + m];
+        if (row0 + m + 3 < t) {
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+        } else {
+          for (int j = 0; row0 + m + j < t; ++j) dst[j] = 0.0f;
+        }
+      }
+    } else {
+      for (int e = tid; e < NB * kTrailRows; e += kTrailThreads) {
+        const int c = e / kTrailRows;
+        const int m = e - c * kTrailRows;
+        if (row0 + m < t) lm[(size_t)(o + c) * ld + row0 + m] = 0.0f;
+      }
+    }
   }
 }
 
@@ -410,6 +937,37 @@ panel_solve_kernel(SolveParams p) {
   }
 }
 
+// 16-byte copies of a row start at every 4th float from `base`
+bool aligned16(const void* base, long long mat, int ld, int col) {
+  return (reinterpret_cast<uintptr_t>(base) % 16 == 0) && mat % 4 == 0 &&
+         ld % 4 == 0 && col % 4 == 0;
+}
+
+// launches a panel-tile kernel over `grid` with its dynamic shared memory
+template <class S>
+int launch_panel(void (*kernel)(PanelParams), const PanelParams& p,
+                 const dim3& grid, void* stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, S::kThreads, S::kSmem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int NB>
+cudaError_t launch_trail_panel(const dim3& grid, void* stream, float* l,
+                               long long l_mat, int ld, const float* inv,
+                               int o, int t, int vec_l) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      trail_panel_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)TrailPanelShape<NB>::kSmem);
+  if (e != cudaSuccess) return e;
+  trail_panel_kernel<NB><<<grid, kTrailThreads, TrailPanelShape<NB>::kSmem,
+                           (cudaStream_t)stream>>>(l, l_mat, ld, inv, o, t,
+                                                   vec_l);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -444,9 +1002,11 @@ int gpvae_gram_panel_f32(void* l, long long l_mat, int ld, const void* times,
   p.o = o;
   p.w = w;
   p.t = t;
-  const dim3 grid((w + kBN - 1) / kBN, (t - r0 + kBM - 1) / kBM, n);
-  gram_panel_kernel<<<grid, kPanelThreads, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  p.vec = aligned16(l, l_mat, ld, 0);
+  p.out_vec = aligned16(l, l_mat, ld, o);
+  const dim3 grid((w + PanelTile::kBN - 1) / PanelTile::kBN,
+                  (t - r0 + PanelTile::kBM - 1) / PanelTile::kBM, n);
+  return launch_panel<PanelTile>(gram_panel_kernel, p, grid, stream);
 }
 
 // l as above; k: [n, t, t] float32 at matrix stride k_mat and row stride
@@ -470,9 +1030,11 @@ int gpvae_hist_panel_f32(void* l, long long l_mat, int ld, const void* k,
   p.o = o;
   p.w = w;
   p.t = t;
-  const dim3 grid((w + kBN - 1) / kBN, (t - r0 + kBM - 1) / kBM, n);
-  hist_panel_kernel<<<grid, kPanelThreads, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  p.vec = aligned16(l, l_mat, ld, 0);
+  p.out_vec = aligned16(l, l_mat, ld, o) && aligned16(k, k_mat, kld, o);
+  const dim3 grid((w + PanelTile::kBN - 1) / PanelTile::kBN,
+                  (t - r0 + PanelTile::kBM - 1) / PanelTile::kBM, n);
+  return launch_panel<PanelTile>(hist_panel_kernel, p, grid, stream);
 }
 
 // l as above, its diagonal block [o, o + w)^2 holding the factor L_d.
@@ -505,15 +1067,25 @@ int gpvae_trail_panel_f32(void* l, long long l_mat, int ld, const void* inv,
   if ((nb != 64 && nb != 128) || o < 0 || n > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((t - o - nb + kTrailRows - 1) / kTrailRows, n);
-  if (nb == 128) {
-    trail_panel_kernel<128><<<grid, kPanelThreads, 0, (cudaStream_t)stream>>>(
-        (float*)l, l_mat, ld, (const float*)inv, o, t);
-  } else {
-    trail_panel_kernel<64><<<grid, kPanelThreads, 0, (cudaStream_t)stream>>>(
-        (float*)l, l_mat, ld, (const float*)inv, o, t);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
-  return (int)cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // one wave, kTrailPerSM blocks an SM, each on one matrix's row tiles
+  const int tiles = (t - o - nb + kTrailRows - 1) / kTrailRows;
+  const int per_matrix = std::max(1, std::min(tiles, kTrailPerSM * sms / n));
+  const dim3 grid(per_matrix, n);
+  const int vec_l = aligned16(l, l_mat, ld, o);
+  if (nb == 128) {
+    e = launch_trail_panel<128>(grid, stream, (float*)l, l_mat, ld,
+                                (const float*)inv, o, t, vec_l);
+  } else {
+    e = launch_trail_panel<64>(grid, stream, (float*)l, l_mat, ld,
+                               (const float*)inv, o, t, vec_l);
+  }
+  return (int)e;
 }
 
 // The same step's trailing downdate, in place: for the lower-triangular
@@ -521,8 +1093,8 @@ int gpvae_trail_panel_f32(void* l, long long l_mat, int ld, const void* inv,
 //
 //   L[r, c] -= sum_{o <= k < o + nb} L[r, k] L[c, k]
 //
-// with X = L[:, o:o+nb] as trail_panel left it.  It is the hist_panel
-// tile with K = L and the history [o, o + nb): each element is read and
+// with X = L[:, o:o+nb] as trail_panel left it.  It is the panel tile,
+// 64 x 64, with K = L and the history [o, o + nb): each element is read and
 // written by one thread, and no block writes the X columns it reads.
 // Tiles above the diagonal are not computed; the lower triangle of the
 // square, and the next step's diagonal block and panel, lie in the lower
@@ -545,10 +1117,11 @@ int gpvae_trail_update_f32(void* l, long long l_mat, int ld, int o, int nb,
   p.r0 = o + nb;
   p.w = t - o - nb;
   p.t = t;
-  const int tiles = (p.w + kBM - 1) / kBM;
+  p.vec = aligned16(l, l_mat, ld, o);
+  p.out_vec = aligned16(l, l_mat, ld, o + nb);
+  const int tiles = (p.w + TrailTile::kBM - 1) / TrailTile::kBM;
   const dim3 grid(tiles * (tiles + 1) / 2, n);
-  trail_update_kernel<<<grid, kPanelThreads, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  return launch_panel<TrailTile>(trail_update_kernel, p, grid, stream);
 }
 
 const char* gpvae_cuda_error_string(int status) {

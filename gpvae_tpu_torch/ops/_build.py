@@ -39,6 +39,9 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _BOUND: dict[str, set[str]] = {}  # entry points given their argtypes
 # seconds spent compiling, per source, in this process (0.0 when loaded)
 BUILD_SECONDS: dict[str, float] = {}
+# per source compiled in this process, each kernel's resources as ptxas
+# reports them: {mangled name: "Used N registers, ... spill ..."}
+RESOURCES: dict[str, dict[str, str]] = {}
 
 
 def nvcc_path() -> str:
@@ -72,7 +75,8 @@ def build(name: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+           str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -83,7 +87,23 @@ def build(name: str) -> Path:
         )
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     BUILD_SECONDS[name] = time.perf_counter() - t0
+    RESOURCES[name] = _ptxas_resources(proc.stdout + proc.stderr)
     return out
+
+
+def _ptxas_resources(log: str) -> dict[str, str]:
+    """Each entry function's "Used ... registers" and spill lines from
+    ``-Xptxas -v`` output."""
+    found: dict[str, str] = {}
+    kernel = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif kernel and ("spill" in line or "Used" in line):
+            text = line.split(":", 1)[-1].strip()
+            found[kernel] = f"{found[kernel]}; {text}" if kernel in found \
+                else text
+    return found
 
 
 def build_all(names) -> None:

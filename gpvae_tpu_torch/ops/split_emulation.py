@@ -1,0 +1,199 @@
+"""The arithmetic of the panel tile's tensor-core products
+(``csrc/gram_panel.cu``), emulated on the CPU with numpy, at the shapes
+the T=1024 path gives them.
+
+The tile multiplies float32 operands as TF32 parts: ``a b = al bh + ah bl
++ ah bh`` with ``ah = rna(a)``, ``al = rna(a - ah)`` (10 mantissa bits,
+rounded to nearest), summed by the tensor cores in float32 with
+truncation, so each 32-deep stage sums into fresh accumulators that an
+ordinary float32 add rounds into the total.  Products of TF32 parts are
+exact in float64; the truncating sum is emulated per 8-deep step.
+
+Run ``python -m gpvae_tpu_torch.ops.split_emulation`` (about half a
+minute on one core); it prints one JSON object:
+
+* ``split``: the largest relative error of ``ah + al`` over float32
+  values of every magnitude, and its mean over its mean magnitude (a
+  bias);
+* ``panel``: the middle step of the T=1024 factorization (o=512, w=128)
+  on the port's float32 factor, against float64: a float32 FMA loop
+  (the SIMT tile), 3xTF32 with the per-stage rounding (the tile) and
+  without it (one truncated sum);
+* ``factor_vs_library``: the blocked factorization of pre-built banks
+  with each of those panel products (float32 diagonal factors and solves
+  by torch), its largest error from float64 over the library's float32
+  factor's;
+* ``trail_panel``: ``X = P Ld^-T`` of the right-looking route's middle
+  step (o=384, nb=128) against the explicit inverse, where the product
+  cancels, by the float32 FMA loop and by 3xTF32.
+"""
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from gpvae_tpu_torch import kernels as kernels_lib
+from gpvae_tpu_torch.ops import blocked
+
+T, N, NB = 1024, 2, 128
+STAGE = 32
+
+
+def tf32_rna(x):
+    """``x`` rounded to TF32, to nearest, ties away from zero."""
+    b = np.asarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_trunc(x):
+    """What the tensor cores read of a float32 operand: its top 10
+    mantissa bits."""
+    b = np.asarray(x, np.float32).view(np.uint32)
+    return (b & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split2(x):
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def _to_f32_rz(x):
+    """float64 to float32 toward zero: the tensor cores' sum."""
+    y = x.astype(np.float32)
+    over = np.abs(y.astype(np.float64)) > np.abs(x)
+    return np.where(over, np.nextafter(y, np.float32(0)), y)
+
+
+def _mma_sum(pairs, depth, flush, shape):
+    """``sum_k A[..., m, k] B[..., c, k]`` over the (A part, B part) pairs,
+    8 deep a step summed with truncation, into fresh accumulators every
+    ``flush`` deep that are then rounded into a float32 total."""
+    total = np.zeros(shape, np.float32)
+    for k0 in range(0, depth, flush):
+        part = np.zeros(shape, np.float32)
+        for s in range(k0, min(depth, k0 + flush), 8):
+            sl = slice(s, s + 8)
+            for a, b in pairs:
+                p = np.einsum("nmk,nck->nmc",
+                              tf32_trunc(a[..., sl]).astype(np.float64),
+                              tf32_trunc(b[..., sl]).astype(np.float64))
+                part = _to_f32_rz(part.astype(np.float64) + p)
+        total = (total.astype(np.float64) + part).astype(np.float32)
+    return total
+
+
+def product_3xtf32(a, b, flush=STAGE):
+    """``a [N, M, K] @ b [N, C, K]^T`` as the tile computes it; ``flush``
+    = K sums the whole depth in one truncated accumulator."""
+    ah, al = split2(a)
+    bh, bl = split2(b)
+    return _mma_sum([(al, bh), (ah, bl), (ah, bh)], a.shape[2], flush,
+                    (a.shape[0], a.shape[1], b.shape[1]))
+
+
+def product_fma(a, b):
+    """The same product as a float32 FMA loop over the depth."""
+    acc = np.zeros((a.shape[0], a.shape[1], b.shape[1]), np.float32)
+    for k in range(a.shape[2]):
+        acc = (acc.astype(np.float64) + a[..., k, None].astype(np.float64)
+               * b[:, None, :, k].astype(np.float64)).astype(np.float32)
+    return acc
+
+
+def bank_inputs(seed):
+    """Masked bank inputs ``times, mask [N, T]``, ``ls, var [N]`` as
+    ``chip_smoke.py``'s pre-built banks (lengthscales 1-10 over a span of
+    60), as torch tensors in float64."""
+    rng = np.random.default_rng(seed)
+    times = np.sort(rng.uniform(0.0, 60.0, (N, T)), axis=-1)
+    mask = rng.random((N, T)) > rng.uniform(0.0, 0.7, (N, 1))
+    mask[:, 0] = True
+    return (torch.tensor(times), torch.tensor(mask),
+            torch.tensor(rng.uniform(1.0, 10.0, N)),
+            torch.tensor(rng.uniform(0.5, 1.5, N)))
+
+
+def bank64(seed):
+    """The gram bank ``[N, T, T]`` of :func:`bank_inputs` in float64."""
+    times, mask, ls, var = bank_inputs(seed)
+    return kernels_lib.gram(times, ls[:, None, None],
+                            variance=var[:, None, None], mask=mask).numpy()
+
+
+def port_factor32(seed):
+    """The port's float32 factor of that bank, by its plain route."""
+    times, mask, ls, var = bank_inputs(seed)
+    return blocked.cholesky_gram_inplace(times.float(), ls.float(), mask,
+                                         var.float()).numpy()
+
+
+def factor(k32, product):
+    """The left-looking blocked factorization of ``k32 [N, T, T]`` in
+    float32 with ``product`` for each panel's history."""
+    l = np.zeros_like(k32)
+    for o in range(0, T, NB):
+        w = min(NB, T - o)
+        panel = k32[:, o:, o:o + w].copy()
+        if o:
+            panel -= product(l[:, o:, :o], l[:, o:o + w, :o])
+        ld = torch.linalg.cholesky(torch.from_numpy(panel[:, :w]))
+        l[:, o:o + w, o:o + w] = ld.numpy()
+        if o + w < T:
+            x = torch.linalg.solve_triangular(
+                ld, torch.from_numpy(panel[:, w:]).mT, upper=False).mT
+            l[:, o + w:, o:o + w] = x.numpy()
+    return l
+
+
+def main() -> None:
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(100_000)
+         * 10.0 ** rng.uniform(-20, 20, 100_000)).astype(np.float32)
+    hi, lo = split2(x)
+    x64 = x.astype(np.float64)
+    rel = (hi.astype(np.float64) + lo - x64) / np.abs(x64)
+    out = {"split": {"max_rel": float(np.abs(rel).max()),
+                     "bias": float(rel.mean() / np.abs(rel).mean())}}
+
+    routes = {"fma": product_fma, "3xtf32": product_3xtf32,
+              "3xtf32_one_sum": lambda a, b: product_3xtf32(a, b,
+                                                            a.shape[2])}
+    l32 = port_factor32(2)
+    o, w = 512, NB
+    a, b = l32[:, o:, :o], l32[:, o:o + w, :o]
+    ref = np.einsum("nmk,nck->nmc", a.astype(np.float64),
+                    b.astype(np.float64))
+    out["panel"] = {name: float(np.abs(fn(a, b) - ref).max())
+                    for name, fn in routes.items()}
+
+    ratios = {name: [] for name in routes}
+    for seed in (2, 3):
+        k64 = bank64(seed)
+        l64 = np.linalg.cholesky(k64)
+        k32 = k64.astype(np.float32)
+        lib = torch.linalg.cholesky(torch.from_numpy(k32)).numpy()
+        err_lib = np.abs(lib - l64).max()
+        for name, fn in routes.items():
+            ratios[name].append(float(np.abs(factor(k32, fn) - l64).max()
+                                      / err_lib))
+    out["factor_vs_library"] = ratios
+
+    o, nb = 384, NB
+    l64 = l32.astype(np.float64)
+    ld = l64[:, o:o + nb, o:o + nb]
+    # P such that X is the factor's column block
+    p = l64[:, o + nb:, o:o + nb] @ ld.transpose(0, 2, 1)
+    p = p.astype(np.float32)
+    inv = np.tril(np.linalg.inv(ld)).astype(np.float32)
+    ref = np.einsum("nmk,nck->nmc", p.astype(np.float64),
+                    inv.astype(np.float64))
+    out["trail_panel"] = {
+        "fma": float(np.abs(product_fma(p, inv) - ref).max()),
+        "3xtf32": float(np.abs(product_3xtf32(p, inv) - ref).max())}
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -19,9 +19,13 @@ on the card run in no order, so the two are two launches on one stream:
 X is whole before the downdate reads it.  At the T=1024, N=128 middle
 step (o=384) the lower triangle of the downdate needs 4.3 GFLOP, bound by
 float32 operations (0.064 ms at the H100's 67 TFLOP/s), and X 1.1 GFLOP
-against 71 MB, bound by bytes (0.021 ms at 3.35 TB/s).  They run the
-panel's SIMT tile, plain float32 FMA, no TF32 (the TPU kernel's
-``split_dot`` at HIGHEST).
+against 104 MB (the panel read, X and the zero tile written), bound by
+bytes (0.031 ms at 3.35 TB/s).  The downdate runs the panel's tile on
+the tensor cores in 3xTF32, each float32 operand split into two TF32
+parts (the TPU kernel's ``split_dot`` runs at HIGHEST: float32-accurate
+passes of bf16 parts on its matrix unit); X, whose product with the
+inverse cancels, is plain float32 FMA in a streaming kernel that holds
+``Ld^{-1}``'s lower triangle in shared memory and skips its zero half.
 
 The explicit inverse keeps the TPU kernel's contract; in float32 it costs
 the factor 3-4x the library's error (``ops/blocked.py`` solves instead),
@@ -78,16 +82,18 @@ def _check(l: torch.Tensor, o: int, nb: int) -> None:
 
 def trail_panel_plain(l: torch.Tensor, inv: torch.Tensor, o: int) -> None:
     """Plain PyTorch version of :func:`trail_panel`, any dtype and
-    device."""
+    device; it reads only the lower triangle of ``inv``, as the kernel
+    does."""
     nb = inv.shape[-1]
-    l[:, o + nb:, o:o + nb] = l[:, o + nb:, o:o + nb] @ inv.mT
+    l[:, o + nb:, o:o + nb] = l[:, o + nb:, o:o + nb] @ inv.tril().mT
     l[:, o:o + nb, o + nb:] = 0.0
 
 
 def trail_panel(l: torch.Tensor, inv: torch.Tensor, o: int) -> None:
     """``L[:, o+nb:, o:o+nb] <- L[:, o+nb:, o:o+nb] Ld^{-T}`` in place, with
-    ``inv = Ld^{-1} [N, nb, nb]`` (contiguous), and zeros into ``L[:,
-    o:o+nb, o+nb:]``."""
+    ``inv = Ld^{-1} [N, nb, nb]`` (contiguous; only its lower triangle is
+    read, the inverse of a lower-triangular block being lower triangular),
+    and zeros into ``L[:, o:o+nb, o+nb:]``."""
     global PANEL_LAUNCHES
     if not dispatch.on_cuda(l):
         trail_panel_plain(l, inv, o)
@@ -154,10 +160,11 @@ def panel_trailing_update(s: torch.Tensor, ld_inv: torch.Tensor
     R]`` the current trailing submatrix (its diagonal block factored or
     not: only the panel ``s[:, nb:, :nb]`` and the lower tiles of ``s[:,
     nb:, nb:]`` are read), ``ld_inv [N, nb, nb]`` the inverse of its
-    factored diagonal block.  Returns ``(col_x [N, R-nb, nb], s_new [N,
-    R-nb, R-nb])``, views of one copy of ``s``; ``s_new`` is defined on
-    :func:`lower_tiles` only.  ``R > nb``; the JAX function also wants
-    ``R % nb == 0``."""
+    factored diagonal block, lower triangular: only its lower triangle is
+    read, where the JAX function multiplies by the whole of it.  Returns
+    ``(col_x [N, R-nb, nb], s_new [N, R-nb, R-nb])``, views of one copy of
+    ``s``; ``s_new`` is defined on :func:`lower_tiles` only.  ``R > nb``;
+    the JAX function also wants ``R % nb == 0``."""
     nb = ld_inv.shape[-1]
     if s.dim() != 3 or s.shape[1] != s.shape[2] or s.shape[1] <= nb:
         raise ValueError(f"panel_trailing_update: s must be [N, R, R] with "

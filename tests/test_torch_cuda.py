@@ -167,12 +167,18 @@ def test_blocked_factorization_matches_plain(card, t):
     assert torch.all(torch.triu(l, 1) == 0)
 
 
-def test_panel_kernels_match_plain(card):
-    t, o, w, n = 320, 128, 128, 8
+@pytest.mark.parametrize("t,o", [(320, 128), (300, 128), (1000, 256),
+                                 (1023, 256)])
+def test_panel_kernels_match_plain(card, t, o):
+    """A whole row tile, ragged ones (300, 1000), and rows of L that are
+    not 16-byte aligned (1023: the kernels' 4-byte copies); the history
+    scaled to the depth so that a panel entry stays of the size of the
+    o = 128 case."""
+    w, n = 128, 8
     times, mask, ls, var = _flat(card, 9, n, t)
     rng = np.random.default_rng(3)
-    l0 = torch.tensor(rng.standard_normal((n, t, t)), dtype=torch.float32,
-                      device=card)
+    l0 = torch.tensor(rng.standard_normal((n, t, t)) * np.sqrt(128 / o),
+                      dtype=torch.float32, device=card)
     got, ref = l0.clone(), l0.double()
     blocked.gram_panel(got, times, mask, ls, var, o, o, w)
     blocked.gram_panel_plain(ref, times.double(), mask.double(),
@@ -269,11 +275,15 @@ def _prebuilt(card, seed, n, t):
 
 
 @pytest.mark.parametrize("t,r0,o,w", [
-    (1024, 512, 512, 128), (300, 280, 256, 44), (256, 0, 0, 128)])
+    (1024, 512, 512, 128), (300, 280, 256, 44), (256, 0, 0, 128),
+    (1023, 640, 512, 128), (300, 200, 200, 100), (256, 100, 37, 64)])
 def test_hist_panel_matches_plain(card, t, r0, o, w):
     """At the T=1024 path's middle step, at a ragged last block with r0 > o,
-    and at o = 0 (a copy of K's columns); K read inside a larger buffer at
-    its row stride and left unchanged."""
+    at o = 0 (a copy of K's columns), with rows of L and K that are not
+    16-byte aligned (T=1023), and at history depths that are not a
+    multiple of the kernel's 32-deep stage (200) or of a 16-byte copy
+    (37); K read inside a larger buffer at its row stride and left
+    unchanged."""
     k, k64 = _prebuilt(card, t, 8, t)
     big = torch.full((8, t + 8, t + 16), float("nan"), device=card)
     big[:, 4:t + 4, 8:t + 8] = k
@@ -445,11 +455,12 @@ def _one_step(card, seed, n, t, nb):
 
 
 @pytest.mark.parametrize("nb", trail.WIDTHS)
-@pytest.mark.parametrize("t", [320, 1000])
+@pytest.mark.parametrize("t", [320, 1000, 1023])
 def test_trail_kernels_match_plain(card, nb, t):
-    """Step 2 (o = nb) of a ragged (1000) and a whole-tile T against the
-    plain versions in float64 on the same inputs, X and the downdate on its
-    lower tiles, each within ``TERMS_REL`` of its terms."""
+    """Step 2 (o = nb) of ragged T (1000, and 1023, whose rows are not
+    16-byte aligned) and a whole-tile T against the plain versions in
+    float64 on the same inputs, X and the downdate on its lower tiles, each
+    within ``TERMS_REL`` of its terms."""
     l, inv = _one_step(card, t + nb, 8, t, nb)
     o = nb
     got, ref = l.clone(), l.double()
@@ -479,28 +490,49 @@ def test_trail_kernels_match_plain(card, nb, t):
     assert torch.equal(got[:, :, :o], l[:, :, :o])
 
 
-def test_trail_kernels_work_in_place_at_a_row_stride(card):
-    """L a view inside a larger buffer: the same bits as on a contiguous L,
-    and nothing written outside the view."""
+@pytest.mark.parametrize("nb", trail.WIDTHS)
+def test_trail_panel_reads_only_the_lower_triangle_of_ld_inv(card, nb):
+    """Noise above the diagonal of ``Ld^{-1}`` changes no bit of the
+    kernel's result, and the plain version ignores it as well."""
+    l, inv = _one_step(card, 7, 4, 384, nb)
+    gen = torch.Generator(device=card).manual_seed(nb)
+    noisy = inv + torch.randn(inv.shape, device=card,
+                              generator=gen).triu(1)
+    want, got, ref = l.clone(), l.clone(), l.double()
+    trail.trail_panel(want, inv, nb)
+    trail.trail_panel(got, noisy, nb)
+    trail.trail_panel_plain(ref, noisy.double(), nb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    p = l[:, 2 * nb:, nb:2 * nb].double()
+    assert _terms_err(got[:, 2 * nb:, nb:2 * nb], ref[:, 2 * nb:, nb:2 * nb],
+                      p.abs() @ inv.double().abs().mT) <= TERMS_REL
+
+
+@pytest.mark.parametrize("col", [12, 13])
+def test_trail_kernels_work_in_place_at_a_row_stride(card, col):
+    """L a view inside a larger buffer, its rows 16-byte aligned (column
+    offset 12) or not (13): the same bits as on a contiguous L, and nothing
+    written outside the view."""
     nb, t = 128, 384
     l, inv = _one_step(card, 4, 4, t, nb)
     want = l.clone()
     trail.trail_panel(want, inv, nb)
     trail.trail_update(want, nb, nb)
     big = torch.full((4, t + 10, t + 20), float("nan"), device=card)
-    big[:, 6:t + 6, 12:t + 12] = l
-    view = big[:, 6:t + 6, 12:t + 12]
+    big[:, 6:t + 6, col:t + col] = l
+    view = big[:, 6:t + 6, col:t + col]
     trail.trail_panel(view, inv, nb)
     trail.trail_update(view, nb, nb)
     torch.cuda.synchronize()
     assert torch.equal(view, want)
     outside = big.clone()
-    outside[:, 6:t + 6, 12:t + 12] = float("nan")
+    outside[:, 6:t + 6, col:t + col] = float("nan")
     assert torch.isnan(outside).all()
 
 
-@pytest.mark.parametrize("t,nb", [(128, 128), (256, 64), (300, 128),
-                                  (1024, 128)])
+@pytest.mark.parametrize("t,nb", [(128, 128), (256, 64), (300, 64),
+                                  (300, 128), (1024, 128)])
 def test_cholesky_blocked_fused_matches_float64(card, t, nb):
     """Counted launches, the band, an exactly zero strict upper triangle
     (K's upper half was copied into L first), K unchanged."""

@@ -86,9 +86,26 @@ def _flat(seed, n, t, *, hide=0.2, span=60.0, ls=(2.0, 9.0)):
 
 
 def _gram64(times, mask, ls, var, noise=1e-3):
-    return np.asarray(jkernels.gram(
+    k = np.asarray(jkernels.gram(
         jnp.asarray(times), jnp.asarray(ls)[:, None, None], noise=noise,
         variance=jnp.asarray(var)[:, None, None], mask=jnp.asarray(mask)))
+    # a float64 oracle or none: JAX without x64 would round the times and
+    # the gram to float32 and weaken every comparison made against it
+    assert k.dtype == np.float64, (
+        f"JAX built the gram in {k.dtype}: jax_enable_x64 is off in this "
+        f"process (tests/conftest.py turns it on)")
+    return k
+
+
+def _gram64_np(times, mask, ls, var, noise):
+    """The masked RBF gram bank in float64 by numpy alone (the JAX gram's
+    semantics), for a float64 oracle that no JAX state reaches."""
+    dt = (times[:, :, None] - times[:, None, :]) / ls[:, None, None]
+    k = (1.0 - noise) * var[:, None, None] * np.exp(-0.5 * dt * dt)
+    eye = np.eye(times.shape[1])
+    m = mask.astype(np.float64)
+    k = (k + noise * eye) * (m[:, :, None] * m[:, None, :])
+    return k + (1.0 - m[:, :, None]) * eye
 
 
 def _t(x, dtype=torch.float64):
@@ -152,7 +169,9 @@ def test_gram_chol_block_matches_jax_gram_chol_inv_128_parts():
                            hide=0.5)
     l, x = chol_block.gram_chol_block(_t(times), _t(mask), _t(ls), _t(var),
                                       noise=1e-2, inverse=True)
-    k = _gram64(times, mask, ls, var, noise=1e-2)
+    # the float64 oracle from numpy alone, so that no JAX state a worker
+    # carries from an earlier test file reaches it
+    k = _gram64_np(times, mask, ls, var, noise=1e-2)
     want = np.linalg.cholesky(k)
     assert _rel(l.numpy(), want) <= FP64_REL
     assert _rel(x.numpy(), np.linalg.inv(want)) <= FP64_REL

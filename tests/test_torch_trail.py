@@ -84,6 +84,26 @@ def test_panel_trailing_update_matches_the_tpu_kernel(nb, r):
     assert _rel(s_new.numpy()[:, low], want_s[:, low]) <= FP64_REL
 
 
+@pytest.mark.parametrize("nb", trail.WIDTHS)
+def test_trail_panel_reads_only_the_lower_triangle_of_ld_inv(nb):
+    """The panel step takes ``Ld^{-1}`` as lower triangular: whatever lies
+    above its diagonal is not read, by the kernel nor by its plain
+    version."""
+    rng = np.random.default_rng(nb)
+    t = 3 * nb
+    s = random_psd(rng, 2, t)
+    inv = np.linalg.inv(np.linalg.cholesky(s[:, :nb, :nb]))
+    inv = np.tril(inv)
+    noisy = inv + np.triu(rng.standard_normal(inv.shape), 1)
+    want, got = _t(s), _t(s)
+    trail.trail_panel(want, _t(inv), 0)
+    trail.trail_panel(got, _t(noisy), 0)
+    assert torch.equal(got, want)
+    x = s[:, nb:, :nb] @ np.swapaxes(inv, -1, -2)
+    assert _rel(got[:, nb:, :nb].numpy(), x) <= FP64_REL
+    assert torch.all(got[:, :nb, nb:] == 0)
+
+
 def test_lower_tiles_hold_the_lower_triangle():
     low = trail.lower_tiles(300)
     assert bool(low[torch.tril_indices(300, 300).unbind()].all())
