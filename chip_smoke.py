@@ -10,9 +10,11 @@ Phases, each printing one line (a failed check exits nonzero at once):
    kernels), one ``nvcc`` each, all started together, and each kernel's
    registers and spills as ptxas reports them;
 3. kernels: each kernel against its plain PyTorch version in float64 on
-   the card: ``gram_chol`` and ``tri_inv`` at T in {8, 45, 64}, N in
-   {80, 1024}; ``chol_block`` in both modes at T in {64, 100, 128}, N in
-   {128, 1024}, with L^-1, and at a row stride in place; the blocked
+   the card: ``gram_chol`` and ``tri_inv`` at T in ``GRAM_CHOL_TS`` (both
+   sides of multiples of the kernel's panel width 16, up to 64), N in {80,
+   1024}; ``chol_block`` in both modes at T in {64, 100, 128}, N in {128,
+   1024}, with L^-1, at the other sides of ``CHOL_BLOCK_TS`` with and
+   without L^-1 (N=128), and at a row stride in place; the blocked
    factorization (``chol_block`` + ``gram_panel`` + ``panel_solve``) at T in
    {256, 1024}, N in {16, 128}; ``diag_logdet``, and ``tri_inv`` at T in
    {100, 1024}; for the imputation path, ``hist_panel`` at T=1024 (o=512)
@@ -51,9 +53,11 @@ Phases, each printing one line (a failed check exits nonzero at once):
    kernel at its main-path shape against its plain version, the one
    PyTorch call that computes the same function where there is one, and
    the least time the card could take: CUDA-event medians of back-to-back
-   calls, and the card's own time per call from ``torch.profiler``; the
-   T=1024 evaluate path's sequences imputed per second; ``hist_panel``
-   and the whole pre-built factorization at the path's N=64, T=1024;
+   calls, and the card's own time per call from ``torch.profiler``
+   (``gram_chol_fused`` must be one kernel a call); ``chol_block`` with
+   L^-1 and in its gram mode; the T=1024 evaluate path's sequences
+   imputed per second; ``hist_panel`` and the whole pre-built
+   factorization at the path's N=64, T=1024;
    ``trail_panel`` and ``trail_update`` at the T=1024, N=128 middle step,
    and ``cholesky`` under ``auto``, ``blocked_fused`` and ``xla`` at
    (T, N) in {(256, 512), (512, 256), (1024, 128)}.
@@ -156,6 +160,10 @@ BENCH_B, BENCH_T = 32, 100
 BENCH_STEPS = 300
 LONG_T = 1024
 LONG_STEPS = 20
+# phase 3's sides of gram_chol and chol_block: both sides of multiples of
+# the panel width 16 (csrc/chol_tile.cuh), ragged last panels included
+GRAM_CHOL_TS = (1, 8, 15, 16, 17, 31, 32, 33, 45, 63, 64)
+CHOL_BLOCK_TS = (1, 15, 16, 17, 31, 32, 33, 45, 63, 64, 65, 100, 127, 128)
 # the sides of phase 3's pre-built banks: one chol_block launch (45, 100),
 # the blocked loop, whole blocks and a ragged last one (1000)
 PREBUILT_TS = (SYN_T, BENCH_T, 256, 1000, LONG_T)
@@ -191,17 +199,21 @@ def phase(label: str, **fields) -> None:
 
 
 def kernel_name(mangled: str) -> str:
-    """``trail_panel_kernel<128>`` from the kernel's mangled name."""
+    """``chol_block_kernel<0,1>`` from the kernel's mangled name."""
     import re
 
-    # a name is mangled as its length, then itself
+    # a name is mangled as its length, then itself; its template's bool
+    # and int arguments as L[bi]<value>E between I and E
     for m in re.finditer(r"(?=(\d+))", mangled):
         digits = m.group(1)
         end = m.start() + len(digits)
         name = mangled[end:end + int(digits)]
         if name.endswith("_kernel"):
-            arg = re.match(r"IL[bi](\d+)E", mangled[end + len(name):])
-            return name + (f"<{arg.group(1)}>" if arg else "")
+            args = re.match(r"I((?:L[bi]\d+E)+)E", mangled[end + len(name):])
+            if not args:
+                return name
+            values = re.findall(r"L[bi](\d+)E", args.group(1))
+            return f"{name}<{','.join(values)}>"
     return mangled
 
 
@@ -474,7 +486,7 @@ def check_kernels(dev) -> dict:
     worst = {"gram_chol": 0.0, "gram_chol_vs_library": 0.0,
              "tri_inv_abs": 0.0, "tri_inv_rel": 0.0}
     cases = 0
-    for t in (8, 45, 64):
+    for t in GRAM_CHOL_TS:
         for n in (80, 1024):
             for masked in (False, True):
                 times, ls, mask, var = bank_inputs(rng, n // z, t, z, masked,
@@ -557,6 +569,32 @@ def check_large_t_kernels(dev) -> dict:
                     worst["chol_block_vs_library"], ratio)
                 worst["chol_block_inv_rel"] = max(
                     worst["chol_block_inv_rel"], rel)
+                cases += 1
+    # the other sides, with and without L^-1 (their own draws, so that the
+    # banks below stay those of earlier runs)
+    rng_sides = np.random.default_rng(5)
+    for t in sorted(set(CHOL_BLOCK_TS) - {64, 100, 128}):
+        times, mask, ls, var = flat_inputs(rng_sides, 128, t, dev)
+        k64 = gram64(times, mask, ls, var)
+        ref = torch.linalg.cholesky(k64)
+        lib = torch.linalg.cholesky(k64.float())
+        for mode in ("gram", "prebuilt"):
+            for inverse in (False, True):
+                if mode == "gram":
+                    l, x = chol_block.gram_chol_block(times, mask, ls, var,
+                                                      inverse=inverse)
+                else:
+                    l, x = chol_block.chol_block(k64.float(),
+                                                 inverse=inverse)
+                name = f"chol_block {mode} T={t} inverse={inverse}"
+                err, ratio = check_l(name, l, ref, lib)
+                worst["chol_block"] = max(worst["chol_block"], err)
+                worst["chol_block_vs_library"] = max(
+                    worst["chol_block_vs_library"], ratio)
+                if inverse:
+                    rel, _ = check_inverse(name, x, l)
+                    worst["chol_block_inv_rel"] = max(
+                        worst["chol_block_inv_rel"], rel)
                 cases += 1
     # in place at a row stride, nothing written outside the block
     times, mask, ls, var = flat_inputs(rng, 64, 128, dev)
@@ -1528,6 +1566,9 @@ def time_kernels(dev) -> dict:
         f * SYN_B * t + SYN_B * t + f * 2 * SYN_Z + f * n * t * t,
         n * (t ** 3 / 3 + GRAM_OPS * t * t), f"N={n}, T={t}",
         kernel="gram_chol")
+    if res["gram_chol"]["kernels_per_call"] != 1:
+        fail(f"gram_chol_fused ran {res['gram_chol']['kernels_per_call']} "
+             f"kernels a call on the card, not 1")
     lb = gram_chol.gram_chol_fused(times, ls, mask=mask).reshape(
         -1, t, t).contiguous()
     eye = torch.eye(t, device=dev).expand_as(lb)
@@ -1562,6 +1603,17 @@ def time_kernels(dev) -> dict:
         None, f * n * (nb * (nb + 1) / 2 + 2 * nb * nb),
         2 * n * nb ** 3 / 3, f"N={n}, t={nb}, pre-built, L and L^-1",
         kernel="chol_block")}
+    # its gram mode, block 0 of the T=1024 factorization (the library call
+    # factors the pre-built gram)
+    tb, mb = times[:, :nb], mask[:, :nb]
+    whole["chol_block_gram"] = time_kernel(
+        "chol_block (gram mode)",
+        lambda: chol_block.gram_chol_block(tb, mb, ls, var, out=out),
+        lambda: chol_block.gram_chol_block_plain(tb, mb, ls, var, out=out),
+        lambda: torch.linalg.cholesky(k00),
+        # the time and mask vectors and ls, var read, L written whole
+        f * n * (2 * nb + 2 + nb * nb), n * (nb ** 3 / 3 + GRAM_OPS * nb * nb),
+        f"N={n}, t={nb}, from the time vectors", kernel="chol_block")
     o, w = t // 2, nb
     scratch = l.clone()
     kp = blocked.gram_tile(times, mask, ls, var, slice(o, t), slice(o, o + w))

@@ -10,6 +10,8 @@ ops build with ``nvcc`` on first use:
 * ``gram_chol.cu``   -- the masked gram bank and its Cholesky, T <= 64;
 * ``tri_inv.cu``     -- the batched lower-triangular inverse, side <= 64;
 * ``chol_block.cu``  -- Cholesky (and inverse) of SPD blocks <= 128;
+  the two factorizations share ``chol_tile.cuh``, a panel-blocked
+  Cholesky inside one thread block;
 * ``gram_panel.cu``  -- the blocked factorization's panel, with in-kernel
   gram tiles, and the solve of the column below each diagonal block;
 * ``diag_logdet.cu`` -- ``2 sum log diag L`` of large factors.

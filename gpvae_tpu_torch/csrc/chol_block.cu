@@ -24,37 +24,35 @@
 // be the very place mode (b) read from; optionally X = L^{-1} into a
 // contiguous [n, t, t] buffer.
 //
-// What bounds it on Hopper: the column recurrence is serial, t steps with
-// a barrier each, and a block holds t^3/3 = 0.7 MFLOP at t = 128, so it is
-// latency-bound; a batch of 128 blocks fills one wave of the 132 SMs.  The
-// block (128 x 129 floats = 66 KB, and as much again for X) lives in
-// dynamic shared memory; 512 threads update the trailing triangle, each
-// owning a column k and every fourth row, so a warp reads one broadcast
-// L[i, j] and 32 consecutive a[i, k] per step.  The inverse is a forward
-// substitution with one thread per column and four partial sums.
+// What bounds it on Hopper: a block holds t^3/3 = 0.7 MFLOP at t = 128,
+// so it is bound by the latency of its serial chain; a batch of 128 blocks
+// fills one wave of the 132 SMs.  The factorization and the inverse are
+// chol_tile.cuh's: panels of 16 columns, each a warp-register diagonal
+// tile, the rows below solved one a thread and a register-tiled
+// trailing update, three barriers a panel; then X's diagonal tiles one a
+// warp and the blocks below by recursive doubling over all 512 threads,
+// two barriers a level.  The block (128 columns of pitch 132: 66 KB) and
+// X (as much again) live in dynamic shared memory.
 //
-// Numerics follow _chol_lane_body and _chol_inv_body_flat:
-// d_j = rsqrt(a_jj), L[:, j] = a[:, j] d_j, and row j of X is
-// (e_j - L[j, :j] X[:j]) d_j.  The TPU kernels floor a_jj at 1e-20; this
-// one does not, so a block that is not positive definite in float32 gets
-// NaN (a negative pivot) or inf/NaN (a zero one) from that column on, as
-// the library factorization the JAX package takes off the TPU gives NaN,
-// where the floor would give finite garbage.
+// Numerics: d_j = rsqrt(a_jj), L[:, j] = a[:, j] d_j, X's diagonal tiles
+// by substitution with the same d_j.  The TPU kernels floor a_jj at 1e-20;
+// this one does not, so a block that is not positive definite in float32
+// gets NaN (a negative pivot) or inf/NaN (a zero one) from that column on,
+// as the library factorization the JAX package takes off the TPU gives
+// NaN, where the floor would give finite garbage.
 
 #include <cuda_runtime.h>
 
+#include "chol_tile.cuh"
 #include "gram.cuh"
 
 namespace {
 
+namespace ct = gpvae::chol_tile;
+
 constexpr int kMaxT = 128;
-constexpr int kPitch = kMaxT + 1;  // row pitch of the shared matrices
 constexpr int kThreads = 512;
-constexpr int kGroups = kThreads / kMaxT;  // rows a column's threads split
-// dinv, times and mask, then the block, then X
-constexpr int kSmallFloats = 3 * kMaxT;
-constexpr size_t kMaxSmem =
-    (kSmallFloats + 2 * (size_t)kMaxT * kPitch) * sizeof(float);
+constexpr size_t kMaxSmem = 2 * (size_t)ct::floats(kMaxT) * sizeof(float);
 
 struct Params {
   // mode (b)
@@ -78,121 +76,58 @@ struct Params {
   int t;
 };
 
-template <bool kGram>
+template <bool kGram, bool kInverse>
 __global__ void __launch_bounds__(kThreads) chol_block_kernel(Params p) {
-  extern __shared__ float smem[];
-  float* dinv = smem;
-  float* tt = smem + kMaxT;
-  float* mk = smem + 2 * kMaxT;
-  float* a = smem + kSmallFloats;   // [t][kPitch]
-  float* x = a + p.t * kPitch;      // [t][kPitch], only with p.inv
-
+  extern __shared__ __align__(16) float smem[];
   const int n = blockIdx.x;
-  const int tid = threadIdx.x;
   const int t = p.t;
+  const int pitch = ct::pitch(t);
+  float* s = smem;                   // L, column-major
+  float* x = s + ct::floats(t);      // X, row-major (kInverse)
 
-  // -- load the lower triangle -------------------------------------------
   if (kGram) {
-    const size_t base = (size_t)n * p.vec_stride;
-    for (int i = tid; i < t; i += kThreads) {
-      tt[i] = p.times[base + i];
-      mk[i] = p.mask[base + i];
-    }
-    __syncthreads();
-    const float lsn = p.ls[n];
-    const float varn = p.var[n];
-    for (int idx = tid; idx < t * t; idx += kThreads) {
-      const int i = idx / t;
-      const int k = idx - i * t;
-      if (k > i) continue;
-      a[i * kPitch + k] = gpvae::gram_value(p.code, tt[i], tt[k], mk[i],
-                                            mk[k], lsn, varn, p.noise,
-                                            p.one_minus_noise, i == k);
-    }
+    const float* tt = p.times + (size_t)n * p.vec_stride;
+    const float* mk = p.mask + (size_t)n * p.vec_stride;
+    const float l = p.ls[n];
+    const float v = p.var[n];
+    ct::fill_lower<kThreads>(s, pitch, t, [&](int i, int k) {
+      return gpvae::gram_value(p.code, tt[i], tt[k], mk[i], mk[k], l, v,
+                               p.noise, p.one_minus_noise, i == k);
+    });
   } else {
-    const float* s = p.src + (size_t)n * p.src_mat;
-    for (int idx = tid; idx < t * t; idx += kThreads) {
-      const int i = idx / t;
-      const int k = idx - i * t;
-      if (k <= i) a[i * kPitch + k] = s[(size_t)i * p.src_row + k];
-    }
+    const float* a = p.src + (size_t)n * p.src_mat;
+    ct::fill_lower<kThreads>(s, pitch, t, [&](int i, int k) {
+      return a[(size_t)i * p.src_row + k];
+    });
   }
+  ct::factor<false, kThreads>(s, pitch, t);
+  ct::store_lower<kThreads>(s, pitch, t, p.l + (size_t)n * p.l_mat,
+                            p.l_row);
+  if (kInverse) {
+    ct::invert<kThreads>(s, x, pitch, t);
+    ct::store_inverse<kThreads>(x, pitch, t, p.inv + (size_t)n * t * t);
+  }
+}
 
-  // -- column recurrence ---------------------------------------------------
-  // Step j reads column j (final since step j - 1) and updates the trailing
-  // lower triangle, columns j+1 .. t-1, so one barrier a step suffices.
-  const int k = tid % kMaxT;
-  const int g = tid / kMaxT;
-  for (int j = 0; j < t; ++j) {
-    __syncthreads();
-    const float d = rsqrtf(a[j * kPitch + j]);
-    if (tid == 0) dinv[j] = d;
-    if (k > j && k < t) {
-      const float ck = a[k * kPitch + j] * d;
-      for (int i = j + 1 + g; i < t; i += kGroups) {
-        if (k <= i) a[i * kPitch + k] -= (a[i * kPitch + j] * d) * ck;
-      }
-    }
-  }
-  __syncthreads();
-
-  // -- L out: column k scaled by dinv[k], zeros above the diagonal --------
-  float* lo = p.l + (size_t)n * p.l_mat;
-  for (int idx = tid; idx < t * t; idx += kThreads) {
-    const int i = idx / t;
-    const int c = idx - i * t;
-    const float v = (c <= i) ? a[i * kPitch + c] * dinv[c] : 0.0f;
-    a[i * kPitch + c] = v;  // each element read and written by one thread
-    lo[(size_t)i * p.l_row + c] = v;
-  }
-  if (p.inv == nullptr) return;
-  __syncthreads();
-
-  // -- X = L^{-1}: thread c owns column c ----------------------------------
-  // X[j, c] = (delta_jc - sum_{i<j} L[j, i] X[i, c]) d_j.  X[i, c] = 0 for
-  // i < c, so the sum starts at the warp's first column: every lane walks
-  // the same i, and each L[j, i] read is a broadcast.
-  if (tid < t) {
-    const int c = tid;
-    const int c0 = tid & ~31;
-    for (int j = 0; j < t; ++j) {
-      float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-      const float* lj = a + j * kPitch;
-      int i = c0;
-      for (; i + 3 < j; i += 4) {
-        s0 = fmaf(lj[i], x[i * kPitch + c], s0);
-        s1 = fmaf(lj[i + 1], x[(i + 1) * kPitch + c], s1);
-        s2 = fmaf(lj[i + 2], x[(i + 2) * kPitch + c], s2);
-        s3 = fmaf(lj[i + 3], x[(i + 3) * kPitch + c], s3);
-      }
-      for (; i < j; ++i) s0 = fmaf(lj[i], x[i * kPitch + c], s0);
-      const float delta = (j == c) ? 1.0f : 0.0f;
-      x[j * kPitch + c] =
-          (j < c) ? 0.0f : (delta - ((s0 + s1) + (s2 + s3))) * dinv[j];
-    }
-  }
-  __syncthreads();
-  float* xo = p.inv + (size_t)n * t * t;
-  for (int idx = tid; idx < t * t; idx += kThreads) {
-    const int i = idx / t;
-    const int c = idx - i * t;
-    xo[idx] = x[i * kPitch + c];
-  }
+template <bool kGram, bool kInverse>
+int launch_as(const Params& p, int n, void* stream) {
+  auto kernel = chol_block_kernel<kGram, kInverse>;
+  // above 48 KB a block may use dynamic shared memory only after this
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = (kInverse ? 2 : 1) * (size_t)ct::floats(p.t) *
+                      sizeof(float);
+  kernel<<<n, kThreads, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 template <bool kGram>
 int launch(const Params& p, int n, void* stream) {
   if (n <= 0) return 0;
   if (p.t < 1 || p.t > kMaxT) return (int)cudaErrorInvalidValue;
-  // above 48 KB a block may use dynamic shared memory only after this
-  const cudaError_t e = cudaFuncSetAttribute(
-      chol_block_kernel<kGram>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kMaxSmem);
-  if (e != cudaSuccess) return (int)e;
-  const size_t smem =
-      (kSmallFloats + (p.inv ? 2 : 1) * (size_t)p.t * kPitch) * sizeof(float);
-  chol_block_kernel<kGram><<<n, kThreads, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  return p.inv ? launch_as<kGram, true>(p, n, stream)
+               : launch_as<kGram, false>(p, n, stream);
 }
 
 }  // namespace

@@ -2,120 +2,129 @@
 //
 // Replaces the TPU kernel gpvae_tpu/ops/pallas_chol.py
 // _make_gram_chol_kernel (gram body _gram_lane, factor body
-// _chol_lane_body).  For each of N matrices it builds the masked gram
+// _chol_lane_body).  For each of the N = B * Z matrices of the bank it
+// builds the masked gram
 //
 //   K = M ((1 - noise) var k(t_i - t_j; ls) + noise I) M + (I - diag m)
 //
 // (kernels.gram_bank semantics, M = diag m: masked rows and columns become
-// identity)
-// from the matrix's time vector, factors K = L L^T, and writes lower L with
-// zeros above the diagonal.  The gram never exists in device memory: in
-// are times/mask [N, T] and ls/var [N], out is L [N, T, T].
+// identity) from the time vector of its sequence, factors K = L L^T, and
+// writes lower L with zeros above the diagonal.  The gram never exists in
+// device memory.
 //
-// What bounds it on Hopper: the column recurrence is serial, T steps with
-// a block-wide barrier each, and a matrix holds only a few thousand flops
-// (T^3/6, about 15k at T = 45).  So the kernel is latency-bound, never
-// bandwidth- or flop-bound.  The design keeps the whole matrix in shared
-// memory (T <= 64: 16.6 KB with the bank-conflict pad), one thread block
-// per matrix, and spends exactly one __syncthreads() per column: step j
-// reads only column j and writes only the columns to its right, so the
-// reads and writes of a step never touch the same element.
+// The bank is read as gram_chol_fused receives it, so the call is this one
+// launch: matrix n is latent z = n % Z of sequence b = n / Z; times [B, T]
+// and the mask [B, T] (bool bytes, float32, or none) at their row strides,
+// ls [Z] or [B, Z] and var (a scalar, [Z], or a value) at their strides.
+// A flat bank (times, mask [N, T], ls, var [N]) is the case Z = 1.
 //
-// Numerics follow _chol_lane_body: d = rsqrt(max(a_jj, 1e-20)),
-// L[:, j] = a[:, j] * d.  The update a_ik -= c_i c_k may be contracted to
-// an fma here, where the TPU rounds the product first.
+// What bounds it on Hopper: a matrix holds about 15k flops (T = 45), so
+// one thread block per matrix is bound by latency.  The factorization is
+// chol_tile.cuh's panel-blocked recurrence (a warp-register diagonal tile,
+// three barriers a panel) on the whole matrix in shared memory (T <= 64:
+// 17 KB), with the TPU kernel's pivot floor.
 
 #include <cuda_runtime.h>
 
+#include "chol_tile.cuh"
 #include "gram.cuh"
 
 namespace {
 
+namespace ct = gpvae::chol_tile;
+
 constexpr int kMaxT = 64;
-constexpr int kPitch = kMaxT + 1;  // row pitch of the shared matrix
-constexpr int kThreads = 256;
-constexpr float kDiagEps = 1e-20f;
+constexpr int kThreads = 128;
 
-__global__ void __launch_bounds__(kThreads)
-gram_chol_kernel(const float* __restrict__ times,
-                 const float* __restrict__ mask,
-                 const float* __restrict__ ls,
-                 const float* __restrict__ var,
-                 float* __restrict__ out, int t, int code, float noise,
-                 float one_minus_noise) {
-  __shared__ float a[kMaxT * kPitch];
-  __shared__ float tt[kMaxT];
-  __shared__ float mk[kMaxT];
-  __shared__ float dinv[kMaxT];
+enum MaskKind : int { kNoMask = 0, kBoolMask = 1, kFloatMask = 2 };
 
+struct Params {
+  const float* times;
+  long long times_row;  // elements between sequences
+  const void* mask;     // kMaskKind: bytes or float32; null: all observed
+  long long mask_row;
+  int mask_kind;
+  const float* ls;
+  long long ls_b, ls_z;  // element (b, z) at ls[b * ls_b + z * ls_z]
+  const float* var;      // likewise, or null: var_value
+  long long var_b, var_z;
+  float var_value;
+  float* out;  // [N, T, T]
+  int z;
+  int t;
+  int code;
+  float noise;
+  float one_minus_noise;
+};
+
+__device__ __forceinline__ float mask_at(const Params& p, long long i) {
+  if (p.mask_kind == kBoolMask) {
+    return static_cast<const unsigned char*>(p.mask)[i] ? 1.0f : 0.0f;
+  }
+  if (p.mask_kind == kFloatMask) return static_cast<const float*>(p.mask)[i];
+  return 1.0f;
+}
+
+__global__ void __launch_bounds__(kThreads) gram_chol_kernel(Params p) {
+  __shared__ __align__(16) float s[ct::floats(kMaxT)];
   const int n = blockIdx.x;
-  const int tid = threadIdx.x;
-  if (tid < t) {
-    tt[tid] = times[(size_t)n * t + tid];
-    mk[tid] = mask[(size_t)n * t + tid];
-  }
-  const float l = ls[n];
-  const float v = var[n];
-  __syncthreads();
-
-  // Gram, lower triangle only (the recurrence never reads above it).
-  for (int idx = tid; idx < t * t; idx += kThreads) {
-    const int i = idx / t;
-    const int k = idx - i * t;
-    if (k > i) continue;
-    a[i * kPitch + k] = gpvae::gram_value(code, tt[i], tt[k], mk[i], mk[k],
-                                          l, v, noise, one_minus_noise,
-                                          i == k);
-  }
-
-  // Column recurrence.  Step j reads column j (final since step j - 1)
-  // and updates the trailing lower triangle, columns j+1 .. t-1.
-  for (int j = 0; j < t; ++j) {
-    __syncthreads();
-    const float d = rsqrtf(fmaxf(a[j * kPitch + j], kDiagEps));
-    if (tid == 0) dinv[j] = d;
-    const int r = t - 1 - j;  // side of the trailing block
-    for (int idx = tid; idx < r * r; idx += kThreads) {
-      const int ii = idx / r;
-      const int kk = idx - ii * r;
-      if (kk > ii) continue;
-      const int i = j + 1 + ii;
-      const int k = j + 1 + kk;
-      const float ci = a[i * kPitch + j] * d;
-      const float ck = a[k * kPitch + j] * d;
-      a[i * kPitch + k] -= ci * ck;
-    }
-  }
-  __syncthreads();
-
-  // Column j of `a` still holds the values step j scaled, so
-  // L[i, j] = a[i, j] * dinv[j].  Rows are written whole (coalesced),
-  // zeros above the diagonal included: the output is allocated empty.
-  float* o = out + (size_t)n * t * t;
-  for (int idx = tid; idx < t * t; idx += kThreads) {
-    const int i = idx / t;
-    const int k = idx - i * t;
-    o[idx] = (k <= i) ? a[i * kPitch + k] * dinv[k] : 0.0f;
-  }
+  const int b = n / p.z;
+  const int zi = n - b * p.z;
+  const int t = p.t;
+  const int pitch = ct::pitch(t);
+  const float* tt = p.times + b * p.times_row;
+  const long long mrow = b * p.mask_row;
+  const float l = p.ls[b * p.ls_b + zi * p.ls_z];
+  const float v = p.var ? p.var[b * p.var_b + zi * p.var_z] : p.var_value;
+  ct::fill_lower<kThreads>(s, pitch, t, [&](int i, int k) {
+    return gpvae::gram_value(p.code, tt[i], tt[k], mask_at(p, mrow + i),
+                             mask_at(p, mrow + k), l, v, p.noise,
+                             p.one_minus_noise, i == k);
+  });
+  ct::factor<true, kThreads>(s, pitch, t);
+  ct::store_lower<kThreads>(s, pitch, t, p.out + (size_t)n * t * t, t);
 }
 
 }  // namespace
 
 extern "C" {
 
-// times, mask: [n, t]; ls, var: [n]; out: [n, t, t]; all float32,
-// contiguous, on the device.  Launches on `stream` and returns the
+// The bank as described above; out: [n, t, t] float32, n = B * z.
+// Launches on `stream` and returns the
 // cudaError_t of the launch (0 on success).
-int gpvae_gram_chol_f32(const void* times, const void* mask, const void* ls,
-                        const void* var, void* out, int n, int t, int code,
-                        float noise, float one_minus_noise, void* stream) {
+int gpvae_gram_chol_f32(const void* times, long long times_row,
+                        const void* mask, long long mask_row, int mask_kind,
+                        const void* ls, long long ls_b, long long ls_z,
+                        const void* var, long long var_b, long long var_z,
+                        float var_value, void* out, int n, int z, int t,
+                        int code, float noise, float one_minus_noise,
+                        void* stream) {
   if (n <= 0) return 0;
-  if (t < 1 || t > kMaxT || !gpvae::valid_kernel_code(code)) {
+  if (t < 1 || t > kMaxT || z < 1 || n % z != 0 ||
+      !gpvae::valid_kernel_code(code) || mask_kind < kNoMask ||
+      mask_kind > kFloatMask || (mask_kind != kNoMask) != (mask != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  gram_chol_kernel<<<n, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)times, (const float*)mask, (const float*)ls,
-      (const float*)var, (float*)out, t, code, noise, one_minus_noise);
+  Params p;
+  p.times = (const float*)times;
+  p.times_row = times_row;
+  p.mask = mask;
+  p.mask_row = mask_row;
+  p.mask_kind = mask_kind;
+  p.ls = (const float*)ls;
+  p.ls_b = ls_b;
+  p.ls_z = ls_z;
+  p.var = (const float*)var;
+  p.var_b = var_b;
+  p.var_z = var_z;
+  p.var_value = var_value;
+  p.out = (float*)out;
+  p.z = z;
+  p.t = t;
+  p.code = code;
+  p.noise = noise;
+  p.one_minus_noise = one_minus_noise;
+  gram_chol_kernel<<<n, kThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

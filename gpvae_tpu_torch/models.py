@@ -56,8 +56,8 @@ class GPVAEConfig:
     structured_prior: str = "auto"
     num_inducing: int = 64
     inducing_time_range: tuple[float, float] | None = None
-    # "auto" and "fused" both take the port's single route (the kernels on
-    # CUDA); "xla", the composed baseline, is not ported
+    # "auto" and "fused" both take the port's fused route (the kernels on
+    # CUDA); "xla" the composed baseline, gp.chol_gram_bank(impl="xla")
     cov_impl: str = "auto"
     # a float32 matmul is full float32 here unless TF32 is switched on, so
     # both settings compute the same
@@ -147,10 +147,6 @@ def check_ported(config: GPVAEConfig) -> None:
         raise NotImplementedError("gaussian likelihood: ROADMAP slice 4")
     if config.shared_time_grid:
         raise NotImplementedError("shared_time_grid: ROADMAP slice 4")
-    if config.cov_impl == "xla":
-        raise NotImplementedError(
-            "cov_impl='xla' (the composed baseline): ROADMAP slice 6"
-        )
 
 
 @dataclasses.dataclass
@@ -217,7 +213,7 @@ class GPVAE(nn.Module):
         ls = torch.cat([torch.exp(self.posterior_log_ls),
                         torch.exp(self.prior_log_ls)]).to(times.dtype)
         l_all = gp.chol_gram_bank(times, ls, mask=mask, kernel=c.kernel,
-                                  noise=c.noise)
+                                  noise=c.noise, impl=c.cov_impl)
         return {"l_q": l_all[:, : c.latent_dim],
                 "l_p": l_all[:, c.latent_dim:]}
 

@@ -11,7 +11,9 @@ On the card a 128-wide block fits in one thread block's shared memory, so
 there are no halves: :func:`chol_block` takes a pre-built block,
 :func:`gram_chol_block` builds it from the time vectors, and either writes
 the finished factor where ``out`` says, which may be inside a larger
-factor at a row stride (the TPU's ``diag_parts_writeback``).
+factor at a row stride (the TPU's ``diag_parts_writeback``).  The kernel
+factors in panels of 16 columns and inverts by recursive doubling
+(``csrc/chol_tile.cuh``).
 
 A CUDA tensor goes to the kernel; a CPU tensor to the plain version,
 ``torch.linalg.cholesky`` and ``tri_inv_plain``.

@@ -40,8 +40,12 @@ def _bank(card, seed, b, t, z=4):
             torch.tensor(mask, device=card))
 
 
+# sides on both sides of the kernels' panel widths (16 and 32)
+PANEL_SIDES = [1, 15, 16, 17, 31, 32, 33, 45, 63, 64]
+
+
 @pytest.mark.parametrize("kernel", sorted(kernels.KERNELS))
-@pytest.mark.parametrize("t", [1, 8, 45, 64])
+@pytest.mark.parametrize("t", sorted(set(PANEL_SIDES) | {8}))
 def test_gram_chol_kernel_matches_plain(card, kernel, t):
     times, ls, mask = _bank(card, t, 20, t)
     before = gram_chol.LAUNCHES
@@ -108,27 +112,112 @@ def _l_band(l, ref, lib):
     return err, max(5e-5, 4.0 * (lib.double() - ref).abs().max().item())
 
 
-@pytest.mark.parametrize("t", [1, 37, 64, 100, 128])
-@pytest.mark.parametrize("gram", [True, False])
-def test_chol_block_matches_plain(card, t, gram):
-    times, mask, ls, var = _flat(card, t, 64, t)
+def _check_chol_block(times, mask, ls, var, gram, inverse):
+    """One ``chol_block`` launch in either mode against float64: L in
+    ``_l_band``, L^-1 within 1e-4 (rel. Frobenius) of the float64 inverse
+    of that L, both exactly zero above the diagonal."""
     k = kernels.gram(times.double(), ls.double()[:, None, None],
                      variance=var.double()[:, None, None], mask=mask)
     before = chol_block.LAUNCHES
     if gram:
-        l, x = chol_block.gram_chol_block(times, mask, ls, var, inverse=True)
+        l, x = chol_block.gram_chol_block(times, mask, ls, var,
+                                          inverse=inverse)
     else:
-        l, x = chol_block.chol_block(k.float(), inverse=True)
+        l, x = chol_block.chol_block(k.float(), inverse=inverse)
     assert chol_block.LAUNCHES == before + 1
     ref = torch.linalg.cholesky(k)
     err, band = _l_band(l, ref, torch.linalg.cholesky(k.float()))
     assert err <= band
+    assert torch.all(torch.triu(l, 1) == 0)
+    if not inverse:
+        assert x is None
+        return
     xref = tri_inv.tri_inv_plain(l.double())
     rel = (torch.linalg.matrix_norm(x.double() - xref)
            / torch.linalg.matrix_norm(xref)).max().item()
     assert rel <= 1e-4
-    assert torch.all(torch.triu(l, 1) == 0)
     assert torch.all(torch.triu(x, 1) == 0)
+
+
+@pytest.mark.parametrize("t", sorted(set(PANEL_SIDES)
+                                     | {37, 65, 100, 127, 128}))
+@pytest.mark.parametrize("gram", [True, False])
+@pytest.mark.parametrize("inverse", [True, False])
+def test_chol_block_matches_plain(card, t, gram, inverse):
+    _check_chol_block(*_flat(card, t, 64, t), gram, inverse)
+
+
+def test_kernels_take_more_than_one_wave(card):
+    """N = 1024 matrices: nearly eight waves of the 132 SMs."""
+    times, ls, mask = _bank(card, 11, 256, 45)
+    l = gram_chol.gram_chol_fused(times, ls, mask=mask)
+    ref = gram_chol.gram_chol_plain(times.double(), ls.double(), mask=mask)
+    err, band = _l_band(l, ref, gram_chol.gram_chol_plain(times, ls,
+                                                          mask=mask))
+    assert l.shape == (256, 4, 45, 45) and err <= band
+    for gram in (True, False):
+        _check_chol_block(*_flat(card, 12, 1024, 128), gram, True)
+
+
+@pytest.mark.parametrize("ls_shape", ["z", "bz"])
+@pytest.mark.parametrize("masked", ["bool", "float", None])
+@pytest.mark.parametrize("variance",
+                         ["number", "scalar", "z", "one", "host_scalar"])
+def test_gram_chol_takes_the_bank_as_given(card, ls_shape, masked,
+                                           variance):
+    """The kernel reads the arguments of gram_chol_fused where they lie:
+    [Z] or [B, Z] lengthscales, a bool or float mask or none, the
+    variance as a number, a 0-dim tensor (on the card or the host), [1]
+    or [Z], and times at a row stride; one launch a call, matrix
+    b * Z + z."""
+    rng = np.random.default_rng(13)
+    b, t, z = 6, 45, 3
+    big = torch.zeros((b, 2 * t), device=card)
+    big[:, ::2] = torch.tensor(np.sort(rng.uniform(0.0, 60.0, (b, t)), -1),
+                               dtype=torch.float32, device=card)
+    times = big[:, ::2]  # row stride 2 t, column stride 2
+    mk = torch.tensor(rng.random((b, t)) > 0.3, device=card)
+    mk[:, 0] = True
+    mask = {"bool": mk, "float": mk.float(), None: None}[masked]
+    shape = (z,) if ls_shape == "z" else (b, z)
+    ls = torch.tensor(rng.uniform(1.0, 9.0, shape), dtype=torch.float32,
+                      device=card)
+    var = {"number": 1.3,
+           "scalar": torch.tensor(0.7, device=card),
+           "z": torch.tensor(rng.uniform(0.5, 1.5, z), dtype=torch.float32,
+                             device=card),
+           "one": torch.tensor([0.8], device=card),
+           "host_scalar": torch.tensor(1.1)}[variance]
+    before = gram_chol.LAUNCHES
+    l = gram_chol.gram_chol_fused(times, ls, mask=mask, variance=var)
+    assert gram_chol.LAUNCHES == before + 1
+    var64 = var.double() if torch.is_tensor(var) else var
+    mask64 = None if mask is None else mask.double() if masked == "float" \
+        else mask
+    ref = gram_chol.gram_chol_plain(times.double(), ls.double(),
+                                    mask=mask64, variance=var64)
+    lib = gram_chol.gram_chol_plain(times, ls, mask=mask, variance=var)
+    err, band = _l_band(l, ref, lib)
+    assert l.shape == (b, z, t, t) and err <= band
+    assert torch.all(torch.triu(l, 1) == 0)
+
+
+def test_chol_block_gives_nan_where_not_positive_definite(card):
+    """A negative pivot at column 50 of one block: NaN from that column
+    on, its earlier columns finite, zeros above the diagonal, and the
+    other blocks untouched."""
+    times, mask, ls, var = _flat(card, 14, 4, 100)
+    k = kernels.gram(times, ls[:, None, None], variance=var[:, None, None],
+                     mask=mask)
+    k[2, 50, 50] = -1.0
+    l, x = chol_block.chol_block(k, inverse=True)
+    torch.cuda.synchronize()
+    low = torch.tril(torch.ones(50, 50, dtype=torch.bool, device=card))
+    assert torch.isnan(l[2, 50:, 50:][low]).all()
+    assert torch.isfinite(l[2, :, :50]).all()
+    assert torch.all(torch.triu(l[2], 1) == 0)
+    assert torch.isfinite(l[[0, 1, 3]]).all()
+    assert torch.isfinite(x[[0, 1, 3]]).all()
 
 
 def test_chol_block_reads_and_writes_at_a_row_stride(card):

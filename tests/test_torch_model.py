@@ -325,3 +325,40 @@ def test_cli_trains_syn_data_on_the_cpu():
     assert "done at step 5" in proc.stdout
     listing = _run(["-m", "gpvae_tpu_torch", "list-presets"])
     assert listing.returncode == 0 and "syn_data_vm" in listing.stdout
+
+
+def test_cov_impl_xla_elbo_and_grads_match_jax_fp64(monkeypatch):
+    """``cov_impl="xla"`` (the composed baseline: ``kernels.gram_bank``
+    then the library Cholesky) reaches the gram bank, as in the JAX model.
+    Loss, nll, kl and every gradient in float64.  The JAX side's
+    reference gradient is its autodiff of ``jnp.linalg.cholesky``: the
+    package's own ``cholesky`` backward pins float32 (ops/chol.py:603) and
+    does not run in float64."""
+    monkeypatch.setattr(jgp, "cholesky",
+                        lambda k, method="auto": jnp.linalg.cholesky(k))
+    cfg = dataclasses.replace(jconfigs.get("syn_data").model,
+                              learn_prior_lengthscales=True, cov_impl="xla")
+    x, times, mask = _batch(5)
+    jmodel, params = _jax_model(cfg, x, times, mask, jnp.float64)
+    key = jax.random.key(6)
+    args = (jnp.asarray(x), jnp.asarray(times), jnp.asarray(mask))
+
+    def loss_fn(p):
+        out = jmodel.apply(p, *args, beta=0.7, rngs={"sample": key})
+        return out.loss, out
+
+    (_, ref), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    eps = _jax_eps(jmodel, params, key, (1, B, 2, 45), jnp.float64)
+    model = _port_model(cfg, params, torch.float64)
+    assert model.config.cov_impl == "xla"
+    out = model(torch.tensor(x), torch.tensor(times), torch.tensor(mask),
+                beta=0.7, eps=torch.tensor(eps))
+    out.loss.backward()
+    for name in ("loss", "nll", "kl"):
+        assert _rel(getattr(out, name).detach().numpy(),
+                    getattr(ref, name)) <= FP64_VS_JAX_REL, name
+    ref_grads = _grads_by_port_name(jgrads["params"])
+    got = {n: p.grad.numpy() for n, p in model.named_parameters()}
+    assert set(got) == set(ref_grads)
+    for name, g in got.items():
+        assert _rel(g, ref_grads[name]) <= FP64_VS_JAX_REL, name
