@@ -6,7 +6,7 @@
 Phases, each printing one line (a failed check exits nonzero at once):
 
 1. device: the card, its power limit, and the float32 matmul setting;
-2. build: the five CUDA sources of ``gpvae_tpu_torch/csrc`` (nine
+2. build: the six CUDA sources of ``gpvae_tpu_torch/csrc`` (nine
    kernels), one ``nvcc`` each, all started together, and each kernel's
    registers and spills as ptxas reports them;
 3. kernels: each kernel against its plain PyTorch version in float64 on
@@ -20,6 +20,10 @@ Phases, each printing one line (a failed check exits nonzero at once):
    {100, 1024}; for the imputation path, ``hist_panel`` at T=1024 (o=512)
    and at a ragged T=300, ``ops.chol.cholesky`` of pre-built masked banks
    at T in {45, 100, 256, 1000, 1024}, N up to 128 (K left unchanged),
+   ``panel_solve`` at w in {1, 16, 100, 128}, N in {64, 128}, row counts
+   that are no multiple of its row tile, o = 3 (4-byte copies), and on a
+   view inside a larger buffer (its zero tile exactly zero, nothing
+   written outside),
    and ``ops.trsm.solve_triangular`` in its four forms; for the
    right-looking route, ``trail_panel`` and ``trail_update`` at nb in
    {64, 128}, R in {256, 1024}, N=128, and ``ops.chol.cholesky(method=m)``
@@ -57,7 +61,8 @@ Phases, each printing one line (a failed check exits nonzero at once):
    (``gram_chol_fused`` must be one kernel a call); ``chol_block`` with
    L^-1 and in its gram mode; the T=1024 evaluate path's sequences
    imputed per second; ``hist_panel`` and the whole pre-built
-   factorization at the path's N=64, T=1024;
+   factorization at the path's N=64, T=1024; ``tri_inv`` also at the
+   T=1024 flat route's base call (N=1,024 matrices of 64);
    ``trail_panel`` and ``trail_update`` at the T=1024, N=128 middle step,
    and ``cholesky`` under ``auto``, ``blocked_fused`` and ``xla`` at
    (T, N) in {(256, 512), (512, 256), (1024, 128)}.
@@ -184,7 +189,7 @@ GRAM_OPS = 8
 PROFILED_CALLS = 20
 
 SOURCES = ("gram_chol", "tri_inv", "chol_block", "gram_panel",
-           "diag_logdet")
+           "panel_solve", "diag_logdet")
 # the method comparison of phase 5: the JAX package's crossover shapes
 METHOD_SHAPES = ((256, 512), (512, 256), (1024, 128))
 
@@ -665,6 +670,88 @@ def check_large_t_kernels(dev) -> dict:
         cases += 1
     worst["large_t_cases"] = cases
     return worst
+
+
+# (N, T, o, w, column offset of a view or None) of phase 3's panel_solve
+# cases: the two paths' middle step, rows that are no multiple of the row
+# tile (64 or 128), o = 3 (4-byte copies), w = 1 and 16, and a view
+SOLVE_CASES = ((128, LONG_T, LONG_T // 2, 128, None),
+               (64, LONG_T, LONG_T // 2, 128, None),
+               (128, 300, 0, 128, None), (64, 300, 3, 100, None),
+               (128, 300, 37, 1, None), (64, 300, 128, 16, None),
+               (64, 300, 128, 128, 4), (64, 300, 128, 128, 5))
+
+
+def solve_at(view, o, w) -> None:
+    """``panel_solve``'s C entry point on a view of L at its own matrix and
+    row strides (the wrapper takes contiguous banks only)."""
+    import torch
+
+    from gpvae_tpu_torch.ops import _build, blocked
+
+    lib = _build.load("panel_solve", blocked._SOLVE_ENTRY_POINTS)
+    status = lib.gpvae_panel_solve_f32(
+        view.data_ptr(), view.stride(0), view.stride(1), o, w,
+        view.shape[1], view.shape[0],
+        torch.cuda.current_stream().cuda_stream)
+    _build.check_status(lib, status, "panel_solve")
+
+
+def check_panel_solve(dev) -> dict:
+    """Phase 3, ``panel_solve`` at ``SOLVE_CASES``: the factored block of a
+    masked gram's float64 factor and the panel below it as the
+    factorization hands it over (P = L[o+w:, o:o+w] L_d^T), the rest of L
+    noise, in float32; against the plain version in float64 on the same
+    inputs (band ``PANEL_ABS``), the zero tile exactly zero, and nothing
+    else written."""
+    import numpy as np
+    import torch
+
+    from gpvae_tpu_torch import kernels as kernels_lib
+    from gpvae_tpu_torch.ops import blocked
+
+    rng = np.random.default_rng(6)
+    worst = 0.0
+    for n, t, o, w, col in SOLVE_CASES:
+        times, mask, ls, var = flat_inputs(rng, n, t, dev)
+        l64 = torch.linalg.cholesky(kernels_lib.gram(
+            times.double(), ls.double()[:, None, None],
+            variance=var.double()[:, None, None], mask=mask))
+        l = torch.randn((n, t, t), dtype=torch.float64, device=dev)
+        d = l64[:, o:o + w, o:o + w]
+        l[:, o:o + w, o:o + w] = d
+        l[:, o + w:, o:o + w] = l64[:, o + w:, o:o + w] @ d.mT
+        l = l.float()
+        ref = l.double()
+        blocked.panel_solve_plain(ref, o, w)
+        name = f"panel_solve N={n} T={t} o={o} w={w} view={col}"
+        if col is None:
+            got = l.clone()
+            blocked.panel_solve(got, o, w)
+        else:
+            big = torch.full((n, t + 6, t + 16), float("nan"), device=dev)
+            big[:, 3:t + 3, col:t + col] = l
+            got = big[:, 3:t + 3, col:t + col]
+            solve_at(got, o, w)
+            outside = big.clone()
+            outside[:, 3:t + 3, col:t + col] = float("nan")
+            if not bool(torch.isnan(outside).all()):
+                fail(f"{name}: wrote outside the view")
+        torch.cuda.synchronize()
+        err = (got.double() - ref).abs().max().item()
+        if not err <= PANEL_ABS:
+            fail(f"{name}: max abs err {err:.3e} > {PANEL_ABS:.0e}")
+        if not bool((got[:, o:o + w, o + w:] == 0).all()):
+            fail(f"{name}: the zero tile is not zero")
+        keep = torch.ones((t, t), dtype=torch.bool, device=dev)
+        keep[o + w:, o:o + w] = False
+        keep[o:o + w, o + w:] = False
+        if not torch.equal(got[:, keep], l[:, keep]):
+            fail(f"{name}: wrote outside the panel and the zero tile")
+        worst = max(worst, err)
+        del l64, l, ref, got
+    return {"panel_solve_shapes": worst,
+            "panel_solve_cases": len(SOLVE_CASES)}
 
 
 def check_prebuilt_kernels(dev) -> dict:
@@ -1539,8 +1626,9 @@ def time_kernels(dev) -> dict:
     """Each kernel at its main-path shape: ``syn_data`` for ``gram_chol``
     and ``tri_inv`` (N=80, T=45), the T=1024 path for the rest (N=128
     matrices, the KL's N=64 prior half for ``diag_logdet``).  Then whole
-    functions: ``chol_block`` with L^-1, and the factorization and
-    ``tri_inv`` at T=100 and 1024."""
+    functions: ``chol_block`` with L^-1, the factorization and
+    ``tri_inv`` at T=100 and 1024, and ``tri_inv``'s base call at
+    T=1024."""
     import numpy as np
     import torch
 
@@ -1686,6 +1774,26 @@ def time_kernels(dev) -> dict:
             (n // 2) * tt ** 3 / 3, f"N={n // 2}, T={tt}",
             kernel="tri_inv")
         del kk, lf, eye
+
+    # tri_inv at the T=1024 flat route's base call: the diagonal blocks of
+    # 64 of the KL's N=64 prior factors, 1,024 matrices
+    # (its own draws, so that the banks below stay those of earlier runs)
+    times, mask, ls, var = flat_inputs(np.random.default_rng(4), n // 2, t,
+                                       dev)
+    lf = blocked.cholesky_gram_inplace(times, ls, mask > 0.5, var)
+    base = torch.diagonal(lf.view(n // 2, t // 64, 64, t // 64, 64),
+                          dim1=1, dim2=3).permute(0, 3, 1, 2).reshape(
+                              -1, 64, 64).contiguous()
+    eye = torch.eye(64, device=dev).expand_as(base)
+    nb_ = base.shape[0]
+    whole["tri_inv_base_T1024"] = time_kernel(
+        "tri_inv (base call)", lambda: tri_inv.tri_inv_cuda(base),
+        lambda: tri_inv.tri_inv_plain(base),
+        lambda: torch.linalg.solve_triangular(base, eye, upper=False),
+        f * nb_ * (64 * 65 / 2 + 64 * 64), nb_ * 64 ** 3 / 3,
+        f"N={nb_}, T=64 (the T=1024 flat route's base call)",
+        kernel="tri_inv")
+    del lf, base, eye
 
     # the imputation path at its T=1024 shape: N = 32 sequences x 2
     # latents of a pre-built bank; hist_panel at the middle step
@@ -1893,8 +2001,10 @@ def run(dev) -> int:
     worst_large = check_large_t_kernels(dev)
     worst_pre = check_prebuilt_kernels(dev)
     worst_trail = check_trail_kernels(dev)
+    worst_solve = check_panel_solve(dev)
     phase("kernels_vs_plain", **worst, **worst_large, **worst_pre,
-          **worst_trail, l_band=L_MAX_ABS, l_vs_library=L_VS_LIBRARY,
+          **worst_trail, **worst_solve, l_band=L_MAX_ABS,
+          l_vs_library=L_VS_LIBRARY, panel_band=PANEL_ABS,
           cholesky_band_vs_library=CHOL_VS_LIBRARY,
           fused_band_vs_library=FUSED_VS_LIBRARY,
           fused_band_vs_plain=FUSED_VS_PLAIN, trail_terms_rel=TERMS_REL,
@@ -1919,7 +2029,8 @@ def run(dev) -> int:
                              worst_large["tri_inv_large_abs"]),
               "chol_block": worst_large["chol_block"],
               "gram_panel": worst_large["gram_panel"],
-              "panel_solve": worst_large["panel_solve"],
+              "panel_solve": max(worst_large["panel_solve"],
+                                 worst_solve["panel_solve_shapes"]),
               "diag_logdet": worst_large["diag_logdet"],
               "hist_panel": worst_pre["hist_panel"],
               "trail_panel": worst_trail["trail_panel_abs"],
@@ -1928,7 +2039,7 @@ def run(dev) -> int:
                "tri_inv": ("tri_inv.cu", "pallas_tri.py:39"),
                "chol_block": ("chol_block.cu", "pallas_chol.py:198"),
                "gram_panel": ("gram_panel.cu", "pallas_big.py:556"),
-               "panel_solve": ("gram_panel.cu", "pallas_big.py:1005"),
+               "panel_solve": ("panel_solve.cu", "pallas_big.py:1005"),
                "diag_logdet": ("diag_logdet.cu", "pallas_big.py:237"),
                "hist_panel": ("gram_panel.cu", "pallas_big.py:105"),
                "trail_panel": ("gram_panel.cu", "pallas_trail.py:53"),

@@ -4,17 +4,19 @@ for an NVIDIA Hopper GPU (H100, ``sm_90a``).
 The port of ``gpvae_tpu`` (JAX/Pallas on a TPU), module for module.  It
 carries the ``syn_data`` training step (dense nets, a GP posterior
 against a GP prior on irregular masked time grids) and the large-T dense
-covariance path of ``bench_t100``, on six kernels in ``csrc/`` that the
+covariance path of ``bench_t100``, on six sources in ``csrc/`` that the
 ops build with ``nvcc`` on first use:
 
 * ``gram_chol.cu``   -- the masked gram bank and its Cholesky, T <= 64;
 * ``tri_inv.cu``     -- the batched lower-triangular inverse, side <= 64;
 * ``chol_block.cu``  -- Cholesky (and inverse) of SPD blocks <= 128;
-  the two factorizations share ``chol_tile.cuh``, a panel-blocked
-  Cholesky inside one thread block;
 * ``gram_panel.cu``  -- the blocked factorization's panel, with in-kernel
-  gram tiles, and the solve of the column below each diagonal block;
+  gram tiles or from a pre-built bank, and the right-looking step;
+* ``panel_solve.cu`` -- the solve of the column below each diagonal block;
 * ``diag_logdet.cu`` -- ``2 sum log diag L`` of large factors.
+
+All but ``gram_panel.cu`` and ``diag_logdet.cu`` share ``chol_tile.cuh``:
+a panel-blocked Cholesky and inverse inside one thread block.
 
 A CUDA tensor goes through a kernel; a CPU tensor through the plain
 PyTorch version of the same function.  This package never imports JAX.

@@ -1,6 +1,7 @@
 // Cholesky of one small SPD matrix inside one thread block, blocked by
 // panels, and the inverse of the factor: shared by gram_chol.cu (T <= 64)
-// and chol_block.cu (t <= 128).
+// and chol_block.cu (t <= 128); tri_inv.cu takes the inverse of a given
+// factor, and panel_solve.cu steps 2 and 3 for the rows below a block.
 //
 // What bounds it on Hopper: a matrix of side t holds t^3/3 flops (0.7
 // MFLOP at t = 128) and t^2 floats, so one thread block per matrix is
@@ -190,13 +191,14 @@ __device__ __forceinline__ void diag_tile(float* s, int p, int c0, int nbp) {
   }
 }
 
-// Step 2: row r below the full panel at c0, solved against its tile:
+// Step 2 on a row held in registers: a[k] = A[r][c0+k] on entry,
+// L[r][c0+k] on return,
 // L[r][c0+j] = (A[r][c0+j] - sum_{k<j} L[r][c0+k] L[c0+j][c0+k]) d_j,
-// the sum taken right-looking in k order.
-__device__ __forceinline__ void solve_row(float* s, int p, int c0, int r) {
-  float a[kNb];
-#pragma unroll
-  for (int k = 0; k < kNb; ++k) a[k] = s[(c0 + k) * p + r];
+// the sum taken right-looking in k order.  s holds the tile column-major
+// (pitch p) with d_j in the slot under each column; the tile's columns are
+// read as float4, the same address for every thread.
+__device__ __forceinline__ void solve_regs(const float* s, int p, int c0,
+                                           float (&a)[kNb]) {
 #pragma unroll
   for (int j = 0; j < kNb; ++j) {
     const float* col = s + (c0 + j) * p;
@@ -213,6 +215,14 @@ __device__ __forceinline__ void solve_row(float* s, int p, int c0, int r) {
       }
     }
   }
+}
+
+// Step 2: row r below the full panel at c0, solved against its tile.
+__device__ __forceinline__ void solve_row(float* s, int p, int c0, int r) {
+  float a[kNb];
+#pragma unroll
+  for (int k = 0; k < kNb; ++k) a[k] = s[(c0 + k) * p + r];
+  solve_regs(s, p, c0, a);
 #pragma unroll
   for (int k = 0; k < kNb; ++k) s[(c0 + k) * p + r] = a[k];
 }

@@ -16,33 +16,20 @@
 //     matrix and row strides.  K is only read: the caller's K comes back
 //     unchanged.  At o = 0 the panel is a copy of K's column block.
 //
-// panel_solve (K3): for rows r in [o + w, T), once the diagonal block
-// L_d = L[o:o+w, o:o+w] is factored in place,
+// The rows below each factored diagonal block are solved against it by
+// another kernel, panel_solve (K3, csrc/panel_solve.cu).
 //
-//   L[r, o:o+w] <- L[r, o:o+w] L_d^{-T}
-//
-// by substitution against L_d, and zeros into the mirrored upper tile
-// L[o:o+w, r].
-//
-// gram_panel and panel_solve replace the TPU kernels
+// gram_panel replaces the panel half of the TPU kernels
 // pallas_big._make_defer1_kernel (B9, the b = 1 step) and
 // _make_defer_kernel with the gram (B10, b >= 2).  hist_panel replaces
 // the pre-built-gram history kernels: pallas_big._hist_kernel (B14) and
 // _hist2_kernel (B15, the same panel split in two outputs), the panel half
 // of _make_defer_kernel without the gram (B18), and
 // pallas_left._make_kernel (B19, the streamed panel of the 64 < T < 768
-// route); with panel_solve it also does the column work of
-// pallas_big._init_kernel (B16) and _wb_kernel (B17).
-// The TPU defers each column's product with the block's inverse into the
-// next step's kernel to save a pass over HBM on its in-order grid, cuts
-// the panel into VMEM-sized slabs, and multiplies by an explicit inverse
-// so that its matrix unit does the work.  Here blocks run in parallel and
-// the column is finished in its own step, and it is solved, not
-// multiplied: in float32 the explicit inverse left the factor 3-4x the
-// library's error from the float64 factor at T = 256-1024, the
-// substitution 1.5-2x (CPU emulation of both on the same inputs).  The
-// solve multiplies by 1 / L_d[c, c], which may differ from a division in
-// the last bit.
+// route); with chol_block and panel_solve it also does the work of
+// pallas_big._init_kernel (B16) and _wb_kernel (B17).  The TPU cuts the
+// panel into VMEM-sized slabs on its in-order grid; here blocks run in
+// parallel over 128 x 128 tiles of it.
 //
 // The right-looking factorization (ops/blocked.py cholesky_blocked_fused,
 // cholesky(method="blocked_fused")) takes two more, which together replace
@@ -62,7 +49,7 @@
 // finished by one launch before the next reads it, on the same stream;
 // recomputing X rows in each downdate block instead would triple the
 // work.  X is multiplied by the explicit inverse, as on the TPU, which in
-// float32 costs 3-4x the library's factor error (see panel_solve below):
+// float32 costs 3-4x the library's factor error (see panel_solve.cu):
 // "auto" never takes this route.
 //
 // What bounds them on Hopper.  The panel is the factorization's floating
@@ -87,8 +74,8 @@
 // factorization at T = 1024 several times the library's float32 error.
 // So each 32-deep stage's twelve products sum into fresh registers, which
 // an ordinary (rounding) float32 add takes into the tile's sum: the
-// factor's error is then that of the plain float32 route
-// (tests/test_torch_panel_split.py emulates both sums on the CPU).
+// factor's error is then that of the plain float32 route (python -m
+// gpvae_tpu_torch.ops.split_emulation emulates both sums on the CPU).
 // A stage is 32 k, one 128-byte row of each of the tile's BM + BN rows of
 // L.  Stages arrive through a 4-stage ring of cp.async copies (16 bytes
 // where a row starts 16-byte aligned, else 4, in the same kernel; past
@@ -120,12 +107,6 @@
 // block reads and which the tile already holds, and the zero tile is
 // written with 16-byte stores.  Two blocks fit on an SM, and the grid is
 // one wave of them.
-//
-// panel_solve is serial in the w columns of a row but rows are
-// independent: a block holds L_d (66 KB) in shared memory and 32 rows in
-// registers, eight lanes a row, and the column loop is unrolled so each
-// lane's 16 values stay in registers; a column costs one shuffle and at
-// most 16 FMAs a lane.
 
 #include <cuda_runtime.h>
 
@@ -133,41 +114,19 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "cp_async.cuh"
 #include "gram.cuh"
 
 namespace {
 
-// -- building blocks: cp.async and the TF32 split -----------------------------
+// -- building blocks: cp.async (cp_async.cuh) and the TF32 split ------------
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// `bytes` of the 16 (or 4) at src into shared memory at dst; the rest of
-// the 16 (or 4) zero-filled
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// until at most N committed groups of this thread are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using gpvae::aligned16;
+using gpvae::cp_async16;
+using gpvae::cp_async4;
+using gpvae::cp_async_commit;
+using gpvae::cp_async_wait;
+using gpvae::smem_addr;
 
 // x to TF32 (10 mantissa bits), to nearest, ties away from zero, as
 // cvt.rna.tf32.f32 does, in two integer operations (the conversion
@@ -848,101 +807,6 @@ trail_panel_kernel(float* l, long long l_mat, int ld, const float* inv,
   }
 }
 
-// -- panel_solve -------------------------------------------------------------
-
-constexpr int kMaxW = 128;
-constexpr int kDiagPitch = kMaxW + 1;  // L_d rows: column reads conflict-free
-constexpr int kSolveRows = 32;         // panel rows per block
-constexpr int kLanesPerRow = 8;
-constexpr int kPerLane = kMaxW / kLanesPerRow;  // columns a lane owns
-constexpr int kSolveThreads = kSolveRows * kLanesPerRow;
-constexpr size_t kSolveSmem =
-    ((size_t)kMaxW * kDiagPitch + kMaxW) * sizeof(float);
-
-struct SolveParams {
-  float* l;
-  long long l_mat;
-  int ld;
-  int o, w, t;
-};
-
-__global__ void __launch_bounds__(kSolveThreads)
-panel_solve_kernel(SolveParams p) {
-  extern __shared__ float smem[];
-  float* dg = smem;                        // dg[k][c] = L[o + k, o + c]
-  float* rdiag = smem + kMaxW * kDiagPitch;  // 1 / L_d[c, c]
-
-  const int n = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int w = p.w;
-  float* lm = p.l + (size_t)n * p.l_mat;
-  const float* dm = lm + (size_t)p.o * p.ld + p.o;
-
-  for (int e = tid; e < w * w; e += kSolveThreads) {
-    const int k = e / w;
-    const int c = e - k * w;
-    if (c <= k) dg[k * kDiagPitch + c] = dm[(size_t)k * p.ld + c];
-  }
-  for (int c = tid; c < w; c += kSolveThreads) {
-    rdiag[c] = 1.0f / dm[(size_t)c * p.ld + c];
-  }
-
-  // Row r = r0 + m solves x L_d^T = p by substitution, column after
-  // column: x_c = p_c / L_d[c, c], then p_k -= x_c L_d[k, c] for k > c.
-  // Its eight lanes (a warp holds four rows) keep the columns
-  // k = q + 8 s in registers; x_c travels by a shuffle from its owner.
-  const int m = tid / kLanesPerRow;
-  const int q = tid % kLanesPerRow;
-  const int r = p.o + p.w + blockIdx.x * kSolveRows + m;
-  float* lr = lm + (size_t)r * p.ld + p.o;
-  float v[kPerLane];
-#pragma unroll
-  for (int s = 0; s < kPerLane; ++s) {
-    const int k = q + kLanesPerRow * s;
-    v[s] = (r < p.t && k < w) ? lr[k] : 0.0f;
-  }
-  __syncthreads();  // L_d is in shared memory; every row read precedes a write
-
-#pragma unroll
-  for (int cb = 0; cb < kPerLane; ++cb) {
-#pragma unroll
-    for (int qq = 0; qq < kLanesPerRow; ++qq) {
-      const int c = cb * kLanesPerRow + qq;
-      if (c < w) {  // the same for every thread of the block
-        const float x =
-            __shfl_sync(0xffffffffu, v[cb] * rdiag[c], qq, kLanesPerRow);
-        if (q == qq) v[cb] = x;
-#pragma unroll
-        for (int s = cb; s < kPerLane; ++s) {
-          const int k = q + kLanesPerRow * s;
-          if (s > cb || q > qq) {
-            v[s] = fmaf(-x, dg[k * kDiagPitch + c], v[s]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int s = 0; s < kPerLane; ++s) {
-    const int k = q + kLanesPerRow * s;
-    if (r < p.t && k < w) lr[k] = v[s];
-  }
-  // the strictly upper tile that mirrors these rows
-  const int r0 = p.o + p.w + blockIdx.x * kSolveRows;
-  for (int e = tid; e < w * kSolveRows; e += kSolveThreads) {
-    const int c = e / kSolveRows;
-    const int mm = e - c * kSolveRows;
-    if (r0 + mm < p.t) lm[(size_t)(p.o + c) * p.ld + r0 + mm] = 0.0f;
-  }
-}
-
-// 16-byte copies of a row start at every 4th float from `base`
-bool aligned16(const void* base, long long mat, int ld, int col) {
-  return (reinterpret_cast<uintptr_t>(base) % 16 == 0) && mat % 4 == 0 &&
-         ld % 4 == 0 && col % 4 == 0;
-}
-
 // launches a panel-tile kernel over `grid` with its dynamic shared memory
 template <class S>
 int launch_panel(void (*kernel)(PanelParams), const PanelParams& p,
@@ -1035,26 +899,6 @@ int gpvae_hist_panel_f32(void* l, long long l_mat, int ld, const void* k,
   const dim3 grid((w + PanelTile::kBN - 1) / PanelTile::kBN,
                   (t - r0 + PanelTile::kBM - 1) / PanelTile::kBM, n);
   return launch_panel<PanelTile>(hist_panel_kernel, p, grid, stream);
-}
-
-// l as above, its diagonal block [o, o + w)^2 holding the factor L_d.
-// Writes rows [o + w, t) of columns [o, o + w) and zeros into rows
-// [o, o + w) of columns [o + w, t).
-int gpvae_panel_solve_f32(void* l, long long l_mat, int ld, int o, int w,
-                          int t, int n, void* stream) {
-  if (n <= 0 || o + w >= t) return 0;
-  if (w < 1 || w > kMaxW || o < 0 || n > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const cudaError_t e = cudaFuncSetAttribute(
-      panel_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSolveSmem);
-  if (e != cudaSuccess) return (int)e;
-  SolveParams p = {(float*)l, l_mat, ld, o, w, t};
-  const dim3 grid((t - o - w + kSolveRows - 1) / kSolveRows, n);
-  panel_solve_kernel<<<grid, kSolveThreads, kSolveSmem,
-                       (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
 }
 
 // One right-looking step at column o with a diagonal block of width nb in

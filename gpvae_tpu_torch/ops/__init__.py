@@ -5,9 +5,10 @@
 * :mod:`.chol_block` -- the factor (and inverse) of SPD blocks of side
   <= 128, pre-built or built from the time vectors (``csrc/chol_block.cu``),
 * :mod:`.blocked` -- the blocked large-T factorizations
-  (``csrc/gram_panel.cu`` and ``chol_block``): ``cholesky_gram_inplace``
-  with in-kernel gram tiles, ``cholesky_inplace`` of a pre-built bank,
-  and the right-looking ``cholesky_blocked_fused`` over :mod:`.trail`,
+  (``csrc/gram_panel.cu``, ``csrc/panel_solve.cu`` and ``chol_block``):
+  ``cholesky_gram_inplace`` with in-kernel gram tiles,
+  ``cholesky_inplace`` of a pre-built bank, and the right-looking
+  ``cholesky_blocked_fused`` over :mod:`.trail`,
 * :mod:`.trail` -- one right-looking step: the panel times the diagonal
   block's inverse and the trailing downdate (``csrc/gram_panel.cu``),
 * :mod:`.tri_inv` -- ``tri_inv``: batched lower-triangular inverse

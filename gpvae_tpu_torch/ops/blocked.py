@@ -17,7 +17,7 @@ and width ``w``:
   ``K`` read from a pre-built bank, which it never writes;
 * ``chol_block`` (``csrc/chol_block.cu``): the diagonal block of the
   panel factored in place;
-* ``panel_solve`` (``csrc/gram_panel.cu``): the rows below it,
+* ``panel_solve`` (``csrc/panel_solve.cu``): the rows below it,
   ``L[:, o+w:, o:o+w] = P L_d^{-T}``, solved in place against that block
   (the TPU multiplies by the block's explicit inverse instead, which in
   float32 costs about twice the factor error), and zeros into the
@@ -53,9 +53,9 @@ from gpvae_tpu_torch.ops import _build, chol_block, dispatch, trail
 # T=2048 for its VMEM budget, pallas_big._nb_for_t :1244.)
 NB = chol_block.MAX_T
 
-# launches of the three kernels of csrc/gram_panel.cu in this process
-# (callers may reset them): lets a run show that its main path went
-# through them
+# launches of gram_panel and hist_panel (csrc/gram_panel.cu) and of
+# panel_solve (csrc/panel_solve.cu) in this process (callers may reset
+# them): lets a run show that its main path went through them
 PANEL_LAUNCHES = 0
 SOLVE_LAUNCHES = 0
 HIST_LAUNCHES = 0
@@ -65,9 +65,11 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _ENTRY_POINTS = {
     "gpvae_gram_panel_f32": [_P, _LL, _I, _P, _P, _P, _P, _I, _I, _F, _F,
                              _I, _I, _I, _I, _I, _P],
-    "gpvae_panel_solve_f32": [_P, _LL, _I, _I, _I, _I, _I, _P],
     "gpvae_hist_panel_f32": [_P, _LL, _I, _P, _LL, _I, _I, _I, _I, _I, _I,
                              _P],
+}
+_SOLVE_ENTRY_POINTS = {
+    "gpvae_panel_solve_f32": [_P, _LL, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -75,6 +77,7 @@ def build() -> None:
     """Compile and load the kernels now (they are otherwise built on first
     use)."""
     _build.load("gram_panel", _ENTRY_POINTS)
+    _build.load("panel_solve", _SOLVE_ENTRY_POINTS)
 
 
 def gram_tile(times, mask, ls, var, rows: slice, cols: slice, *,
@@ -212,7 +215,7 @@ def panel_solve(l: torch.Tensor, o: int, w: int) -> None:
         raise ValueError(f"panel_solve: w <= {chol_block.MAX_T}, got {w}")
     if n == 0 or o + w >= t:
         return
-    lib = _build.load("gram_panel", _ENTRY_POINTS)
+    lib = _build.load("panel_solve", _SOLVE_ENTRY_POINTS)
     with torch.cuda.device(l.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.gpvae_panel_solve_f32(

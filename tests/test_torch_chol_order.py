@@ -18,6 +18,14 @@ float64, whose 53 bits hold a float32 product exactly).  The card's
 ``rsqrt.approx`` is within 2^-22.9 of the exact reciprocal square root,
 the rounded value used here within half an ulp.
 
+The same for ``csrc/panel_solve.cu`` (the rows below a factored block,
+``X = P L_d^{-T}``): per panel of 16 columns, each row substituted against
+the panel's diagonal tile in column order with ``d_j = 1 / L_d[j][j]`` (a
+float32 division) and ``x_j = a_j d_j``; then the columns to the right
+updated by the panel's 16 products summed by fma into a fresh total that
+is subtracted once.  And for ``csrc/tri_inv.cu``: ``chol_tile::invert`` of
+a given factor, its ``d_j`` divided rather than the factorization's.
+
 No JAX: the reference is ``torch.linalg.cholesky`` in float64 on the same
 banks as ``chip_smoke.py`` phase 3 draws them (masked, noise 1e-3).
 """
@@ -102,15 +110,37 @@ def panel_inverse(l, d, nb=NB):
     return x
 
 
-def _bank(seed, t):
+def panel_solve_order(p, ld, nb=NB):
+    """``X = P L_d^{-T}`` of float32 ``p [N, R, w]`` and the lower triangle
+    of ``ld [N, w, w]`` in the order of ``panel_solve.cu``."""
+    x = p.clone()
+    w = ld.shape[-1]
+    d = 1.0 / torch.diagonal(ld, dim1=-2, dim2=-1)  # IEEE float32 division
+    for c0 in range(0, w, nb):
+        c1 = min(c0 + nb, w)
+        for j in range(c0, c1):  # (a) the panel, a row a thread
+            xj = x[:, :, j] * d[:, j, None]
+            x[:, :, j] = xj
+            x[:, :, j + 1:c1] = _fma(-xj[:, :, None], ld[:, None, j + 1:c1, j],
+                                     x[:, :, j + 1:c1])
+        if c1 == w:
+            break
+        acc = torch.zeros_like(x[:, :, c1:])  # (b) summed, subtracted once
+        for j in range(c0, c1):
+            acc = _fma(x[:, :, j, None], ld[:, None, c1:, j], acc)
+        x[:, :, c1:] = x[:, :, c1:] - acc
+    return x
+
+
+def _bank(seed, t, n=N):
     """A masked float64 gram bank drawn as chip_smoke.py's flat_inputs
     draws phase 3's."""
     rng = np.random.default_rng(seed)
-    times = np.sort(rng.uniform(0.0, 60.0, (N, t)), axis=-1)
-    mask = rng.random((N, t)) > rng.uniform(0.0, 0.7, (N, 1))
+    times = np.sort(rng.uniform(0.0, 60.0, (n, t)), axis=-1)
+    mask = rng.random((n, t)) > rng.uniform(0.0, 0.7, (n, 1))
     mask[:, 0] = True
-    ls = rng.uniform(1.0, 10.0, N)
-    var = rng.uniform(0.5, 1.5, N)
+    ls = rng.uniform(1.0, 10.0, n)
+    var = rng.uniform(0.5, 1.5, n)
     return kernels.gram(torch.tensor(times), torch.tensor(ls)[:, None, None],
                         variance=torch.tensor(var)[:, None, None],
                         mask=torch.tensor(mask))
@@ -132,6 +162,51 @@ def _errors(t):
            / torch.linalg.matrix_norm(xref)).max().item()
     assert bool((torch.triu(x, 1) == 0).all())
     return err, err_lib, rel
+
+
+def _solve_errors(t, o, w, n):
+    """The emulated panel_solve's error and the library's float32
+    ``solve_triangular``'s on the rows below block ``(o, w)`` of a phase-3
+    bank's factorization, each against the float64 solve of the same
+    float32 inputs: ``L_d`` the float64 factor's block, ``P`` the panel as
+    the factorization hands it over, ``L[o+w:, o:o+w] L_d^T``."""
+    l64 = torch.linalg.cholesky(_bank(t + w, t, n))
+    d = l64[:, o:o + w, o:o + w]
+    p = (l64[:, o + w:, o:o + w] @ d.mT).float()
+    d = d.float()
+    ref = torch.linalg.solve_triangular(d.double().mT, p.double(),
+                                        upper=True, left=False)
+    lib = torch.linalg.solve_triangular(d.mT, p, upper=True, left=False)
+    got = panel_solve_order(p, d)
+    return ((got.double() - ref).abs().max().item(),
+            (lib.double() - ref).abs().max().item())
+
+
+def _tri_inv_error(t):
+    """``tri_inv.cu``'s inverse of a phase-3 factor (the emulated
+    factorization's), with ``d_j = 1 / L[j][j]``: rel. Frobenius error
+    against the float64 inverse of the same float32 factor."""
+    l, _ = panel_cholesky(_bank(2 * t, t).float())
+    x = panel_inverse(l, 1.0 / torch.diagonal(l, dim1=-2, dim2=-1))
+    xref = torch.linalg.inv(l.double())
+    assert bool((torch.triu(x, 1) == 0).all())
+    return (torch.linalg.matrix_norm(x.double() - xref)
+            / torch.linalg.matrix_norm(xref)).max().item()
+
+
+# (t, o, w, n): a T=256 and the T=1024 middle step at w=128, and a ragged w
+SOLVE_CASES = [(256, 0, 128, N), (1024, 512, 128, 4), (256, 0, 100, N)]
+
+
+@pytest.mark.parametrize("t,o,w,n", SOLVE_CASES)
+def test_panel_solve_order_is_as_accurate_as_the_library(t, o, w, n):
+    err, err_lib = _solve_errors(t, o, w, n)
+    assert err <= L_VS_LIBRARY * err_lib, (err, err_lib)
+
+
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 45, 64])
+def test_tri_inv_order_stays_in_its_band(t):
+    assert _tri_inv_error(t) <= X_REL_FRO
 
 
 @pytest.mark.parametrize("t", [45, 64, 100, 127, 128])
@@ -165,3 +240,9 @@ if __name__ == "__main__":
         err, err_lib, rel = _errors(t)
         print(f"t={t}: L err {err:.3e} = {err / err_lib:.2f}x the "
               f"library's float32 error; X rel. Frobenius {rel:.2e}")
+    for t, o, w, n in SOLVE_CASES:
+        err, err_lib = _solve_errors(t, o, w, n)
+        print(f"panel_solve T={t} o={o} w={w}: err {err:.3e} = "
+              f"{err / err_lib:.2f}x the library's float32 error")
+    for t in (1, 15, 16, 17, 45, 64):
+        print(f"tri_inv t={t}: X rel. Frobenius {_tri_inv_error(t):.2e}")

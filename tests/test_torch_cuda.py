@@ -16,7 +16,8 @@ from gpvae_tpu_torch import configs, kernels, train
 from gpvae_tpu_torch.data import Batcher, generate_toy_data, toy_to_masked_batch
 from gpvae_tpu_torch.models import GPVAE
 from gpvae_tpu_torch.ops import (
-    blocked, chol, chol_block, gram_chol, logdet, trail, tri_inv, trsm,
+    _build, blocked, chol, chol_block, gram_chol, logdet, trail, tri_inv,
+    trsm,
 )
 
 pytestmark = pytest.mark.cuda
@@ -75,6 +76,50 @@ def test_tri_inv_kernel_matches_plain(card, t):
            / torch.linalg.matrix_norm(ref)).max().item()
     assert rel <= 1e-4
     assert torch.all(torch.triu(x, 1) == 0)
+
+
+@pytest.mark.parametrize("t", range(1, 65))
+def test_tri_inv_kernel_at_every_side(card, t):
+    """Every side the kernel takes: ragged diagonal tiles of 16 and every
+    doubling level of csrc/chol_tile.cuh's inverse."""
+    times, ls, mask = _bank(card, 200 + t, 20, t)
+    l = gram_chol.gram_chol_fused(times, ls, mask=mask).reshape(-1, t, t)
+    before = tri_inv.LAUNCHES
+    x = tri_inv.tri_inv_cuda(l.contiguous())
+    assert tri_inv.LAUNCHES == before + 1
+    ref = tri_inv.tri_inv_plain(l.double())
+    torch.cuda.synchronize()
+    rel = (torch.linalg.matrix_norm(x.double() - ref)
+           / torch.linalg.matrix_norm(ref)).max().item()
+    assert rel <= 1e-4
+    assert torch.all(torch.triu(x, 1) == 0)
+
+
+def test_tri_inv_kernel_takes_the_flat_routes_base_call(card):
+    """N = 1,024 matrices of 64, as the T=1024 flat route hands them over
+    (the diagonal blocks of N=64 factors): several blocks an SM."""
+    times, ls, mask = _bank(card, 13, 256, 64)
+    l = gram_chol.gram_chol_fused(times, ls, mask=mask).reshape(-1, 64, 64)
+    assert l.shape[0] == 1024
+    x = tri_inv.tri_inv_cuda(l.contiguous())
+    ref = tri_inv.tri_inv_plain(l.double())
+    torch.cuda.synchronize()
+    rel = (torch.linalg.matrix_norm(x.double() - ref)
+           / torch.linalg.matrix_norm(ref)).max().item()
+    assert rel <= 1e-4
+    assert torch.all(torch.triu(x, 1) == 0)
+
+
+@pytest.mark.parametrize("t", [17, 45, 64])
+def test_tri_inv_kernel_reads_only_the_lower_triangle(card, t):
+    """Noise above L's diagonal changes no bit of X."""
+    times, ls, mask = _bank(card, 300 + t, 20, t)
+    l = gram_chol.gram_chol_fused(times, ls, mask=mask).reshape(
+        -1, t, t).contiguous()
+    noise = torch.triu(torch.randn(l.shape, generator=torch.Generator()
+                                   .manual_seed(t)), 1).to(card) * 10.0
+    assert torch.equal(tri_inv.tri_inv_cuda(l + noise),
+                       tri_inv.tri_inv_cuda(l))
 
 
 def test_kernels_refuse_what_they_do_not_take(card):
@@ -284,6 +329,103 @@ def test_panel_kernels_match_plain(card, t, o):
     torch.cuda.synchronize()
     assert (got.double() - ref).abs().max().item() <= 1e-4
     assert torch.all(got[:, o:o + w, o + w:] == 0)
+
+
+def _panel_case(card, seed, n, t, o, w):
+    """``L [n, t, t]`` float32 holding, at block column ``(o, w)``, a
+    factored diagonal block and the panel below it as the blocked
+    factorization hands them over: ``L_d`` of a masked gram's float64
+    factor, and ``P = L[o+w:, o:o+w] L_d^T``, whose solve is that factor's
+    rows.  The rest of ``L`` is standard normal noise."""
+    times, mask, ls, var = _flat(card, seed, n, t)
+    k = kernels.gram(times.double(), ls.double()[:, None, None],
+                     variance=var.double()[:, None, None], mask=mask)
+    l64 = torch.linalg.cholesky(k)
+    rng = np.random.default_rng(seed)
+    l = torch.tensor(rng.standard_normal((n, t, t)), dtype=torch.float64,
+                     device=card)
+    d = l64[:, o:o + w, o:o + w]
+    l[:, o:o + w, o:o + w] = d
+    l[:, o + w:, o:o + w] = l64[:, o + w:, o:o + w] @ d.mT
+    return l.float().contiguous()
+
+
+def _panel_solve_at(view, o, w):
+    """The kernel on a view of L at its own matrix and row strides (the
+    wrapper takes contiguous banks only)."""
+    lib = _build.load("panel_solve", blocked._SOLVE_ENTRY_POINTS)
+    status = lib.gpvae_panel_solve_f32(
+        view.data_ptr(), view.stride(0), view.stride(1), o, w,
+        view.shape[1], view.shape[0], torch.cuda.current_stream().cuda_stream)
+    _build.check_status(lib, status, "panel_solve")
+
+
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("o", [0, 3])
+@pytest.mark.parametrize("w", [1, 16, 100, 128])
+def test_panel_solve_matches_plain(card, n, o, w):
+    """Widths from 1 to 128 (ragged last panels of 16), rows that are not
+    16-byte aligned (o = 3: the kernel's 4-byte copies), 200 rows below
+    the block (no multiple of a row tile), at the training path's N=128
+    and evaluate's N=64; against the plain version in float64 on the same
+    inputs, the zero tile exactly zero, and nothing else written."""
+    t = o + w + 200
+    l = _panel_case(card, 7 * w + o + n, n, t, o, w)
+    got, ref = l.clone(), l.double()
+    before = blocked.SOLVE_LAUNCHES
+    blocked.panel_solve(got, o, w)
+    assert blocked.SOLVE_LAUNCHES == before + 1
+    blocked.panel_solve_plain(ref, o, w)
+    torch.cuda.synchronize()
+    assert (got.double() - ref).abs().max().item() <= 1e-4
+    assert torch.all(got[:, o:o + w, o + w:] == 0)
+    keep = torch.ones_like(l, dtype=torch.bool)
+    keep[:, o + w:, o:o + w] = False
+    keep[:, o:o + w, o + w:] = False
+    assert torch.equal(got[keep], l[keep])
+
+
+@pytest.mark.parametrize("col", [4, 5])
+def test_panel_solve_works_in_place_at_a_row_stride(card, col):
+    """L a view inside a larger buffer (matrix stride != t * t), its rows
+    16-byte aligned (column offset 4) or not (5): the same bits as on a
+    contiguous L, and nothing written outside the view."""
+    n, t, o, w = 64, 300, 128, 128
+    l = _panel_case(card, 21, n, t, o, w)
+    want = l.clone()
+    blocked.panel_solve(want, o, w)
+    big = torch.full((n, t + 6, t + 16), float("nan"), device=card)
+    big[:, 3:t + 3, col:t + col] = l
+    view = big[:, 3:t + 3, col:t + col]
+    assert view.stride(0) != t * t
+    _panel_solve_at(view, o, w)
+    torch.cuda.synchronize()
+    assert torch.equal(view, want)
+    outside = big.clone()
+    outside[:, 3:t + 3, col:t + col] = float("nan")
+    assert torch.isnan(outside).all()
+
+
+@pytest.mark.parametrize("w", [100, 128])
+def test_panel_solve_reads_only_the_lower_triangle(card, w):
+    """Noise in L's strict upper triangle, L_d's included, changes no bit
+    of the result; the zero tile becomes zeros and the rest of the upper
+    triangle stays as it was."""
+    n, t, o = 64, 400, 128
+    l = torch.tril(_panel_case(card, 5, n, t, o, w))
+    noisy = l + torch.triu(torch.randn(
+        l.shape, generator=torch.Generator().manual_seed(w)), 1).to(card)
+    got, want = noisy.clone(), l.clone()
+    blocked.panel_solve(got, o, w)
+    blocked.panel_solve(want, o, w)
+    torch.cuda.synchronize()
+    lower = torch.ones(t, t, dtype=torch.bool, device=card).tril()
+    zero = torch.zeros_like(lower)
+    zero[o:o + w, o + w:] = True
+    assert torch.equal(got[:, lower], want[:, lower])
+    assert torch.all(got[:, zero] == 0)
+    upper = ~lower & ~zero
+    assert torch.equal(got[:, upper], noisy[:, upper])
 
 
 def test_diag_logdet_matches_plain(card):
