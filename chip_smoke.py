@@ -16,8 +16,9 @@ Phases, each printing one line (a failed check exits nonzero at once):
    1024}, with L^-1, at the other sides of ``CHOL_BLOCK_TS`` with and
    without L^-1 (N=128), and at a row stride in place; the blocked
    factorization (``chol_block`` + ``gram_panel`` + ``panel_solve``) at T in
-   {256, 1024}, N in {16, 128}; ``diag_logdet``, and ``tri_inv`` at T in
-   {100, 1024}; for the imputation path, ``hist_panel`` at T=1024 (o=512)
+   {256, 1024}, N in {16, 128}; ``diag_logdet`` on the T=1024 bank whole,
+   as the stacked [32, 4, T, T] training bank and as its strided half, and
+   ``tri_inv`` at T in {100, 1024}; for the imputation path, ``hist_panel`` at T=1024 (o=512)
    and at a ragged T=300, ``ops.chol.cholesky`` of pre-built masked banks
    at T in {45, 100, 256, 1000, 1024}, N up to 128 (K left unchanged),
    ``panel_solve`` at w in {1, 16, 100, 128}, N in {64, 128}, row counts
@@ -38,6 +39,10 @@ Phases, each printing one line (a failed check exits nonzero at once):
       observed dims), 400 steps;
    b. ``bench_t100`` at its widths (B=32, T=100), 300 steps;
    c. ``bench_t100`` at T=1024 (the CLI's ``--time-len 1024``), 20 steps;
+   each path's ``diag_logdet`` launches are exactly one per ELBO forward
+   at T=1024 (both halves' logdets from one launch over the stacked bank,
+   none in the backward) and none at T <= 100, in training and in each
+   ELBO held against the CPU;
    each path's loss must fall on a fixed probe batch; each path saves a
    checkpoint through ``fit(checkpoint_dir=...)``, and then
    d. ``python -m gpvae_tpu_torch evaluate`` (``__main__.main``) restores
@@ -62,7 +67,9 @@ Phases, each printing one line (a failed check exits nonzero at once):
    L^-1 and in its gram mode; the T=1024 evaluate path's sequences
    imputed per second; ``hist_panel`` and the whole pre-built
    factorization at the path's N=64, T=1024; ``tri_inv`` also at the
-   T=1024 flat route's base call (N=1,024 matrices of 64);
+   T=1024 flat route's base call (N=1,024 matrices of 64); ``diag_logdet``
+   on the whole stacked training bank (N=128), its bound one 32-byte
+   sector per diagonal element;
    ``trail_panel`` and ``trail_update`` at the T=1024, N=128 middle step,
    and ``cholesky`` under ``auto``, ``blocked_fused`` and ``xla`` at
    (T, N) in {(256, 512), (512, 256), (1024, 128)}.
@@ -178,6 +185,9 @@ EVAL_SEQS = {"syn_data": 200, "bench_t100": 320}
 # tensor cores and HBM3 bandwidth; a bound is the larger of the two times
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# DRAM moves whole 32-byte sectors: a strided gather of floats (the
+# diagonal, stride T + 1) moves one sector per element
+SECTOR_BYTES = 32
 # dense TF32 on the tensor cores: the floor of the panel tile's kernels,
 # which multiply float32 operands as three products of TF32 parts
 # (gram_panel.cu)
@@ -649,9 +659,10 @@ def check_large_t_kernels(dev) -> dict:
     del got, ref
     cases += 2
 
-    # diag_logdet on the factor, whole and as the KL's strided half
-    lv = l.reshape(64, 2, LONG_T, LONG_T)
-    for view in (l, lv[:, 1:]):
+    # diag_logdet on the factor, whole, as the stacked training bank (the
+    # main path's one call a step) and as a strided half of it
+    lv = l.reshape(BENCH_B, 2 * SYN_Z, LONG_T, LONG_T)
+    for view in (l, lv, lv[:, SYN_Z:]):
         got = logdet.logdet_from_chol(view)
         ref = logdet.diag_logdet_plain(view.double())
         err = (got.double() - ref).abs().max().item()
@@ -978,16 +989,19 @@ def toy_batch(seed, b, t):
                                                  b, t=t))
 
 
-def elbo_vs_cpu(model, dev, b, t, *, kl_band, log_ls_band) -> dict:
+def elbo_vs_cpu(model, dev, b, t, *, kl_band, log_ls_band,
+                logdet_per_forward) -> dict:
     """The trained model's ELBO and gradients on small batches (one per
     seed of ``ELBO_SEEDS``), on the card (kernels, float32) and on the CPU
     (plain versions, float64), with the same noise.  Each band is the
     stated one or 4x the error of the same model in float32 on the CPU on
-    the same batch, whichever is larger."""
+    the same batch, whichever is larger.  The card's forward and backward
+    launch ``diag_logdet`` exactly ``logdet_per_forward`` times."""
     cpu = copy.deepcopy(model).to("cpu")
     per_seed = {seed: elbo_vs_cpu_seed(model, cpu, dev, b, t, seed,
                                        kl_band=kl_band,
-                                       log_ls_band=log_ls_band)
+                                       log_ls_band=log_ls_band,
+                                       logdet_per_forward=logdet_per_forward)
                 for seed in ELBO_SEEDS}
     model.zero_grad(set_to_none=True)
     return {"seeds": per_seed,
@@ -997,7 +1011,7 @@ def elbo_vs_cpu(model, dev, b, t, *, kl_band, log_ls_band) -> dict:
 
 
 def elbo_vs_cpu_seed(model, cpu, dev, b, t, seed, *, kl_band,
-                     log_ls_band) -> dict:
+                     log_ls_band, logdet_per_forward) -> dict:
     """:func:`elbo_vs_cpu` on the batch and noise of one ``seed``."""
     import numpy as np
     import torch
@@ -1035,7 +1049,13 @@ def elbo_vs_cpu_seed(model, cpu, dev, b, t, seed, *, kl_band,
                 / torch.linalg.norm(ref_grads["posterior_log_ls"])).item(),
         }
 
+    from gpvae_tpu_torch.ops import logdet
+
+    before = logdet.LAUNCHES
     out, grads = run(model, dev, torch.float32)
+    if logdet.LAUNCHES - before != logdet_per_forward:
+        fail(f"ELBO forward and backward at B={b} T={t} launched diag_logdet "
+             f"{logdet.LAUNCHES - before} times, not {logdet_per_forward}")
     lib, lib_grads = run(cpu.float(), "cpu", torch.float32)
     ref, ref_grads = run(cpu.double(), "cpu", torch.float64)
     if tuple(out.logits.shape) != (1, b, t, SYN_D):
@@ -1054,7 +1074,8 @@ def elbo_vs_cpu_seed(model, cpu, dev, b, t, seed, *, kl_band,
     return {"errors": err, "bands": bands, "cpu_float32_errors": err_lib,
             "vs_cpu_float32": {k: err[k] / max(err_lib[k], 1e-30)
                                for k in err},
-            "kl_ref": ref.kl.tolist()}
+            "kl_ref": ref.kl.tolist(),
+            "diag_logdet_launches": logdet.LAUNCHES - before}
 
 
 def probe_loss(model, probe, eps, beta) -> float:
@@ -1167,13 +1188,19 @@ def check_launches(label, launches, needs, absent) -> None:
 def main_path(dev, name, t, steps, num_seqs, window, ckpt_dir, *, kl_band,
               log_ls_band, needs, absent=()) -> tuple[dict, dict]:
     """One main path: trained (``train_path``), its ``needs`` kernels
-    launched and its ``absent`` ones not, its ELBO held against the CPU,
-    then timed.  Returns the phase fields and the timing."""
+    launched and its ``absent`` ones not, ``diag_logdet`` exactly once a
+    step where the factors take it (T=1024), its ELBO held against the
+    CPU, then timed.  Returns the phase fields and the timing."""
     model, out, fit_more = train_path(dev, name, t, steps, num_seqs,
                                       ckpt_dir)
     check_launches(f"{name} T={t}", out["launches"], needs, absent)
+    per_forward = int(t >= 256 and t % 128 == 0)
+    if out["launches"]["diag_logdet"] != per_forward * steps:
+        fail(f"{name} T={t}: {out['launches']['diag_logdet']} diag_logdet "
+             f"launches in {steps} steps, not {per_forward} a step")
     out["elbo_vs_cpu_fp64"] = elbo_vs_cpu(model, dev, 2, t, kl_band=kl_band,
-                                          log_ls_band=log_ls_band)
+                                          log_ls_band=log_ls_band,
+                                          logdet_per_forward=per_forward)
     phase("main_path", **out)
     return out, time_path(fit_more, window)
 
@@ -1625,7 +1652,7 @@ def time_kernel(name, kernel_fn, plain_fn, library_fn, nbytes, flops,
 def time_kernels(dev) -> dict:
     """Each kernel at its main-path shape: ``syn_data`` for ``gram_chol``
     and ``tri_inv`` (N=80, T=45), the T=1024 path for the rest (N=128
-    matrices, the KL's N=64 prior half for ``diag_logdet``).  Then whole
+    matrices; for ``diag_logdet`` the stacked bank the ELBO reads).  Then whole
     functions: ``chol_block`` with L^-1, the factorization and
     ``tri_inv`` at T=100 and 1024, and ``tri_inv``'s base call at
     T=1024."""
@@ -1729,14 +1756,15 @@ def time_kernels(dev) -> dict:
         f * n * (w * (w + 1) / 2 + 2 * r * w + r * w), n * float(r) * w * w,
         f"N={n}, T={t}, block 4 ({r} rows of {w})",
         kernel="panel_solve")
-    half = l.reshape(BENCH_B, 2 * SYN_Z, t, t)[:, SYN_Z:]
+    bank = l.reshape(BENCH_B, 2 * SYN_Z, t, t)
     res["diag_logdet"] = time_kernel(
-        "diag_logdet", lambda: logdet.diag_logdet_cuda(half),
-        lambda: logdet.diag_logdet_plain(half),
-        lambda: torch.diagonal(half, dim1=-2, dim2=-1).log().sum(-1),
-        f * (BENCH_B * SYN_Z * (t + 1)), 2.0 * BENCH_B * SYN_Z * t,
-        f"[{BENCH_B}, {SYN_Z}, {t}, {t}] (the KL's prior half)",
-        kernel="diag_logdet")
+        "diag_logdet", lambda: logdet.diag_logdet_cuda(bank),
+        lambda: logdet.diag_logdet_plain(bank),
+        lambda: torch.diagonal(bank, dim1=-2, dim2=-1).log().sum(-1),
+        # one sector per diagonal element (stride T + 1), a float a result
+        SECTOR_BYTES * n * t + f * n, 2.0 * n * t,
+        f"[{BENCH_B}, {2 * SYN_Z}, {t}, {t}] (the stacked training bank, "
+        f"N={n})", kernel="diag_logdet")
     del scratch, rows, cols, ld, sub, kp
 
     # whole functions of the large-T path: the factorization at T=100 and

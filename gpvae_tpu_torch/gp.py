@@ -23,7 +23,7 @@ from gpvae_tpu_torch.ops import gram_chol
 from gpvae_tpu_torch.ops.blocked import cholesky_gram_inplace
 from gpvae_tpu_torch.ops.chol import cholesky, cholesky_bwd_from_l
 from gpvae_tpu_torch.ops.gram_chol import flat_bank, gram_chol_fused
-from gpvae_tpu_torch.ops.logdet import logdet_from_chol
+from gpvae_tpu_torch.ops.logdet import diag_logdet, logdet_from_chol
 from gpvae_tpu_torch.ops.tri_inv import tri_inv
 from gpvae_tpu_torch.ops.trsm import solve_triangular
 
@@ -68,14 +68,18 @@ def _gram_chol_blocked(times, lengthscales, mask, variance, kernel, noise):
 
 class _CholGramBank(torch.autograd.Function):
     """Forward: the fused gram + Cholesky (``gp.py:139-148``: one kernel
-    for T <= 64, the blocked factorization above).  Backward
-    (``gp.py:158-183``): ``K_bar`` from :func:`cholesky_bwd_from_l`, then
-    the pullback of the gram construction to ``lengthscales`` and
+    for T <= 64, the blocked factorization above), and with
+    ``with_logdet`` the logdet of every factor as a second output ``[B,
+    Z]`` (:func:`ops.logdet.diag_logdet`: one launch over the whole bank
+    where the kernel takes it).  Backward (``gp.py:158-183``): ``K_bar``
+    from :func:`cholesky_bwd_from_l`, the logdet's cotangent folded in,
+    then the pullback of the gram construction to ``lengthscales`` and
     ``variance``.  The times get no gradient: they are data in every model
     of the package."""
 
     @staticmethod
-    def forward(ctx, times, lengthscales, mask, variance, kernel, noise):
+    def forward(ctx, times, lengthscales, mask, variance, kernel, noise,
+                with_logdet):
         if times.shape[-1] <= gram_chol.MAX_T:
             l = gram_chol_fused(times, lengthscales, mask=mask,
                                 kernel=kernel, noise=noise,
@@ -85,12 +89,18 @@ class _CholGramBank(torch.autograd.Function):
                                    kernel, noise)
         ctx.save_for_backward(times, lengthscales, mask, variance, l)
         ctx.kernel, ctx.noise = kernel, noise
+        # an output nobody uses gets None, not a zero-filled [B, Z, T, T]
+        ctx.set_materialize_grads(False)
+        if with_logdet:
+            return l, diag_logdet(l)
         return l
 
     @staticmethod
-    def backward(ctx, l_bar):
+    def backward(ctx, l_bar, ld_bar=None):
+        if l_bar is None and ld_bar is None:
+            return (None,) * 7
         times, lengthscales, mask, variance, l = ctx.saved_tensors
-        k_bar = cholesky_bwd_from_l(l, l_bar)
+        k_bar = cholesky_bwd_from_l(l, l_bar, logdet_bar=ld_bar)
         with torch.enable_grad():
             ls = lengthscales.detach().requires_grad_(True)
             var = variance.detach().requires_grad_(True)
@@ -98,7 +108,15 @@ class _CholGramBank(torch.autograd.Function):
                                       noise=ctx.noise, variance=var,
                                       mask=mask)
             ls_bar, var_bar = torch.autograd.grad(k, (ls, var), k_bar)
-        return None, ls_bar, None, var_bar, None, None
+        return None, ls_bar, None, var_bar, None, None, None
+
+
+def _check_kernel(kernel: str) -> None:
+    if kernel not in kernels_lib.KERNELS:
+        raise ValueError(
+            f"unknown kernel {kernel!r}; available: "
+            f"{sorted(kernels_lib.KERNELS)}"
+        )
 
 
 def chol_gram_bank(
@@ -124,11 +142,7 @@ def chol_gram_bank(
     """
     if impl not in ("auto", "fused", "xla"):
         raise ValueError("impl must be auto, fused, or xla")
-    if kernel not in kernels_lib.KERNELS:
-        raise ValueError(
-            f"unknown kernel {kernel!r}; available: "
-            f"{sorted(kernels_lib.KERNELS)}"
-        )
+    _check_kernel(kernel)
     variance = torch.as_tensor(variance, dtype=times.dtype,
                                device=times.device)
     if impl == "xla":
@@ -140,7 +154,29 @@ def chol_gram_bank(
             "chol_gram_bank(diff_times=True): ROADMAP slice 4"
         )
     return _CholGramBank.apply(times, lengthscales, mask, variance, kernel,
-                               noise)
+                               noise, False)
+
+
+def _chol_gram_bank_logdet(
+    times: torch.Tensor,
+    lengthscales: torch.Tensor,
+    *,
+    mask: torch.Tensor | None = None,
+    kernel: str = "rbf",
+    noise: float = kernels_lib.DEFAULT_NOISE,
+    variance: torch.Tensor | float = 1.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`chol_gram_bank` on its fused route, and ``logdet K [B, Z]``
+    of every factor from the same autograd node: the training step's KL
+    takes both halves of its stacked bank from one ``diag_logdet`` launch,
+    and their gradient joins the Cholesky backward as ``g K^{-1}`` instead
+    of a dense diagonal ``L_bar`` per half.  (The JAX package computes the
+    same logdets from ``L``; XLA fuses its diagonal gradient away.)"""
+    _check_kernel(kernel)
+    variance = torch.as_tensor(variance, dtype=times.dtype,
+                               device=times.device)
+    return _CholGramBank.apply(times, lengthscales, mask, variance, kernel,
+                               noise, True)
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +188,9 @@ def gp_kl(
     l_q: torch.Tensor,
     l_p: torch.Tensor,
     mask: torch.Tensor | None = None,
+    *,
+    logdet_q: torch.Tensor | None = None,
+    logdet_p: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """KL( N(mu, K_q) || N(0, K_p) ) per (sequence, latent) -> ``[B, Z]``.
 
@@ -165,7 +204,10 @@ def gp_kl(
 
     * ``mu`` ``[B, T, Z]`` posterior means,
     * ``l_q`` / ``l_p`` ``[B, Z, T, T]`` factors; a leading dim of 1 is a
-      factor shared across the batch.
+      factor shared across the batch;
+    * ``logdet_q`` / ``logdet_p``: ``logdet K`` of each factor when the
+      caller has it (``_chol_gram_bank_logdet``), else taken from the
+      factor by ``logdet_from_chol``.
     """
     if mask is not None:
         mu = mu * mask.to(mu.dtype)[..., None]
@@ -177,8 +219,8 @@ def gp_kl(
     else:
         v = torch.einsum("bzij,bjz->bzi", inv_p, mu)
     quad = torch.sum(v * v, dim=-1)
-    ld_p = logdet_from_chol(l_p)
-    ld_q = logdet_from_chol(l_q)
+    ld_p = logdet_p if logdet_p is not None else logdet_from_chol(l_p)
+    ld_q = logdet_q if logdet_q is not None else logdet_from_chol(l_q)
     return 0.5 * (tr.expand_as(quad) + quad - t
                   + (ld_p - ld_q).expand_as(quad))
 

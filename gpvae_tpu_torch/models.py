@@ -8,11 +8,12 @@ a GP posterior with learnable lengthscales against a GP prior, dense
 nets, irregular masked time grids.  The other combinations of the zoo
 raise ``NotImplementedError`` naming their ROADMAP slice.
 
-One step of the main path: encode the means, factor ONE stacked 2Z-wide
-gram bank (posterior and prior lengthscales side by side) with the fused
-``gram_chol`` kernel (T <= 64) or the blocked large-T factorization, draw
-``z = mu + L_q eps``, take the KL from one ``tri_inv`` of ``L_p``, decode
-and take the Bernoulli NLL.
+One step of the main path: factor ONE stacked 2Z-wide gram bank
+(posterior and prior lengthscales side by side) with the fused
+``gram_chol`` kernel (T <= 64) or the blocked large-T factorization, and
+take every factor's logdet in the same autograd node, encode the means,
+draw ``z = mu + L_q eps``, take the KL from one ``tri_inv`` of ``L_p``,
+decode and take the Bernoulli NLL.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from torch import nn
 
 from gpvae_tpu_torch import elbo as elbo_lib
 from gpvae_tpu_torch import gp, nets
+from gpvae_tpu_torch.ops.logdet import logdet_from_chol
 
 PRIORS = ("standard", "gp", "sparse_gp")
 POSTERIORS = ("diag", "gp", "gp_plus_diag")
@@ -205,17 +207,30 @@ class GPVAE(nn.Module):
         logits = self.decoder_net(z.reshape(-1, z.shape[-1]))
         return logits.reshape(*lead, logits.shape[-1])
 
-    def chol_banks(self, times: torch.Tensor,
-                   mask: torch.Tensor | None) -> dict[str, torch.Tensor]:
+    def chol_banks(self, times: torch.Tensor, mask: torch.Tensor | None,
+                   *, logdets: bool = False) -> dict[str, torch.Tensor]:
         """``{"l_q", "l_p"}`` from ONE factorization of the stacked
-        2Z-wide bank (``models.py:350-394``)."""
+        2Z-wide bank (``models.py:350-394``).  ``logdets=True`` (the
+        ELBO) adds ``{"ld_q", "ld_p"}``, ``logdet K [B, Z]`` of each
+        factor: on the fused routes from the factorization's own autograd
+        node (one ``diag_logdet`` over the whole bank, its gradient folded
+        into the Cholesky backward); with ``cov_impl="xla"`` from
+        ``logdet_from_chol`` of each half, on plain autograd."""
         c = self.config
+        z = c.latent_dim
         ls = torch.cat([torch.exp(self.posterior_log_ls),
                         torch.exp(self.prior_log_ls)]).to(times.dtype)
-        l_all = gp.chol_gram_bank(times, ls, mask=mask, kernel=c.kernel,
-                                  noise=c.noise, impl=c.cov_impl)
-        return {"l_q": l_all[:, : c.latent_dim],
-                "l_p": l_all[:, c.latent_dim:]}
+        bank = dict(mask=mask, kernel=c.kernel, noise=c.noise)
+        if logdets and c.cov_impl != "xla":
+            l_all, ld = gp._chol_gram_bank_logdet(times, ls, **bank)
+            return {"l_q": l_all[:, :z], "l_p": l_all[:, z:],
+                    "ld_q": ld[:, :z], "ld_p": ld[:, z:]}
+        l_all = gp.chol_gram_bank(times, ls, impl=c.cov_impl, **bank)
+        out = {"l_q": l_all[:, :z], "l_p": l_all[:, z:]}
+        if logdets:
+            out["ld_q"] = logdet_from_chol(out["l_q"])
+            out["ld_p"] = logdet_from_chol(out["l_p"])
+        return out
 
     def sample_posterior(
         self,
@@ -258,9 +273,12 @@ class GPVAE(nn.Module):
         when given, else drawn from ``generator`` on ``x``'s device."""
         c = self.config
         s = num_samples if num_samples is not None else c.num_samples
-        z, mean, _, aux = self.sample_posterior(x, times, mask, s, eps=eps,
-                                                generator=generator)
-        kl_b = torch.sum(gp.gp_kl(mean, aux["l_q"], aux["l_p"], mask), dim=-1)
+        aux = self.chol_banks(times, mask, logdets=True)
+        z, mean, _, aux = self.sample_posterior(x, times, mask, s, aux=aux,
+                                                eps=eps, generator=generator)
+        kl_b = torch.sum(gp.gp_kl(mean, aux["l_q"], aux["l_p"], mask,
+                                  logdet_q=aux["ld_q"],
+                                  logdet_p=aux["ld_p"]), dim=-1)
         logits = self.decode(z)
         nll_b = elbo_lib.bernoulli_nll(logits, x, mask)
         loss = torch.mean(nll_b + beta * kl_b)

@@ -15,11 +15,13 @@
   (``csrc/tri_inv.cu`` at the base, matmul merges above), differentiable,
 * :mod:`.chol` -- ``cholesky``: the differentiable Cholesky of a
   pre-built matrix, with the JAX package's method menu, and
-  ``cholesky_bwd_from_l``, its reverse mode on the inverse route,
+  ``cholesky_bwd_from_l``, its reverse mode on the inverse route (with a
+  logdet's cotangent folded onto the diagonal of its middle factor),
 * :mod:`.trsm` -- ``solve_triangular``: through ``tri_inv`` on CUDA,
 * :mod:`.logdet` -- ``logdet_from_chol``: logdet from the factor's
-  diagonal (``csrc/diag_logdet.cu`` for large factors); ``chol_logdet``,
-  ``slogdet_psd``.
+  diagonal (``csrc/diag_logdet.cu`` for large factors); ``diag_logdet``,
+  the same without autograd (the training step's one launch over its
+  stacked bank); ``chol_logdet``, ``slogdet_psd``.
 
 A CUDA tensor goes to the kernel, a CPU tensor to the plain PyTorch
 version beside it (:mod:`.dispatch`).  The submodules keep their names

@@ -82,17 +82,36 @@ def _tri_sandwich_blocks(x, w11, w21, w22) -> torch.Tensor:
                       torch.cat([k21, k22], dim=-1)], dim=-2)
 
 
-def cholesky_bwd_from_l(l: torch.Tensor, l_bar: torch.Tensor) -> torch.Tensor:
+def cholesky_bwd_from_l(l: torch.Tensor, l_bar: torch.Tensor | None,
+                        logdet_bar: torch.Tensor | None = None
+                        ) -> torch.Tensor:
     """Standard Cholesky reverse mode: ``K_bar`` from ``(L, L_bar)``.
 
     ``K_bar = L^{-T} sym(phi(L^T L_bar)) L^{-1}``, symmetric (the
     convention of ``jnp.linalg.cholesky`` and ``torch.linalg.cholesky``).
+
+    ``logdet_bar [...]`` (one per matrix, optional) is the cotangent of
+    ``logdet K = 2 sum log diag L``.  Its ``L_bar = diag(2 g / L_ii)``
+    gives ``phi(L^T L_bar) = g I``, so ``g`` is added to the diagonal of
+    ``sym(phi(L^T L_bar))`` (``K_bar`` gains ``g K^{-1}``) and no dense
+    diagonal ``L_bar`` is formed.  ``l_bar`` is None when only the
+    logdet is used.
     """
     x = tri_inv(l)
+    if l_bar is None:
+        return logdet_bar[..., None, None] * (x.mT @ x)
+    g = None if logdet_bar is None else logdet_bar[..., None]
     if l.shape[-1] % 256 == 0:
-        return _tri_sandwich_blocks(x, *_phi_w_blocks(l, l_bar))
+        w11, w21, w22 = _phi_w_blocks(l, l_bar)
+        if g is not None:
+            w11.diagonal(dim1=-2, dim2=-1).add_(g)
+            w22.diagonal(dim1=-2, dim2=-1).add_(g)
+        return _tri_sandwich_blocks(x, w11, w21, w22)
     p = _phi(l.mT @ l_bar)
-    return _tri_sandwich(x, 0.5 * (p + p.mT))
+    w = 0.5 * (p + p.mT)
+    if g is not None:
+        w.diagonal(dim1=-2, dim2=-1).add_(g)
+    return _tri_sandwich(x, w)
 
 
 def _cholesky_fwd(k: torch.Tensor, method: str) -> torch.Tensor:

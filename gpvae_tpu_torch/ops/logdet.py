@@ -4,10 +4,16 @@ Counterpart of ``gpvae_tpu/ops/logdet.py:21-51`` and of
 ``pallas_big.diag_extract`` :271-292: ``logdet K = 2 sum log diag L``, no
 determinant is ever formed.  Large factors (T >= 256, T % 128 == 0, a
 [N] or [B, Z] batch of matrices: the JAX package's routing) go through
-``csrc/diag_logdet.cu``, one warp per matrix, which replaces the TPU
-kernel ``pallas_big._diag_kernel`` and the log-sum after it; its gradient
-puts ``2 g / L_ii`` on the diagonal (``pallas_big.py:290-292``).  Smaller
-ones, and every CPU tensor, take the plain strided diagonal.
+``csrc/diag_logdet.cu``, one thread block per matrix, which replaces the
+TPU kernel ``pallas_big._diag_kernel`` and the log-sum after it; its
+gradient puts ``2 g / L_ii`` on the diagonal (``pallas_big.py:290-292``).
+Smaller ones, and every CPU tensor, take the plain strided diagonal.
+
+The training step does not come here: ``gp._chol_gram_bank_logdet`` takes
+the logdets of the whole stacked bank by :func:`diag_logdet` inside the
+factorization's autograd node, and folds their gradient into its Cholesky
+backward (``ops.chol.cholesky_bwd_from_l(logdet_bar=...)``), so no dense
+diagonal ``L_bar`` is written.
 """
 from __future__ import annotations
 
@@ -73,13 +79,28 @@ def diag_logdet_cuda(l: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _takes_kernel(l: torch.Tensor) -> bool:
+    """The factors whose diagonal the JAX package reads by its Pallas
+    kernel (``gpvae_tpu/ops/logdet.py:30``), and the port by its own."""
+    t = l.shape[-1]
+    return t >= 256 and t % 128 == 0 and l.dim() in (3, 4)
+
+
+def diag_logdet(l: torch.Tensor) -> torch.Tensor:
+    """``2 sum log diag L``, the forward alone (no gradient rule: callers
+    inside an ``autograd.Function`` supply their own):
+    ``csrc/diag_logdet.cu`` on a CUDA tensor that :func:`logdet_from_chol`
+    routes to the kernel, the plain version otherwise."""
+    if _takes_kernel(l) and dispatch.on_cuda(l):
+        return diag_logdet_cuda(l)
+    return diag_logdet_plain(l)
+
+
 class _DiagLogdet(torch.autograd.Function):
     @staticmethod
     def forward(ctx, l):
         ctx.save_for_backward(l)
-        if dispatch.on_cuda(l):
-            return diag_logdet_cuda(l)
-        return diag_logdet_plain(l)
+        return diag_logdet(l)
 
     @staticmethod
     def backward(ctx, g):
@@ -93,8 +114,7 @@ def logdet_from_chol(l: torch.Tensor) -> torch.Tensor:
 
     Identity-padded (masked) rows have ``L_ii = 1`` and contribute 0.
     """
-    t = l.shape[-1]
-    if t >= 256 and t % 128 == 0 and l.dim() in (3, 4):
+    if _takes_kernel(l):
         return _DiagLogdet.apply(l)
     return diag_logdet_plain(l)
 

@@ -447,6 +447,112 @@ def test_diag_logdet_matches_plain(card):
     torch.testing.assert_close(lv.grad, want)
 
 
+# sides of diag_logdet's cases: one element, less than a warp, its block
+# of 256 threads and one more, the training bank's T, and past its 256 x 8
+# register batch
+DIAG_SIDES = [1, 31, 256, 257, 1024, 1500, 2049]
+
+
+@pytest.mark.parametrize("view", ["bank", "half"])
+@pytest.mark.parametrize("n", [1, 64, 128, 300])
+@pytest.mark.parametrize("t", DIAG_SIDES)
+def test_diag_logdet_kernel_at_every_shape(card, t, n, view):
+    """The kernel against its plain version in float64, on a bank of n
+    matrices and on the strided half of a 2n bank, whose entries off the
+    diagonal are NaN: the kernel reads the diagonal alone."""
+    shape = (n, t, t) if view == "bank" else (n, 2, t, t)
+    bank = torch.full(shape, float("nan"), device=card)
+    rng = np.random.default_rng(t + n)
+    diag = torch.tensor(np.exp(rng.uniform(-3.0, 3.0, shape[:-1])),
+                        dtype=torch.float32, device=card)
+    bank.diagonal(dim1=-2, dim2=-1).copy_(diag)
+    l = bank if view == "bank" else bank[:, 1:]
+    before = logdet.LAUNCHES
+    got = logdet.diag_logdet_cuda(l)
+    assert logdet.LAUNCHES == before + 1
+    assert got.shape == l.shape[:-2]
+    ref = logdet.diag_logdet_plain(l.double())
+    terms = 2.0 * torch.diagonal(l, dim1=-2, dim2=-1).double().log().abs(
+        ).sum(-1)
+    err = (got.double() - ref).abs()
+    assert torch.all(err <= 1e-6 * (1.0 + terms)), err.max().item()
+    del bank
+
+
+def test_elbo_launches_diag_logdet_once_a_forward(card):
+    """At T=256 the ELBO takes both halves' logdets from one launch over
+    the stacked bank, and its backward launches none; ``sample_posterior``
+    alone launches none."""
+    t, b = 256, 4
+    cfg = dataclasses.replace(configs.get("bench_t100").model, time_len=t)
+    model = GPVAE(cfg, generator=torch.Generator().manual_seed(0)).to(card)
+    data = toy_to_masked_batch(generate_toy_data(np.random.default_rng(1),
+                                                 b, t=t))
+    x, times, mask = (train.device_arrays(data, card)[k]
+                      for k in ("x", "times", "mask"))
+    before = logdet.LAUNCHES
+    out = model(x, times, mask)
+    assert logdet.LAUNCHES == before + 1
+    out.loss.backward()
+    model.sample_posterior(x, times, mask, 1)
+    assert logdet.LAUNCHES == before + 1
+    assert torch.isfinite(out.loss)
+
+
+def _kl_sample_grads(times, mask, ls, var, mu, eps, fold):
+    """Gradients of a KL + sample objective with respect to lengthscales
+    and variance, the logdets from the factorization's node (``fold``) or
+    from ``logdet_from_chol`` of each half (a dense diagonal L_bar)."""
+    from gpvae_tpu_torch import gp
+
+    z = mu.shape[-1]
+    ls = ls.clone().requires_grad_(True)
+    var = var.clone().requires_grad_(True)
+    if fold:
+        l, ld = gp._chol_gram_bank_logdet(times, ls, mask=mask, variance=var)
+        given = dict(logdet_q=ld[:, :z], logdet_p=ld[:, z:])
+    else:
+        l, given = gp.chol_gram_bank(times, ls, mask=mask, variance=var), {}
+    kl = gp.gp_kl(mu, l[:, :z], l[:, z:], mask, **given)
+    draw = gp.gp_sample(mu, l[:, :z], 1, mask, eps=eps)
+    (kl.sum() + 0.5 * (draw * draw).sum()).backward()
+    return ls.grad.double().cpu(), var.grad.double().cpu()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_logdet_fold_gradients_are_as_accurate_as_the_dense_route(card,
+                                                                  seed):
+    """T=256 on the card in float32: the lengthscale and variance
+    gradients with the fold, and with ``gp_kl`` taking its logdets from
+    ``logdet_from_chol``, against the same objective in float64 on the
+    CPU.  The two float32 routes round differently, and their gradients
+    differ by as much as each differs from float64 (1e-5 to 5e-4 on the
+    CPU), so the fold's error is held to 2x the dense route's."""
+    rng = np.random.default_rng(seed)
+    b, t = 4, 256
+    times = np.sort(rng.uniform(0.0, 60.0, (b, t)), axis=-1)
+    mask = rng.random((b, t)) > 0.3
+    mask[:, 0] = True
+    arrays = (times, mask, rng.uniform(2.0, 9.0, 4), rng.uniform(0.5, 1.5, 4),
+              rng.standard_normal((b, t, 2)),
+              rng.standard_normal((1, b, 2, t)))
+
+    def tensors(device, dtype):
+        return [torch.tensor(a, device=device) if a.dtype == bool
+                else torch.tensor(a, dtype=dtype, device=device)
+                for a in arrays]
+
+    ref = _kl_sample_grads(*tensors("cpu", torch.float64), fold=True)
+    before = logdet.LAUNCHES
+    fold = _kl_sample_grads(*tensors(card, torch.float32), fold=True)
+    assert logdet.LAUNCHES == before + 1
+    dense = _kl_sample_grads(*tensors(card, torch.float32), fold=False)
+    for f, d, r in zip(fold, dense, ref):
+        rel_f = (torch.linalg.norm(f - r) / torch.linalg.norm(r)).item()
+        rel_d = (torch.linalg.norm(d - r) / torch.linalg.norm(r)).item()
+        assert rel_f <= 2.0 * max(rel_d, 1e-6), (rel_f, rel_d)
+
+
 @pytest.mark.parametrize("t", [100, 192, 1024])
 def test_tri_inv_large_t_matches_plain(card, t):
     times, mask, ls, var = _flat(card, t, 4, t)

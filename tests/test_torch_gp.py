@@ -184,6 +184,75 @@ def test_cholesky_bwd_from_l_matches_jax_fp32():
     assert _rel_err(got.numpy(), ref) <= FP32_REL
 
 
+# the logdet's cotangent folded into the Cholesky backward against the
+# same cotangent as a dense diagonal L_bar: one algebra, float64 rounding
+FOLD_REL = 1e-10
+
+
+@pytest.mark.parametrize("t", [45, 256])
+def test_cholesky_bwd_from_l_folds_the_logdet_cotangent(t):
+    """``logdet_bar=g`` gives ``K_bar`` of ``L_bar + diag(2 g / L_ii)``,
+    on the plain route (T=45) and the 2x2-blocked one (T=256); JAX's
+    derivative of ``jnp.linalg.cholesky`` on that dense sum is the float64
+    reference (the package's ``cholesky_bwd_from_l`` pins float32: see
+    ``_cholesky_vjp_fp64``), the package's own function the float32 one."""
+    times, mask, _ = _inputs(200 + t, 2, t)
+    l = _factors(times, mask, np.array([2.0, 5.0]))
+    rng = np.random.default_rng(t)
+    l_bar = np.tril(rng.standard_normal(l.shape))
+    g = rng.standard_normal(l.shape[:-2])
+    dense = l_bar + 2.0 * g[..., None, None] * np.eye(t) / np.diagonal(
+        l, axis1=-2, axis2=-1)[..., None, :]
+    got = tchol.cholesky_bwd_from_l(torch.tensor(l), torch.tensor(l_bar),
+                                    logdet_bar=torch.tensor(g)).numpy()
+    want = tchol.cholesky_bwd_from_l(torch.tensor(l),
+                                     torch.tensor(dense)).numpy()
+    assert _rel_err(got, want) <= FOLD_REL
+    assert _rel_err(got, _cholesky_vjp_fp64(l, dense)) <= FOLD_REL
+    # the logdet alone: K_bar = g K^{-1}
+    alone = tchol.cholesky_bwd_from_l(torch.tensor(l), None,
+                                      logdet_bar=torch.tensor(g)).numpy()
+    assert _rel_err(alone, g[..., None, None] * np.linalg.inv(
+        l @ np.swapaxes(l, -1, -2))) <= FOLD_REL
+    f32 = np.float32
+    ref = jchol.cholesky_bwd_from_l(jnp.asarray(l, f32),
+                                    jnp.asarray(dense, f32))
+    got32 = tchol.cholesky_bwd_from_l(
+        torch.tensor(l, dtype=torch.float32),
+        torch.tensor(l_bar, dtype=torch.float32),
+        logdet_bar=torch.tensor(g, dtype=torch.float32))
+    assert _rel_err(got32.numpy(), ref) <= FP32_REL
+
+
+def _kl_fold(times, mask, mu, ls, var, *, fold):
+    """Sum of ``gp_kl`` over a stacked bank's halves, with the logdets
+    from the factorization's own node (``fold``) or from the factors,
+    and its gradients with respect to lengthscales and variance."""
+    z = mu.shape[-1]
+    lt = torch.tensor(ls).requires_grad_(True)
+    vt = torch.tensor(var).requires_grad_(True)
+    bank = dict(mask=torch.tensor(mask), variance=vt)
+    if fold:
+        l, ld = tgp._chol_gram_bank_logdet(torch.tensor(times), lt, **bank)
+        given = dict(logdet_q=ld[:, :z], logdet_p=ld[:, z:])
+    else:
+        l, given = tgp.chol_gram_bank(torch.tensor(times), lt, **bank), {}
+    kl = tgp.gp_kl(torch.tensor(mu), l[:, :z], l[:, z:], torch.tensor(mask),
+                   **given)
+    kl.sum().backward()
+    return kl.detach().numpy(), lt.grad.numpy(), vt.grad.numpy()
+
+
+@pytest.mark.parametrize("t", [45, 256])
+def test_gp_kl_with_given_logdets_matches_fp64(t):
+    times, mask, mu = _inputs(230 + t, 2, t)
+    ls, var = np.array([2.0, 5.0, 9.0, 3.0]), np.array([1.0, 0.7, 1.3, 0.9])
+    got = _kl_fold(times, mask, mu, ls, var, fold=True)
+    want = _kl_fold(times, mask, mu, ls, var, fold=False)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= FOLD_REL
+
+
 def _chol_gram_bank_loss(times, mask, ls, var, w, *, impl=None):
     """Values of ``L`` and gradients of ``sum(L * w)`` with respect to
     lengthscales and variance, through both packages.  ``impl="fp64"`` is

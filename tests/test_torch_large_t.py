@@ -485,6 +485,60 @@ def test_bench_t100_grads_match_jax_fp32():
         assert _relnorm(p.grad.numpy(), ref_grads[name]) <= band, name
 
 
+def _graph_names(root):
+    """Names of every autograd node reachable from ``root``."""
+    seen, todo, names = set(), [root], []
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        names.append(fn.name())
+        todo.extend(nxt for nxt, _ in fn.next_functions)
+    return names
+
+
+def _bench_model(t, impl="auto", dtype=torch.float64):
+    cfg = dataclasses.replace(configs.get("bench_t100").model, time_len=t,
+                              cov_impl=impl)
+    model = GPVAE(cfg, generator=torch.Generator().manual_seed(0))
+    return model.to(dtype)
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla"])
+@pytest.mark.parametrize("t", [100, 256])
+def test_chol_banks_logdets_match_logdet_from_chol(t, impl):
+    """``chol_banks(logdets=True)`` gives the factors' logdets as
+    ``logdet_from_chol`` of each half does, and the same factors."""
+    _, times, mask = _batch(5, 2, t)
+    model = _bench_model(t, impl)
+    banks = model.chol_banks(_t(times), _t(mask, torch.bool), logdets=True)
+    plain = model.chol_banks(_t(times), _t(mask, torch.bool))
+    assert set(plain) == {"l_q", "l_p"}
+    for half in ("q", "p"):
+        l = banks[f"l_{half}"]
+        assert torch.equal(l, plain[f"l_{half}"])
+        torch.testing.assert_close(banks[f"ld_{half}"],
+                                   logdet.logdet_from_chol(l),
+                                   rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("impl, dense_nodes", [("auto", 0), ("xla", 2)])
+def test_elbo_graph_takes_the_logdet_gradient_in_the_cholesky_backward(
+        impl, dense_nodes):
+    """At T=256 (the diagonal kernel's route) the ELBO's graph has no
+    ``_DiagLogdetBackward``: the logdets come out of the factorization's
+    node, and their gradient joins its Cholesky backward.  The composed
+    ``cov_impl="xla"`` route keeps one per half, on plain autograd."""
+    x, times, mask = _batch(6, 2, 256)
+    out = _bench_model(256, impl)(_t(x), _t(times), _t(mask, torch.bool),
+                                  eps=_t(np.zeros((1, 2, 2, 256))))
+    names = _graph_names(out.loss.grad_fn)
+    assert names.count("_DiagLogdetBackward") == dense_nodes
+    assert ("_CholGramBankBackward" in names) == (impl == "auto")
+    assert set(out.aux) == {"l_q", "l_p", "ld_q", "ld_p"}
+
+
 def test_bench_t100_preset_matches_jax():
     port, ref = configs.get("bench_t100"), jconfigs.get("bench_t100")
     assert port.model == GPVAEConfig(**dataclasses.asdict(ref.model))
