@@ -5,14 +5,19 @@
 
 Phases, each printing one line (a failed check exits nonzero at once):
 
-1. device: the card, its power limit, and the float32 matmul setting;
+1. device: the card, its power limit, and TF32 off for matmuls and for
+   cuDNN's convs (the package turns the latter off when imported);
 2. build: the six CUDA sources of ``gpvae_tpu_torch/csrc`` (nine
    kernels), one ``nvcc`` each, all started together, and each kernel's
    registers and spills as ptxas reports them;
 3. kernels: each kernel against its plain PyTorch version in float64 on
    the card: ``gram_chol`` and ``tri_inv`` at T in ``GRAM_CHOL_TS`` (both
    sides of multiples of the kernel's panel width 16, up to 64), N in {80,
-   1024}; ``chol_block`` in both modes at T in {64, 100, 128}, N in {128,
+   1024}, and at the zoo's T=20: N=1000 (a GP posterior's and prior's
+   stacked bank, B=5), 500 (one side), 200 and 100 (a shared grid, one
+   row of times, no mask), with ``ops.chol.cholesky`` (one ``chol_block``
+   launch) of evaluate's pre-built N=1600 bank and ``tri_inv`` of each
+   factor; ``chol_block`` in both modes at T in {64, 100, 128}, N in {128,
    1024}, with L^-1, at the other sides of ``CHOL_BLOCK_TS`` with and
    without L^-1 (N=128), and at a row stride in place; the blocked
    factorization (``chol_block`` + ``gram_panel`` + ``panel_solve``) at T in
@@ -51,14 +56,28 @@ Phases, each printing one line (a failed check exits nonzero at once):
       metrics are held against the same restored model on the CPU in
       float64 with the same kept mask, and one ``posterior_sample`` runs
       at T=1024;
-   e. ``ops.chol.cholesky(method="blocked_fused")`` of a pre-built bank
+   e. the reference model zoo at its widths (64 x 64 frames, T=20,
+      Z=100, B=5) on synthetic Moving-MNIST videos from a seed:
+      ``full_gp_dynamic`` and ``gp_prior_diag`` (a shared grid and
+      ``gp_prior_diag_kl``) 100 steps, ``full_gp_fixed``, ``gp_recog``
+      (``recog_sample``, ``recog_gp_kl``) and ``vanilla_vae`` 20; each
+      path's launches exactly one ``gram_chol`` a step and its
+      ``tri_inv`` count (none for ``vanilla_vae``), no other kernel and no
+      library call; its ELBO and gradients against the CPU in float64 on
+      four batches of B=2 under the bands above; the first two evaluated
+      from their checkpoints as in d. (one ``chol_block`` launch over
+      N=1600), and ``vanilla_vae``'s evaluate raising the JAX package's
+      ``ValueError``;
+   f. ``ops.chol.cholesky(method="blocked_fused")`` of a pre-built bank
       at T=1024, N=128, forward and backward: exactly 8 ``chol_block``
       (7 with L^-1), 7 ``trail_panel`` and 7 ``trail_update`` launches,
       no other factorization kernel and no library call, its gradient
       against ``method="xla"`` in float64; ``"blocked_fused_64"`` at
       T=256 (4 blocks); ``gp.chol_gram_bank(impl="xla")`` against
       ``impl="auto"`` at T=1024;
-5. timing: train steps/s and device µs per step of each path, and each
+5. timing: train steps/s and device µs per step of each path (the zoo's
+   too), ``gram_chol`` and ``tri_inv`` at the zoo's N=1000, T=20 and
+   ``chol_block`` at its evaluate bank, and each
    kernel at its main-path shape against its plain version, the one
    PyTorch call that computes the same function where there is one, and
    the least time the card could take: CUDA-event medians of back-to-back
@@ -125,6 +144,16 @@ LOG_LS_GRAD_REL = 5e-3
 KL_REL_TERMS_T1024 = 1.4e-3
 LOG_LS_GRAD_REL_T1024 = 3.1e-3
 ELBO_VS_LIBRARY = 4.0
+# The zoo's conv nets (phase 4e): every ReLU's input on the card within
+# 1e-4 (the loss band) of its largest float64 entry.  Where a float32
+# input lies within its rounding of 0 the card and float64 may put it on
+# either side of the kink, and the gradient then differs by that unit's
+# whole share: on an H100, gp_prior_diag's gradient missed float64 by
+# 2.8e-3 on one batch where the CPU's float32 missed by 1.3e-6, and
+# full_gp_dynamic's CPU float32 gradient by 2.75e-4 on another where the
+# card's missed by 5.4e-7.  The zoo's gradients are therefore held against
+# float64 on the same side of each kink as the run it judges.
+PREACT_REL = 1e-4
 # the batches (toy data and noise from each seed) of phase 4's comparison
 ELBO_SEEDS = (7, 8, 9, 10)
 # Phase 3, the pre-built bank: ops.chol.cholesky within 2.5x the library's
@@ -179,8 +208,34 @@ CHOL_BLOCK_TS = (1, 15, 16, 17, 31, 32, 33, 45, 63, 64, 65, 100, 127, 128)
 # the sides of phase 3's pre-built banks: one chol_block launch (45, 100),
 # the blocked loop, whole blocks and a ragged last one (1000)
 PREBUILT_TS = (SYN_T, BENCH_T, 256, 1000, LONG_T)
+# the reference model zoo on Moving-MNIST (phase 4): 64 x 64 frames,
+# T=20, Z=100, B=5; (preset, steps, evaluate its checkpoint or not)
+ZOO_T, ZOO_Z, ZOO_SIDE = 20, 100, 64
+ZOO_PATHS = (("full_gp_dynamic", 100, True), ("gp_prior_diag", 100, True),
+             ("full_gp_fixed", 20, False), ("gp_recog", 20, False),
+             ("vanilla_vae", 20, False))
+# each zoo path's launches a training step, every other counter 0: one
+# gram_chol of the bank its pair needs, one tri_inv in a GP prior's KL,
+# and one in the Cholesky backward where a lengthscale is learned
+# (gp_prior_diag's fixed prior needs none)
+ZOO_LAUNCHES = {"full_gp_dynamic": {"gram_chol": 1, "tri_inv": 2},
+                "gp_prior_diag": {"gram_chol": 1, "tri_inv": 1},
+                "full_gp_fixed": {"gram_chol": 1, "tri_inv": 2},
+                "gp_recog": {"gram_chol": 1, "tri_inv": 1},
+                "vanilla_vae": {}}
+# synthetic videos of the zoo paths: 128 train, 16 valid, 16 test (the
+# test split is the evaluate path's batch: N = 16 x 100 factors)
+ZOO_SEQS = 160
+ZOO_EVAL_B = 16
+# steps in each timed window of a zoo path (phase 5)
+ZOO_WINDOW = 20
+# the error evaluate raises on vanilla_vae, as the JAX package's does
+# (gpvae_tpu/analysis.py:346-353)
+VANILLA_EVAL_ERROR = "lengthscales (9.0, 3.0) incompatible with Z=100"
+
 # sequences each evaluate run generates (the CLI scores the last 10%)
-EVAL_SEQS = {"syn_data": 200, "bench_t100": 320}
+EVAL_SEQS = {"syn_data": 200, "bench_t100": 320,
+             "full_gp_dynamic": ZOO_SEQS, "gp_prior_diag": ZOO_SEQS}
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): float32 outside the
 # tensor cores and HBM3 bandwidth; a bound is the larger of the two times
 PEAK_FP32_FLOPS = 67e12
@@ -538,6 +593,73 @@ def check_kernels(dev) -> dict:
     else:
         fail("tri_inv accepted a float64 CUDA tensor")
     worst["cases"] = cases
+    return worst
+
+
+def check_zoo_kernels(dev) -> dict:
+    """Phase 3, the zoo's shapes at T=20 (Z=100, B=5): ``gram_chol`` on
+    the stacked bank of a GP posterior and prior (N=1000), a posterior's
+    alone (N=500), and a shared grid's (one row of times 0..19, no mask:
+    N=200 stacked, N=100 a side); ``tri_inv`` of each factor; and
+    ``ops.chol.cholesky`` of evaluate's pre-built bank (16 sequences x
+    100 latents, N=1600, masked, one ``chol_block`` launch) and
+    ``tri_inv`` of its factor.  Returns the worst error of each."""
+    import numpy as np
+    import torch
+
+    from gpvae_tpu_torch import kernels as kernels_lib
+    from gpvae_tpu_torch.ops import chol, chol_block, gram_chol, tri_inv
+
+    rng = np.random.default_rng(5)
+    t = ZOO_T
+    worst = {"zoo_gram_chol": 0.0, "zoo_gram_chol_vs_library": 0.0,
+             "zoo_tri_inv_rel": 0.0, "zoo_tri_inv_abs": 0.0,
+             "zoo_cholesky": 0.0, "zoo_cholesky_vs_library": 0.0}
+    cases = 0
+    grid = torch.arange(t, dtype=torch.float32, device=dev)
+    for b, z, masked in ((5, 2 * ZOO_Z, True), (5, ZOO_Z, True),
+                         (5, 2 * ZOO_Z, False), (1, 2 * ZOO_Z, False),
+                         (1, ZOO_Z, False)):
+        times, ls, mask, var = bank_inputs(rng, b, t, z, masked, dev)
+        if not masked:
+            times, mask = grid.expand(b, t), None
+        name = f"T={t} N={b * z} masked={masked}"
+        l = gram_chol.gram_chol_fused(times, ls, mask=mask, variance=var)
+        ref = gram_chol.gram_chol_plain(times.double(), ls.double(),
+                                        mask=mask, variance=var.double())
+        lib32 = gram_chol.gram_chol_plain(times, ls, mask=mask, variance=var)
+        err, ratio = check_l(f"gram_chol {name}", l, ref, lib32)
+        worst["zoo_gram_chol"] = max(worst["zoo_gram_chol"], err)
+        worst["zoo_gram_chol_vs_library"] = max(
+            worst["zoo_gram_chol_vs_library"], ratio)
+        lf = l.reshape(-1, t, t)
+        rel, err = check_inverse(f"tri_inv {name}",
+                                 tri_inv.tri_inv_cuda(lf.contiguous()), lf)
+        worst["zoo_tri_inv_rel"] = max(worst["zoo_tri_inv_rel"], rel)
+        worst["zoo_tri_inv_abs"] = max(worst["zoo_tri_inv_abs"], err)
+        cases += 2
+    # evaluate's bank: each test sequence's kept steps, 100 latents, the
+    # jitter posterior_conditional adds in float32
+    times, ls, mask, var = bank_inputs(rng, 16, t, ZOO_Z, True, dev)
+    eye = torch.eye(t, dtype=torch.float64, device=dev)
+    k64 = kernels_lib.gram_bank(times.double(), ls.double(), mask=mask,
+                                variance=var.double()) + 1e-5 * eye
+    k = k64.float()
+    before = chol_block.LAUNCHES
+    l = chol.cholesky(k)
+    if chol_block.LAUNCHES - before != 1:
+        fail(f"cholesky of the [16, {ZOO_Z}, {t}, {t}] bank launched "
+             f"chol_block {chol_block.LAUNCHES - before} times, not once")
+    name = f"T={t} N={16 * ZOO_Z} pre-built"
+    err, ratio = check_l(f"cholesky {name}", l, torch.linalg.cholesky(k64),
+                         torch.linalg.cholesky(k), vs_library=CHOL_VS_LIBRARY)
+    worst["zoo_cholesky"], worst["zoo_cholesky_vs_library"] = err, ratio
+    lf = l.reshape(-1, t, t)
+    rel, err = check_inverse(f"tri_inv {name}",
+                             tri_inv.tri_inv_cuda(lf.contiguous()), lf)
+    worst["zoo_tri_inv_rel"] = max(worst["zoo_tri_inv_rel"], rel)
+    worst["zoo_tri_inv_abs"] = max(worst["zoo_tri_inv_abs"], err)
+    worst["zoo_cases"] = cases + 2
     return worst
 
 
@@ -989,19 +1111,64 @@ def toy_batch(seed, b, t):
                                                  b, t=t))
 
 
+def image_batch(seed, b, t=ZOO_T):
+    """``b`` synthetic Moving-MNIST videos from ``seed`` as a batch, as
+    ``MovingMNIST`` makes them: ``x [b, t, 64, 64, 1]`` binarized, times
+    ``0 .. t-1``, a full mask."""
+    from gpvae_tpu_torch.data import MovingMNIST, synthetic_moving_mnist
+
+    vids = synthetic_moving_mnist(b, t=t, size=ZOO_SIDE, seed=seed)
+    return MovingMNIST(data=vids, batch_size=1,
+                       train_fraction=1.0).splits["train"]
+
+
+@contextlib.contextmanager
+def relu_gates(gates=None):
+    """Inside the block each ``torch.relu`` (the nets' activations)
+    records its input, in float64 on the CPU, into the list it yields; or,
+    given the inputs another run recorded, passes its input where that
+    run's was positive: the same network on that run's side of every
+    kink."""
+    import torch
+
+    real = torch.relu
+    recorded, calls = [], iter(gates or ())
+
+    def relu(x):
+        if gates is None:
+            recorded.append(x.detach().double().cpu())
+            return real(x)
+        return x * (next(calls) > 0).to(device=x.device, dtype=x.dtype)
+
+    torch.relu = relu
+    try:
+        yield recorded
+    finally:
+        torch.relu = real
+
+
 def elbo_vs_cpu(model, dev, b, t, *, kl_band, log_ls_band,
-                logdet_per_forward) -> dict:
+                logdet_per_forward, batch_fn=toy_batch,
+                kl_scale=None, match_gates=False) -> dict:
     """The trained model's ELBO and gradients on small batches (one per
-    seed of ``ELBO_SEEDS``), on the card (kernels, float32) and on the CPU
-    (plain versions, float64), with the same noise.  Each band is the
-    stated one or 4x the error of the same model in float32 on the CPU on
-    the same batch, whichever is larger.  The card's forward and backward
-    launch ``diag_logdet`` exactly ``logdet_per_forward`` times."""
+    seed of ``ELBO_SEEDS``, from ``batch_fn(seed, b, t)``), on the card
+    (kernels, float32) and on the CPU (plain versions, float64), with the
+    same noise.  Each band is the stated one or 4x the error of the same
+    model in float32 on the CPU on the same batch, whichever is larger.
+    The KL is held per sequence over ``kl_scale + |KL|`` (default ``t``:
+    one latent's terms are of size T).  With ``match_gates`` each ReLU's
+    input is held to ``PREACT_REL`` and the gradients against float64 on
+    the same side of each ReLU's kink as the run judged.  The card's
+    forward and backward launch ``diag_logdet`` exactly
+    ``logdet_per_forward`` times."""
     cpu = copy.deepcopy(model).to("cpu")
     per_seed = {seed: elbo_vs_cpu_seed(model, cpu, dev, b, t, seed,
                                        kl_band=kl_band,
                                        log_ls_band=log_ls_band,
-                                       logdet_per_forward=logdet_per_forward)
+                                       logdet_per_forward=logdet_per_forward,
+                                       batch_fn=batch_fn,
+                                       kl_scale=kl_scale or t,
+                                       match_gates=match_gates)
                 for seed in ELBO_SEEDS}
     model.zero_grad(set_to_none=True)
     return {"seeds": per_seed,
@@ -1011,14 +1178,15 @@ def elbo_vs_cpu(model, dev, b, t, *, kl_band, log_ls_band,
 
 
 def elbo_vs_cpu_seed(model, cpu, dev, b, t, seed, *, kl_band,
-                     log_ls_band, logdet_per_forward) -> dict:
+                     log_ls_band, logdet_per_forward, batch_fn,
+                     kl_scale, match_gates) -> dict:
     """:func:`elbo_vs_cpu` on the batch and noise of one ``seed``."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    batch = toy_batch(seed, b, t)
-    eps = rng.standard_normal((1, b, SYN_Z, t))
+    batch = batch_fn(seed, b, t)
+    eps = rng.standard_normal(model.noise_shape(1, b, t))
 
     def run(m, device, dtype):
         m.zero_grad(set_to_none=True)
@@ -1036,36 +1204,64 @@ def elbo_vs_cpu_seed(model, cpu, dev, b, t, seed, *, kl_band,
         names = sorted(ref_grads)
         g = torch.cat([grads[n].reshape(-1) for n in names])
         g_ref = torch.cat([ref_grads[n].reshape(-1) for n in names])
-        return {
+        out_err = {
             "loss_rel": abs(out.loss.item() - ref.loss.item())
             / abs(ref.loss.item()),
             "kl_rel_terms": ((out.kl.double().cpu() - ref.kl).abs()
-                             / (t + ref.kl.abs())).max().item(),
+                             / (kl_scale + ref.kl.abs())).max().item(),
             "grad_rel": (torch.linalg.norm(g - g_ref)
                          / torch.linalg.norm(g_ref)).item(),
-            "log_ls_grad_rel": (
+        }
+        if "posterior_log_ls" in ref_grads:  # a GP or recognition posterior
+            out_err["log_ls_grad_rel"] = (
                 torch.linalg.norm(grads["posterior_log_ls"]
                                   - ref_grads["posterior_log_ls"])
-                / torch.linalg.norm(ref_grads["posterior_log_ls"])).item(),
-        }
+                / torch.linalg.norm(ref_grads["posterior_log_ls"])).item()
+        return out_err
 
     from gpvae_tpu_torch.ops import logdet
 
+    # with match_gates, each run's ReLU inputs are recorded
+    record = relu_gates if match_gates else (
+        lambda: contextlib.nullcontext([]))
     before = logdet.LAUNCHES
-    out, grads = run(model, dev, torch.float32)
+    with record() as pre:
+        out, grads = run(model, dev, torch.float32)
     if logdet.LAUNCHES - before != logdet_per_forward:
         fail(f"ELBO forward and backward at B={b} T={t} launched diag_logdet "
              f"{logdet.LAUNCHES - before} times, not {logdet_per_forward}")
-    lib, lib_grads = run(cpu.float(), "cpu", torch.float32)
-    ref, ref_grads = run(cpu.double(), "cpu", torch.float64)
-    if tuple(out.logits.shape) != (1, b, t, SYN_D):
+    with record() as pre_lib:
+        lib, lib_grads = run(cpu.float(), "cpu", torch.float32)
+    with record() as pre_ref:
+        ref, ref_grads = run(cpu.double(), "cpu", torch.float64)
+    if tuple(out.logits.shape) != (1, b, t) + tuple(batch["x"].shape[2:]):
         fail(f"logits shape {tuple(out.logits.shape)}")
-    err = errors(out, grads, ref, ref_grads)
-    err_lib = errors(lib, lib_grads, ref, ref_grads)
+    extra = {}
+    if match_gates:
+        with relu_gates(pre):
+            _, card_side = run(cpu.double(), "cpu", torch.float64)
+        with relu_gates(pre_lib):
+            _, lib_side = run(cpu.double(), "cpu", torch.float64)
+        err = errors(out, grads, ref, card_side)
+        err_lib = errors(lib, lib_grads, ref, lib_side)
+
+        def preact(rec):
+            return max(((a - r).abs().max() / r.abs().max()).item()
+                       for a, r in zip(rec, pre_ref))
+
+        err["preact_rel"], err_lib["preact_rel"] = preact(pre), preact(
+            pre_lib)
+        extra = {"gate_flips": sum(int(((a > 0) != (r > 0)).sum())
+                                   for a, r in zip(pre, pre_ref)),
+                 "grad_rel_across_kinks": errors(out, grads, ref,
+                                                 ref_grads)["grad_rel"]}
+    else:
+        err = errors(out, grads, ref, ref_grads)
+        err_lib = errors(lib, lib_grads, ref, ref_grads)
     stated = {"loss_rel": ELBO_LOSS_REL, "kl_rel_terms": kl_band,
-              "grad_rel": GRAD_REL, "log_ls_grad_rel": log_ls_band}
-    bands = {k: max(v, ELBO_VS_LIBRARY * err_lib[k])
-             for k, v in stated.items()}
+              "grad_rel": GRAD_REL, "log_ls_grad_rel": log_ls_band,
+              "preact_rel": PREACT_REL}
+    bands = {k: max(stated[k], ELBO_VS_LIBRARY * err_lib[k]) for k in err}
     for k, v in err.items():
         if not (math.isfinite(v) and v <= bands[k]):
             fail(f"ELBO on the card vs CPU float64 at B={b} T={t} seed "
@@ -1075,7 +1271,7 @@ def elbo_vs_cpu_seed(model, cpu, dev, b, t, seed, *, kl_band,
             "vs_cpu_float32": {k: err[k] / max(err_lib[k], 1e-30)
                                for k in err},
             "kl_ref": ref.kl.tolist(),
-            "diag_logdet_launches": logdet.LAUNCHES - before}
+            "diag_logdet_launches": logdet.LAUNCHES - before, **extra}
 
 
 def probe_loss(model, probe, eps, beta) -> float:
@@ -1088,12 +1284,14 @@ def probe_loss(model, probe, eps, beta) -> float:
                      eps=eps).loss.item()
 
 
-def train_path(dev, preset_name, t, steps, num_seqs, ckpt_dir):
+def train_path(dev, preset_name, t, steps, num_seqs, ckpt_dir, data=None):
     """Train ``preset_name`` at sequence length ``t`` for ``steps`` steps
     through ``train.fit`` with every counter set to 0 just before and read
     just after, saving a checkpoint into ``ckpt_dir`` at the end, and check
-    the loss.  Returns the model, the phase fields and a function that
-    trains it further (for timing; it saves no checkpoint)."""
+    the loss.  ``data`` is ``(Batcher, probe batch)``, by default toy
+    sequences (``num_seqs`` of them) and a toy probe.  Returns the model,
+    the phase fields and a function that trains it further (for timing;
+    it saves no checkpoint)."""
     import torch
 
     from gpvae_tpu_torch import configs, train as train_lib
@@ -1103,15 +1301,18 @@ def train_path(dev, preset_name, t, steps, num_seqs, ckpt_dir):
     preset = configs.get(preset_name)
     cfg = dataclasses.replace(preset.model, time_len=t)
     b = preset.batch_size
-    batcher = Batcher(toy_batch(0, num_seqs, t), b, seed=0)
+    if data is None:
+        data = Batcher(toy_batch(0, num_seqs, t), b, seed=0), toy_batch(1, 8,
+                                                                         t)
+    batcher, probe_np = data
     model = GPVAE(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
-    probe_np = toy_batch(1, 8, t)
     probe = train_lib.device_arrays(probe_np, dev)
-    eps = torch.randn((1, 8, cfg.latent_dim, t),
+    eps = torch.randn(model.noise_shape(1, 8, t),
                       generator=torch.Generator().manual_seed(1)).to(dev)
     beta = preset.train.beta(0)
     before = probe_loss(model, probe, eps, beta)
-    log_ls0 = model.posterior_log_ls.detach().clone()
+    gp_posterior = "posterior_log_ls" in dict(model.named_parameters())
+    log_ls0 = model.posterior_log_ls.detach().clone() if gp_posterior else None
     main_cfg = train_lib.TrainConfig(
         learning_rate=preset.train.learning_rate, num_steps=steps,
         beta=preset.train.beta, log_every=max(1, steps // 10))
@@ -1133,7 +1334,8 @@ def train_path(dev, preset_name, t, steps, num_seqs, ckpt_dir):
     if not after < before:
         fail(f"{preset_name} T={t}: probe loss did not fall: {before:.4f} "
              f"-> {after:.4f}")
-    if not (model.posterior_log_ls.detach() - log_ls0).abs().max() > 0:
+    if gp_posterior and not (
+            model.posterior_log_ls.detach() - log_ls0).abs().max() > 0:
         fail(f"{preset_name} T={t}: posterior_log_ls did not move")
     if state.step != steps:
         fail(f"{preset_name} T={t}: trained {state.step} steps")
@@ -1143,9 +1345,10 @@ def train_path(dev, preset_name, t, steps, num_seqs, ckpt_dir):
     out = {"preset": preset_name, "time_len": t, "batch": b, "steps": steps,
            "probe_loss_before": before, "probe_loss_after": after,
            "loss_logged": losses,
-           "lengthscale_posterior": torch.exp(
-               model.posterior_log_ls.detach()).tolist(),
            "launches": launches, "library_calls": dict(lib_calls)}
+    if gp_posterior:
+        out["lengthscale_posterior"] = torch.exp(
+            model.posterior_log_ls.detach()).tolist()
 
     def fit_more(n_steps, log_every):
         cfg_w = dataclasses.replace(main_cfg, num_steps=state.step + n_steps,
@@ -1207,9 +1410,18 @@ def main_path(dev, name, t, steps, num_seqs, window, ckpt_dir, *, kl_band,
 
 def eval_batch(preset_name, t, eval_b):
     """The sequences ``evaluate --seed 0`` scores: the first ``eval_b`` of
-    the last 10% of its ``EVAL_SEQS`` toy sequences (``__main__.py``)."""
-    batch = toy_batch(0, EVAL_SEQS[preset_name], t)
-    n_train = int(0.9 * EVAL_SEQS[preset_name])
+    the last 10% of its ``EVAL_SEQS`` sequences (``__main__.py``): toy
+    sequences, or the test split of synthetic Moving-MNIST videos."""
+    from gpvae_tpu_torch import configs
+    from gpvae_tpu_torch.data import MovingMNIST, synthetic_moving_mnist
+
+    n = EVAL_SEQS[preset_name]
+    if configs.get(preset_name).resolved_data_family == "mnist":
+        test = MovingMNIST(data=synthetic_moving_mnist(
+            n, t=t, size=ZOO_SIDE, seed=0)).splits["test"]
+        return {k: v[:eval_b] for k, v in test.items()}
+    batch = toy_batch(0, n, t)
+    n_train = int(0.9 * n)
     return {k: v[n_train:n_train + eval_b] for k, v in batch.items()}
 
 
@@ -1434,6 +1646,64 @@ def main_paths(dev, ck: str) -> tuple[dict, dict, dict]:
                                     context["kept"], context["cpu_model"])
     phase("posterior_sample", **sample)
     return paths, timing, context
+
+
+def zoo_paths(dev, ck: str) -> tuple[dict, dict]:
+    """Phase 4, the reference model zoo at its widths on synthetic
+    Moving-MNIST videos (``ZOO_PATHS``): each preset trained through
+    ``train.fit`` (``train_path``), its launches exactly ``ZOO_LAUNCHES``
+    a step and no other kernel, its ELBO and gradients held against the
+    CPU in float64 on four batches of B=2 (the KL per sequence over
+    ``Z T + |KL|``, the size of its terms), then timed; the full paths'
+    checkpoints scored by ``evaluate`` (``evaluate_path``), and
+    ``vanilla_vae``'s evaluate raising the JAX package's error.  Returns
+    the paths' phase fields and their timings."""
+    from gpvae_tpu_torch.__main__ import main as cli
+    from gpvae_tpu_torch.data import MovingMNIST, synthetic_moving_mnist
+
+    paths, timing = {}, {}
+    probe = image_batch(1, 8)
+    others = ("gram_panel", "panel_solve", "diag_logdet", "hist_panel",
+              "trail_panel", "trail_update")
+    for name, steps, evaluate in ZOO_PATHS:
+        ds = MovingMNIST(data=synthetic_moving_mnist(
+            ZOO_SEQS, t=ZOO_T, size=ZOO_SIDE, seed=0))
+        ckpt_dir = os.path.join(ck, name)
+        model, out, fit_more = train_path(
+            dev, name, ZOO_T, steps, None, ckpt_dir,
+            data=(ds.batchers["train"], probe))
+        want = {k: ZOO_LAUNCHES[name].get(k, 0) * steps
+                for k in out["launches"]}
+        if out["launches"] != want:
+            fail(f"{name}: launches {out['launches']} in {steps} steps, not "
+                 f"{want}")
+        out["elbo_vs_cpu_fp64"] = elbo_vs_cpu(
+            model, dev, 2, ZOO_T, kl_band=KL_REL_TERMS,
+            log_ls_band=LOG_LS_GRAD_REL, logdet_per_forward=0,
+            batch_fn=image_batch, kl_scale=ZOO_Z * ZOO_T, match_gates=True)
+        phase("zoo_path", **out)
+        paths[name] = out
+        timing[name] = time_path(fit_more, ZOO_WINDOW)
+        if evaluate:
+            paths[f"evaluate_{name}"], _ = evaluate_path(
+                dev, name, ZOO_T, ZOO_EVAL_B, ckpt_dir,
+                needs=("chol_block", "tri_inv"),
+                absent=("gram_chol",) + others)
+    argv = ["evaluate", "--preset", "vanilla_vae", "--num-seqs",
+            str(ZOO_SEQS), "--eval-batch", str(ZOO_EVAL_B), "--ckpt-dir",
+            os.path.join(ck, "vanilla_vae"), "--seed", "0"]
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli(argv)
+    except ValueError as e:
+        if str(e) != VANILLA_EVAL_ERROR:
+            fail(f"evaluate vanilla_vae raised {e!r}, not "
+                 f"{VANILLA_EVAL_ERROR!r}")
+    else:
+        fail("evaluate vanilla_vae did not raise the JAX package's "
+             "ValueError")
+    phase("evaluate_vanilla_vae", raised=VANILLA_EVAL_ERROR)
+    return paths, timing
 
 
 @contextlib.contextmanager
@@ -1694,6 +1964,7 @@ def time_kernels(dev) -> dict:
         # the lower triangle of L read, X written whole
         f * n * (t * (t + 1) / 2 + t * t), n * t ** 3 / 3, f"N={n}, T={t}",
         kernel="tri_inv")
+    whole = time_zoo_kernels(dev)
 
     # the T=1024 factorization's pieces, N=128, block width 128
     n, t, nb = BENCH_B * 2 * SYN_Z, LONG_T, blocked.NB
@@ -1711,13 +1982,13 @@ def time_kernels(dev) -> dict:
         kernel="chol_block")
     # its inverse mode, which no main path launches (no single PyTorch
     # call computes both L and L^-1)
-    whole = {"chol_block_inverse": time_kernel(
+    whole["chol_block_inverse"] = time_kernel(
         "chol_block (with L^-1)",
         lambda: chol_block.chol_block(k00, inverse=True, out=out),
         lambda: chol_block.chol_block_plain(k00, inverse=True, out=out),
         None, f * n * (nb * (nb + 1) / 2 + 2 * nb * nb),
         2 * n * nb ** 3 / 3, f"N={n}, t={nb}, pre-built, L and L^-1",
-        kernel="chol_block")}
+        kernel="chol_block")
     # its gram mode, block 0 of the T=1024 factorization (the library call
     # factors the pre-built gram)
     tb, mb = times[:, :nb], mask[:, :nb]
@@ -1858,6 +2129,56 @@ def time_kernels(dev) -> dict:
     res.update(time_trail_kernels(dev, rng))
     whole.update(time_methods(dev, rng))
     return res, whole
+
+
+def time_zoo_kernels(dev) -> dict:
+    """``gram_chol`` and ``tri_inv`` at the zoo's training shape, the
+    stacked bank of ``full_gp_dynamic`` (B=5, 2Z=200, T=20: N=1000 masked
+    factors), and ``chol_block`` at evaluate's (``ops.chol.cholesky`` of
+    the pre-built [16, 100, 20, 20] bank, N=1600)."""
+    import numpy as np
+    import torch
+
+    from gpvae_tpu_torch import kernels as kernels_lib
+    from gpvae_tpu_torch.ops import chol, gram_chol, tri_inv
+
+    rng = np.random.default_rng(6)  # its own draws: later banks unchanged
+    f, t, b, z = 4, ZOO_T, 5, 2 * ZOO_Z
+    n = b * z
+    times, ls, mask, _ = bank_inputs(rng, b, t, z, True, dev)
+    k = kernels_lib.gram_bank(times, ls, mask=mask)
+    out = {"gram_chol_T20": time_kernel(
+        "gram_chol",
+        lambda: gram_chol.gram_chol_fused(times, ls, mask=mask),
+        lambda: gram_chol.gram_chol_plain(times, ls, mask=mask),
+        lambda: torch.linalg.cholesky(k),
+        f * b * t + b * t + f * z + f * n * t * t,
+        n * (t ** 3 / 3 + GRAM_OPS * t * t), f"N={n}, T={t}",
+        kernel="gram_chol")}
+    lb = gram_chol.gram_chol_fused(times, ls, mask=mask).reshape(
+        -1, t, t).contiguous()
+    eye = torch.eye(t, device=dev).expand_as(lb)
+    out["tri_inv_T20"] = time_kernel(
+        "tri_inv", lambda: tri_inv.tri_inv_cuda(lb),
+        lambda: tri_inv.tri_inv_plain(lb),
+        lambda: torch.linalg.solve_triangular(lb, eye, upper=False),
+        f * n * (t * (t + 1) / 2 + t * t), n * t ** 3 / 3, f"N={n}, T={t}",
+        kernel="tri_inv")
+    times, ls, mask, _ = bank_inputs(rng, 16, t, ZOO_Z, True, dev)
+    kb = kernels_lib.gram_bank(times, ls, mask=mask) + 1e-5 * torch.eye(
+        t, device=dev)
+    ne = 16 * ZOO_Z
+
+    def factor_plain():
+        with plain_versions():
+            return chol.cholesky(kb)
+
+    out["chol_block_T20"] = time_kernel(
+        "chol_block", lambda: chol.cholesky(kb), factor_plain,
+        lambda: torch.linalg.cholesky(kb),
+        f * ne * (t * (t + 1) / 2 + t * t), ne * t ** 3 / 3,
+        f"N={ne}, T={t}, pre-built (evaluate's bank)", kernel="chol_block")
+    return out
 
 
 def time_trail_kernels(dev, rng) -> dict:
@@ -2007,12 +2328,16 @@ def run(dev) -> int:
     t_start = time.perf_counter()
     # -- 1. device -------------------------------------------------------
     smi = nvidia_smi_line()
+    # the package turns TF32 off for cuDNN's convs when it is imported;
+    # PyTorch keeps it off for matmuls
     if torch.backends.cuda.matmul.allow_tf32:
         fail("torch.backends.cuda.matmul.allow_tf32 is on")
-    torch.backends.cudnn.allow_tf32 = False  # no convs here; stated anyway
+    if torch.backends.cudnn.allow_tf32:
+        fail("torch.backends.cudnn.allow_tf32 is on after importing "
+             "gpvae_tpu_torch")
     phase("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
           count=torch.cuda.device_count(), torch=torch.__version__,
-          cuda=torch.version.cuda, allow_tf32=False)
+          cuda=torch.version.cuda, allow_tf32=False, cudnn_allow_tf32=False)
 
     # -- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
@@ -2026,11 +2351,13 @@ def run(dev) -> int:
 
     # -- 3. kernels vs plain ---------------------------------------------
     worst = check_kernels(dev)
+    worst_zoo = check_zoo_kernels(dev)
     worst_large = check_large_t_kernels(dev)
     worst_pre = check_prebuilt_kernels(dev)
     worst_trail = check_trail_kernels(dev)
     worst_solve = check_panel_solve(dev)
-    phase("kernels_vs_plain", **worst, **worst_large, **worst_pre,
+    phase("kernels_vs_plain", **worst, **worst_zoo, **worst_large,
+          **worst_pre,
           **worst_trail, **worst_solve, l_band=L_MAX_ABS,
           l_vs_library=L_VS_LIBRARY, panel_band=PANEL_ABS,
           cholesky_band_vs_library=CHOL_VS_LIBRARY,
@@ -2044,6 +2371,9 @@ def run(dev) -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix="_smoke_ckpt_", dir=root) as ck:
         paths, timing, context = main_paths(dev, ck)
+        zoo, zoo_timing = zoo_paths(dev, ck)
+    paths.update(zoo)
+    timing.update(zoo_timing)
     paths.update(method_paths(dev))
 
     # -- 5. timing -------------------------------------------------------
@@ -2052,10 +2382,12 @@ def run(dev) -> int:
     phase("timing", paths=timing, kernels=per_kernel, whole_functions=whole,
           seconds_so_far=time.perf_counter() - t_start)
 
-    errors = {"gram_chol": worst["gram_chol"],
+    errors = {"gram_chol": max(worst["gram_chol"], worst_zoo["zoo_gram_chol"]),
               "tri_inv": max(worst["tri_inv_abs"],
-                             worst_large["tri_inv_large_abs"]),
-              "chol_block": worst_large["chol_block"],
+                             worst_large["tri_inv_large_abs"],
+                             worst_zoo["zoo_tri_inv_abs"]),
+              "chol_block": max(worst_large["chol_block"],
+                                worst_zoo["zoo_cholesky"]),
               "gram_panel": worst_large["gram_panel"],
               "panel_solve": max(worst_large["panel_solve"],
                                  worst_solve["panel_solve_shapes"]),

@@ -7,12 +7,19 @@
     python -m gpvae_tpu_torch evaluate --preset syn_data --ckpt-dir D
     python -m gpvae_tpu_torch evaluate --preset bench_t100 --time-len 1024 \
         --num-seqs 320 --eval-batch 32 --ckpt-dir D
+    python -m gpvae_tpu_torch train --preset full_gp_dynamic --steps 100 \
+        --num-seqs 64 --ckpt-dir D
+    python -m gpvae_tpu_torch evaluate --preset full_gp_dynamic --ckpt-dir D \
+        --plots out/ --traversal 0
 
 ``train`` and ``evaluate`` run on ``cuda`` unless ``--device`` says
-otherwise, and fail when no CUDA device is present.  The data are toy GP
-draws generated from ``--seed`` (``evaluate --data`` reads a ``.npz`` of
-the same fields instead); ``evaluate`` scores the 10% of the sequences
-that ``train`` holds out.
+otherwise, and fail when no CUDA device is present.  The data follow the
+preset's family (``gpvae_tpu/__main__.py:49-110``): toy GP draws for the
+dense presets, of which ``evaluate`` scores the 10% that ``train`` holds
+out; Moving-MNIST videos for the conv presets, whose test split (the
+last 10%) ``evaluate`` scores.  Both are generated from ``--seed``;
+``--data`` reads a ``.npz`` of toy fields or a Moving-MNIST ``.npy``
+instead.
 """
 from __future__ import annotations
 
@@ -48,15 +55,37 @@ def _model_config(args, preset):
     return preset.model
 
 
-def _toy_split(args, model_cfg, data: str | None = None
-               ) -> tuple[dict, dict]:
+def _load_batches(args, preset, model_cfg):
+    """``(train Batcher, test arrays)`` of the preset's data family
+    (``gpvae_tpu/__main__.py:49-110``): Moving-MNIST videos (``--data``
+    ``.npy``, or synthetic ones from ``--seed``) split 80/10/10, or toy
+    sequences split 90/10."""
+    from gpvae_tpu_torch.data import (
+        Batcher, MovingMNIST, synthetic_moving_mnist,
+    )
+
+    batch_size = args.batch_size or preset.batch_size
+    if preset.resolved_data_family == "mnist":
+        if args.data:
+            ds = MovingMNIST(args.data, batch_size=batch_size)
+        else:
+            ds = MovingMNIST(data=synthetic_moving_mnist(
+                args.num_seqs, t=model_cfg.time_len,
+                size=model_cfg.image_shape[0], seed=args.seed),
+                batch_size=batch_size)
+        return ds.batchers["train"], ds.splits["test"]
+    train, test = _toy_split(args, model_cfg)
+    return Batcher(train, batch_size, seed=args.seed), test
+
+
+def _toy_split(args, model_cfg) -> tuple[dict, dict]:
     """``(train, test)``: the first 90% of the toy sequences generated from
-    ``--seed`` (or read from the ``.npz`` ``data``) and the rest
+    ``--seed`` (or read from the ``.npz`` of ``--data``) and the rest
     (``gpvae_tpu/__main__.py:82-100``)."""
     from gpvae_tpu_torch.data import generate_toy_data, toy_to_masked_batch
 
-    if data:
-        with np.load(data) as f:
+    if args.data:
+        with np.load(args.data) as f:
             raw = dict(f)
     else:
         raw = generate_toy_data(np.random.default_rng(args.seed),
@@ -72,7 +101,6 @@ def cmd_train(args):
     import torch
 
     from gpvae_tpu_torch import configs, train as train_lib
-    from gpvae_tpu_torch.data import Batcher
     from gpvae_tpu_torch.models import GPVAE
 
     device = _device(args.device)
@@ -87,15 +115,12 @@ def cmd_train(args):
     if args.ckpt_dir:
         overrides["checkpoint_dir"] = args.ckpt_dir
     train_cfg = dataclasses.replace(train_cfg, **overrides)
-    batch_size = args.batch_size or preset.batch_size
 
-    train, _ = _toy_split(args, model_cfg)
+    batches, _ = _load_batches(args, preset, model_cfg)
     model = GPVAE(model_cfg,
                   generator=torch.Generator().manual_seed(args.seed))
-    state, log = train_lib.fit(
-        model, Batcher(train, batch_size, seed=args.seed), train_cfg,
-        device=device, csv_path=args.csv,
-    )
+    state, log = train_lib.fit(model, batches, train_cfg, device=device,
+                               csv_path=args.csv)
     final = log.rows[-1] if log.rows else {}
     print(f"done at step {state.step}: "
           f"loss={final.get('loss', float('nan')):.4f}")
@@ -105,9 +130,11 @@ def cmd_evaluate(args):
     """Restore the newest checkpoint of ``--ckpt-dir`` (without one, the
     model's seeded initial weights) and print the imputation metrics of
     the held-out sequences as one JSON line (``gpvae_tpu/__main__.py:
-    152-272``).  The kept mask and the baseline's noise come from a CPU
-    generator seeded with ``--seed``, so the card and the CPU score the
-    same dropped steps."""
+    152-272``), with ``--stats`` the sorted activation variances, and
+    with ``--plots DIR`` PNGs of the imputation and latents (and with
+    ``--traversal D`` of latent D's sweeps).  The kept mask and the
+    baseline's noise come from a CPU generator seeded with ``--seed``, so
+    the card and the CPU score the same dropped steps."""
     import json
 
     import torch
@@ -115,14 +142,10 @@ def cmd_evaluate(args):
     from gpvae_tpu_torch import analysis, configs, train as train_lib
     from gpvae_tpu_torch.models import GPVAE
 
-    if args.plots or args.traversal is not None:
-        raise NotImplementedError(
-            "evaluate --plots/--traversal (utils/plotting, which needs "
-            "matplotlib): ROADMAP queue A item 11")
     device = _device(args.device)
     preset = configs.get(args.preset)
     model_cfg = _model_config(args, preset)
-    _, test = _toy_split(args, model_cfg, args.data)
+    _, test = _load_batches(args, preset, model_cfg)
     batch = train_lib.device_arrays(
         {k: v[: args.eval_batch] for k, v in test.items()}, device)
     model = GPVAE(model_cfg,
@@ -145,6 +168,58 @@ def cmd_evaluate(args):
             generator=torch.Generator().manual_seed(args.seed + 3))
         print(json.dumps({"activation_variance_sorted": [
             round(float(v), 6) for v in var_sorted.cpu()]}))
+    if args.plots:
+        _plots(args, model, x, times, mask)
+
+
+def _plots(args, model, x, times, mask) -> None:
+    """``evaluate --plots``: the imputation of the first sequence (input
+    and imputed frames for a conv decoder) and its latents, and with
+    ``--traversal D`` latent D swept over a probit grid and along a draw
+    from the posterior GP (``gpvae_tpu/__main__.py:224-272``)."""
+    import os
+
+    import torch
+
+    from gpvae_tpu_torch import analysis
+    from gpvae_tpu_torch.utils import plotting
+
+    def host(v):
+        return v.detach().cpu().numpy()
+
+    os.makedirs(args.plots, exist_ok=True)
+    conv = model.config.decoder == "conv"
+    kept = analysis.drop_timesteps(
+        mask, args.drop_fraction,
+        generator=torch.Generator().manual_seed(args.seed))
+    probs, z_imp, _ = analysis.impute(model, x, times, mask, kept)
+    if conv:
+        plotting.comparison_grid(
+            {"input": host(x[0]), "imputed": host(probs[0])},
+            os.path.join(args.plots, "imputation.png"),
+            kept_mask=host(kept[0]))
+    plotting.trajectory_plot(host(times[0]), host(z_imp[0]),
+                             os.path.join(args.plots, "latents.png"),
+                             mask=host(kept[0]))
+    if args.traversal is not None:
+        d = args.traversal
+        sweep = analysis.latent_traversal(
+            model, torch.zeros(model.config.latent_dim, device=x.device), d)
+        gp_sweep = analysis.traversal_from_gp(
+            model, times[0], d,
+            generator=torch.Generator().manual_seed(args.seed + 2))
+        if conv:
+            plotting.film_strip(
+                host(sweep), os.path.join(args.plots, "traversal.png"),
+                title=f"latent dim {d} probit sweep")
+            plotting.film_strip(
+                host(gp_sweep), os.path.join(args.plots, "traversal_gp.png"),
+                title=f"latent dim {d} GP-draw sweep")
+        else:
+            plotting.trajectory_plot(
+                np.arange(sweep.shape[0], dtype=np.float32), host(sweep),
+                os.path.join(args.plots, "traversal.png"))
+    print(f"plots written to {args.plots}")
 
 
 def main(argv=None):
@@ -155,8 +230,11 @@ def main(argv=None):
 
     t = sub.add_parser("train")
     t.add_argument("--preset", required=True)
+    t.add_argument("--data", help=".npz toy data or a Moving-MNIST .npy in "
+                   "place of generated sequences")
     t.add_argument("--num-seqs", type=int, default=512,
-                   help="toy sequences to generate (90%% train)")
+                   help="sequences to generate (toy: 90%% train; "
+                   "Moving-MNIST: 80%%)")
     t.add_argument("--steps", type=int)
     t.add_argument("--log-every", type=int)
     t.add_argument("--ckpt-dir", help="resume from and save checkpoints "
@@ -176,14 +254,18 @@ def main(argv=None):
     e.add_argument("--preset", required=True)
     e.add_argument("--ckpt-dir")
     e.add_argument("--data", help=".npz of toy data (the fields of "
-                   "generate_toy_data) in place of generated sequences")
+                   "generate_toy_data) or a Moving-MNIST .npy in place of "
+                   "generated sequences")
     e.add_argument("--num-seqs", type=int, default=128,
-                   help="toy sequences to generate (the last 10%% scored)")
+                   help="sequences to generate (the last 10%% scored)")
     e.add_argument("--time-len", type=int)
     e.add_argument("--eval-batch", type=int, default=16)
     e.add_argument("--drop-fraction", type=float, default=0.5)
-    e.add_argument("--plots", help="not ported (needs matplotlib)")
-    e.add_argument("--traversal", type=int, help="not ported (a plot)")
+    e.add_argument("--plots", help="directory for PNG artifacts (needs "
+                   "matplotlib)")
+    e.add_argument("--traversal", type=int,
+                   help="with --plots, also latent-traversal strips for "
+                   "this dim")
     e.add_argument("--stats", action="store_true",
                    help="print MC activation/variance statistics")
     e.add_argument("--stats-samples", type=int, default=100)

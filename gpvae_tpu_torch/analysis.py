@@ -20,8 +20,9 @@ float32 on the generator's device and then moved to the data, so a CPU
 generator with one seed gives the same draws for a run on the card and
 one on the CPU, in either dtype.  (The JAX package draws from keys; its
 tests and this port's feed both the same numpy draws instead.)
-``pixel_imputation_metrics`` and ``make_artifact_callback`` arrive with
-the conv nets (ROADMAP slice 4).
+Frames may be ``[B, T, obs_dim]`` (dense nets) or ``[B, T, H, W, C]``
+(conv nets).  ``pixel_imputation_metrics`` and ``make_artifact_callback``
+arrive with the healing-MNIST slice (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -51,43 +52,54 @@ def _given(eps: torch.Tensor | None, shape: tuple, like: torch.Tensor,
 
 
 def _param_or_const(model: GPVAE, name: str) -> torch.Tensor:
-    """The log-lengthscales ``name`` the JAX package's analysis reads: the
-    learned parameter where the model learns it, else the config's
-    constant, ``log`` taken in float32 as the JAX model takes it (the
-    port's model holds that constant as a buffer of the same name)."""
+    """The log-lengthscales ``name`` the JAX package's analysis reads
+    (``analysis.py:346-353``): the learned parameter where the model
+    learns it, else the config's constant, ``log`` taken in float32 as
+    the JAX model takes it.  As there, a model without that GP side falls
+    back on the config's lengthscales, which raise ``ValueError`` where
+    they do not fit ``latent_dim`` (``vanilla_vae``'s default (9, 3)
+    against Z=100)."""
     params = dict(model.named_parameters())
     if name in params:
         return params[name]
     cfg = model.config
     raw = (cfg.prior_lengthscales if name == "prior_log_ls"
            else cfg.posterior_lengthscales)
-    return torch.log(torch.tensor(cfg._ls_tuple(raw), dtype=torch.float32,
-                                  device=getattr(model, name).device))
+    device = next(model.parameters()).device
+    return torch.log(torch.tensor(cfg._ls_tuple(raw),
+                                  dtype=torch.float32)).to(device)
+
+
+def _mean(model: GPVAE, x: torch.Tensor) -> torch.Tensor:
+    """The encoder's means ``[B, T, Z]``, without a log-variance."""
+    enc = model.encode(x)
+    return enc[0] if isinstance(enc, tuple) else enc
 
 
 @torch.no_grad()
-def encode(model: GPVAE, x: torch.Tensor) -> torch.Tensor:
-    """``[B, T, obs_dim]`` -> latent means ``[B, T, Z]``."""
+def encode(model: GPVAE, x: torch.Tensor):
+    """``[B, T, ...]`` -> latent means ``[B, T, Z]``, or ``(mean,
+    log_var)`` where the posterior has a variance head."""
     return model.encode(x)
 
 
 @torch.no_grad()
 def decode(model: GPVAE, z: torch.Tensor) -> torch.Tensor:
-    """Latents ``[..., Z]`` -> Bernoulli logits ``[..., obs_dim]``."""
+    """Latents ``[..., Z]`` -> Bernoulli logits ``[..., obs_dim]`` or
+    ``[..., H, W, C]``."""
     return model.decode(z)
 
 
 @torch.no_grad()
 def reconstruct(model: GPVAE, x, times=None, mask=None, *,
                 num_samples: int = 1, eps=None, generator=None):
-    """Encode, draw from the posterior (``eps [S, B, Z, T]``), decode;
-    returns ``(probs [S, B, T, obs_dim], z [S, B, T, Z])``.  ``times``
-    defaults to ``0 .. T-1``."""
+    """Encode, draw from the posterior (``eps`` in the layout of
+    ``model.noise_shape``), decode; returns ``(probs [S, B, T, ...], z [S,
+    B, T, Z])``.  ``times`` defaults to ``0 .. T-1``."""
     b, t = x.shape[:2]
     if times is None:
         times = torch.arange(t, dtype=x.dtype, device=x.device).expand(b, t)
-    eps = _given(eps, (num_samples, b, model.config.latent_dim, t), x,
-                 generator)
+    eps = _given(eps, model.noise_shape(num_samples, b, t), x, generator)
     z, *_ = model.sample_posterior(x, times, mask, num_samples, eps=eps)
     return torch.sigmoid(model.decode(z)), z
 
@@ -107,12 +119,12 @@ def impute(model: GPVAE, x, times, mask, kept_mask, *, sample: bool = False,
     """GP-posterior imputation: encode, condition each latent dim's GP on
     the kept steps, predict (``sample=False``) or draw (``eps [1, B, Z,
     T]``) the latents on the full grid, keep the encoder means where kept,
-    decode.  Returns ``(probs [B, T, obs_dim], z_imputed [B, T, Z],
+    decode.  Returns ``(probs [B, T, ...], z_imputed [B, T, Z],
     post)``.  The GP is the prior's (its lengthscales, learned or the
     config's constant) unless ``use_prior_lengthscales=False``, which takes
     the posterior's.  ``mask`` is not read: ``kept_mask`` already lies
     inside it."""
-    mean = model.encode(x)
+    mean = _mean(model, x)
     cfg = model.config
     name = ("prior_log_ls" if cfg.prior in ("gp", "sparse_gp")
             and use_prior_lengthscales else "posterior_log_ls")
@@ -136,7 +148,7 @@ def impute_vae_prior(model: GPVAE, x, kept_mask, *, eps=None,
                      generator=None):
     """The baseline: dropped steps' latents are N(0, 1) draws (``eps [B, T,
     Z]``).  Returns ``(probs, z)``."""
-    mean = model.encode(x)
+    mean = _mean(model, x)
     noise = _given(eps, tuple(mean.shape), mean, generator)
     z = torch.where(kept_mask[..., None], mean, noise)
     return torch.sigmoid(model.decode(z)), z
@@ -185,7 +197,7 @@ def prior_draws(model: GPVAE, times: torch.Tensor, *, num_samples: int = 1,
     if cfg.toeplitz_prior:
         raise NotImplementedError(
             "prior_draws with the Toeplitz structured prior (circulant "
-            "sampling): ROADMAP slice 5")
+            "sampling): ROADMAP slice 5b")
     ls = torch.exp(_param_or_const(model, "prior_log_ls")).to(times.dtype)
     l = gp.chol_gram_bank(times[None], ls, kernel=cfg.kernel, noise=cfg.noise)
     eps = _given(eps, (num_samples, 1, cfg.latent_dim, times.shape[0]), l,
@@ -196,12 +208,11 @@ def prior_draws(model: GPVAE, times: torch.Tensor, *, num_samples: int = 1,
 @torch.no_grad()
 def activation_stats(model: GPVAE, x, times, mask, *,
                      num_samples: int = 100, eps=None, generator=None):
-    """Monte-Carlo per-dim latent statistics over ``eps [S, B, Z, T]``:
-    ``(mc_means [B, T, Z], per-dim variance of those means [Z], sorted
-    descending)``."""
+    """Monte-Carlo per-dim latent statistics over ``eps`` (the layout of
+    ``model.noise_shape``): ``(mc_means [B, T, Z], per-dim variance of
+    those means [Z], sorted descending)``."""
     b, t = x.shape[:2]
-    eps = _given(eps, (num_samples, b, model.config.latent_dim, t), x,
-                 generator)
+    eps = _given(eps, model.noise_shape(num_samples, b, t), x, generator)
     z, *_ = model.sample_posterior(x, times, mask, num_samples, eps=eps)
     mc_mean = z.mean(dim=0)
     if mask is not None:
@@ -230,7 +241,8 @@ def imputation_metrics(model: GPVAE, x, times, mask, *,
         p = torch.clamp(probs, 1e-6, 1.0 - 1e-6)
         nll = -(x * torch.log(p) + (1.0 - x) * torch.log1p(-p))
         mse = (probs - x) ** 2
-        w = dropped[..., None].to(p.dtype).expand_as(nll)
+        w = dropped[(...,) + (None,) * (nll.dim() - 2)].to(
+            p.dtype).expand_as(nll)
         denom = torch.clamp(w.sum(), min=1.0)
         return (float((nll * w).sum() / denom),
                 float((mse * w).sum() / denom))

@@ -1,10 +1,13 @@
 """Named experiment presets of the port.
 
-Counterpart of ``gpvae_tpu/configs.py:17-64``, ``:108-128`` and
-``:215-227``: the ``Preset`` record, the two presets of the main path,
-``syn_data`` and ``syn_data_vm``, and ``bench_t100``, which runs the
-large-T covariance path (T=100; the CLI's ``--time-len`` takes it to
-T=1024).  The other presets arrive with their slices (ROADMAP).
+Counterpart of ``gpvae_tpu/configs.py:17-151`` and ``:215-227``: the
+``Preset`` record, the reference model zoo on Moving-MNIST frames
+(``vanilla_vae``, ``gp_prior_diag``, ``full_gp_fixed``,
+``full_gp_dynamic``, ``mnist_from_syndata``, ``gp_recog``), the toy
+presets ``syn_data`` and ``syn_data_vm``, and ``bench_t100``, which runs
+the large-T covariance path (T=100; the CLI's ``--time-len`` takes it to
+T=1024).  ``healing_mnist``, ``sparse_t4096``, ``t1024_toeplitz`` and
+``dp_scale`` arrive with their slices (ROADMAP).
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ class Preset:
     train: TrainConfig
     batch_size: int
     description: str = ""
-    # which data pipeline the CLI builds; the port has "toy" only
+    # which data pipeline the CLI builds: "toy" (masked GP draws) or
+    # "mnist" (video frames); None infers it from the encoder type
     data_family: str | None = None
 
     @property
@@ -37,12 +41,71 @@ class Preset:
 _TOY_BETA = elbo_lib.BetaSchedule(init=1e-3, rate=1e-7, start_step=20_000)
 _TOY_BETA_VM = elbo_lib.BetaSchedule(init=1e-4, rate=1e-6, start_step=20_000)
 
+_MNIST_CONV = dict(
+    obs_dim=64 * 64, time_len=20, encoder="conv", decoder="conv",
+    image_shape=(64, 64, 1), latent_dim=100,
+)
+# fixed 0..19 grid -> factor each latent's gram once per step and share it
+# across the batch (the reference tiles one gram, Full_GP_VAE_fixed:99)
+_MNIST_CONV_FIXED = dict(_MNIST_CONV, shared_time_grid=True)
+# Reference MNIST batch = 5 sequences (= 100 frames),
+# src/Models/Full_GP_VAE_dynamic_time.py:311-318
+_MNIST_TRAIN = TrainConfig(
+    learning_rate=2e-4, num_steps=5_000_000,
+    beta=elbo_lib.CONSTANT_BETA, checkpoint_every=25_000,
+)
+
 PRESETS: dict[str, Preset] = {}
 
 
 def register(preset: Preset) -> Preset:
     PRESETS[preset.name] = preset
     return preset
+
+
+# --- the reference model zoo ------------------------------------------------
+
+register(Preset(
+    "vanilla_vae",
+    GPVAEConfig(prior="standard", posterior="diag", **_MNIST_CONV),
+    _MNIST_TRAIN, batch_size=5,
+    description="Baseline conv VAE (src/Models/Vanilla_VAE.py)",
+))
+register(Preset(
+    "gp_prior_diag",
+    GPVAEConfig(
+        prior="gp", posterior="diag",
+        prior_lengthscales=(1.0,), learn_prior_lengthscales=False,
+        **_MNIST_CONV_FIXED,
+    ),
+    _MNIST_TRAIN, batch_size=5,
+    description="GP prior + diagonal posterior "
+    "(src/Models/VAE_GPprior_diag_cov.py)",
+))
+register(Preset(
+    "full_gp_fixed",
+    GPVAEConfig(
+        prior="gp", posterior="gp",
+        prior_lengthscales=(1.0,), learn_prior_lengthscales=True,
+        posterior_lengthscales=(1.0,), learn_posterior_lengthscales=True,
+        **_MNIST_CONV_FIXED,
+    ),
+    _MNIST_TRAIN, batch_size=5,
+    description="Full GP prior+posterior, fixed times 1..20 "
+    "(src/Models/Full_GP_VAE_fixed_for_MovMnist.py; learnable prior l :96)",
+))
+register(Preset(
+    "full_gp_dynamic",
+    GPVAEConfig(
+        prior="gp", posterior="gp",
+        prior_lengthscales=(1.0,), learn_prior_lengthscales=False,
+        posterior_lengthscales=(1.0,), learn_posterior_lengthscales=True,
+        **_MNIST_CONV,
+    ),
+    _MNIST_TRAIN, batch_size=5,
+    description="Full GP, irregular per-sequence times "
+    "(src/Models/Full_GP_VAE_dynamic_time.py)",
+))
 
 
 register(Preset(
@@ -68,6 +131,33 @@ register(Preset(
     "(src/Models/syndata/GP_VAE_syn_data_VM.py; differs only in the beta "
     "schedule)",
 ))
+
+register(Preset(
+    "mnist_from_syndata",
+    dataclasses.replace(PRESETS["full_gp_dynamic"].model),
+    TrainConfig(
+        num_steps=5_000_000,
+        beta=elbo_lib.BetaSchedule(init=1e-3, rate=5e-6, start_step=20_000),
+    ),
+    batch_size=5,
+    description="Dynamic-time machinery + conv nets on MovingMNIST "
+    "(src/Models/syndata/GP_VAE_mnist_from_syndata.py)",
+))
+register(Preset(
+    "gp_recog",
+    GPVAEConfig(
+        prior="standard", posterior="gp_plus_diag",
+        posterior_lengthscales=(1.0,), learn_posterior_lengthscales=True,
+        **_MNIST_CONV,
+    ),
+    _MNIST_TRAIN, batch_size=5,
+    description="GP recognition + N(0,1) prior "
+    "(src/Models/GP_recog_VAE_prior.py); set reference_recog_kl=True on "
+    "the model config for behavioral parity with the reference's "
+    "mismatched standard KL",
+))
+
+# --- BASELINE.json benchmark configs ----------------------------------------
 
 register(Preset(
     "bench_t100",

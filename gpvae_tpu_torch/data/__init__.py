@@ -1,10 +1,15 @@
-"""Data layer of the port: the numpy toy generator and the batcher."""
+"""Data layer of the port: the numpy toy generator, the Moving-MNIST
+pipeline and the batcher."""
 from gpvae_tpu_torch.data.batching import Batcher
+from gpvae_tpu_torch.data.moving_mnist import (
+    MovingMNIST,
+    synthetic_moving_mnist,
+)
 from gpvae_tpu_torch.data.synthetic import (
     TOY_TIME_GRID,
     generate_toy_data,
     toy_to_masked_batch,
 )
 
-__all__ = ["Batcher", "TOY_TIME_GRID", "generate_toy_data",
-           "toy_to_masked_batch"]
+__all__ = ["Batcher", "MovingMNIST", "TOY_TIME_GRID", "generate_toy_data",
+           "synthetic_moving_mnist", "toy_to_masked_batch"]

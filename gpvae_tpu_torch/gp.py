@@ -3,14 +3,18 @@ inverse route, correlated latent sampling, and GP-posterior conditioning.
 
 Counterpart of these pieces of ``gpvae_tpu/gp.py``: ``_tri_tri_frob2``
 (:60-92), ``chol_gram_bank`` with its custom gradient, its two forward
-routes and ``impl`` (:98-232), ``gp_kl`` on its inverse route
-(:270-302), ``gp_sample`` (:526-557), ``prior_sample`` (:606-619) and the
-imputation path, ``GPPosterior``, ``posterior_conditional`` and
-``posterior_sample`` (:626-721).  On a CUDA tensor the factors come from
-the hand-written kernels (T <= 64: ``gram_chol``; larger T: the blocked
-``ops.blocked`` factorization; a pre-built gram: ``ops.chol.cholesky``)
-and the inverses from ``ops.tri_inv``, on a CPU tensor from their plain
-versions; ``chol_gram_bank(impl="xla")`` is the library baseline.
+routes, ``diff_times`` and ``impl`` (:98-232), ``gp_kl`` and
+``gp_prior_diag_kl`` on their inverse routes (:235-365), ``standard_kl``,
+``recog_gp_kl`` and ``_batch_diag`` (:464-520), the samplers
+``gp_sample``, ``diag_sample``, ``recog_sample`` and ``prior_sample``
+(:526-619) and the imputation path, ``GPPosterior``,
+``posterior_conditional`` and ``posterior_sample`` (:626-721).  The
+Toeplitz-prior KLs (:368-461) are ROADMAP slice 5b.  On a CUDA tensor
+the factors come from the hand-written kernels (T <= 64: ``gram_chol``;
+larger T: the blocked ``ops.blocked`` factorization; a pre-built gram:
+``ops.chol.cholesky``) and the inverses from ``ops.tri_inv``, on a CPU
+tensor from their plain versions; ``chol_gram_bank(impl="xla")`` is the
+library baseline.
 """
 from __future__ import annotations
 
@@ -74,12 +78,12 @@ class _CholGramBank(torch.autograd.Function):
     where the kernel takes it).  Backward (``gp.py:158-183``): ``K_bar``
     from :func:`cholesky_bwd_from_l`, the logdet's cotangent folded in,
     then the pullback of the gram construction to ``lengthscales`` and
-    ``variance``.  The times get no gradient: they are data in every model
-    of the package."""
+    ``variance``, and to the times with ``diff_times`` (else they get no
+    gradient: they are data in every model of the package)."""
 
     @staticmethod
     def forward(ctx, times, lengthscales, mask, variance, kernel, noise,
-                with_logdet):
+                with_logdet, diff_times):
         if times.shape[-1] <= gram_chol.MAX_T:
             l = gram_chol_fused(times, lengthscales, mask=mask,
                                 kernel=kernel, noise=noise,
@@ -88,7 +92,7 @@ class _CholGramBank(torch.autograd.Function):
             l = _gram_chol_blocked(times, lengthscales, mask, variance,
                                    kernel, noise)
         ctx.save_for_backward(times, lengthscales, mask, variance, l)
-        ctx.kernel, ctx.noise = kernel, noise
+        ctx.kernel, ctx.noise, ctx.diff_times = kernel, noise, diff_times
         # an output nobody uses gets None, not a zero-filled [B, Z, T, T]
         ctx.set_materialize_grads(False)
         if with_logdet:
@@ -98,17 +102,21 @@ class _CholGramBank(torch.autograd.Function):
     @staticmethod
     def backward(ctx, l_bar, ld_bar=None):
         if l_bar is None and ld_bar is None:
-            return (None,) * 7
+            return (None,) * 8
         times, lengthscales, mask, variance, l = ctx.saved_tensors
         k_bar = cholesky_bwd_from_l(l, l_bar, logdet_bar=ld_bar)
         with torch.enable_grad():
+            tt = times.detach().requires_grad_(ctx.diff_times)
             ls = lengthscales.detach().requires_grad_(True)
             var = variance.detach().requires_grad_(True)
-            k = kernels_lib.gram_bank(times, ls, kernel=ctx.kernel,
+            k = kernels_lib.gram_bank(tt, ls, kernel=ctx.kernel,
                                       noise=ctx.noise, variance=var,
                                       mask=mask)
-            ls_bar, var_bar = torch.autograd.grad(k, (ls, var), k_bar)
-        return None, ls_bar, None, var_bar, None, None, None
+            wrt = (tt, ls, var) if ctx.diff_times else (ls, var)
+            grads = torch.autograd.grad(k, wrt, k_bar)
+        times_bar = grads[0] if ctx.diff_times else None
+        ls_bar, var_bar = grads[-2:]
+        return times_bar, ls_bar, None, var_bar, None, None, None, None
 
 
 def _check_kernel(kernel: str) -> None:
@@ -137,8 +145,9 @@ def chol_gram_bank(
     gram inside the kernels that factor it, so on a CUDA tensor it never
     reaches device memory; ``"xla"`` is the composed baseline,
     ``kernels.gram_bank`` then the library's ``cholesky(method="xla")``,
-    differentiable by autograd (the times too).  ``diff_times=True`` (a
-    times gradient on the fused route) is not ported yet.
+    differentiable by autograd (the times too).  On the fused routes the
+    times get a gradient only with ``diff_times=True`` (``gp.py:167-183``;
+    the JAX package returns an explicit zero without it, the port none).
     """
     if impl not in ("auto", "fused", "xla"):
         raise ValueError("impl must be auto, fused, or xla")
@@ -149,12 +158,8 @@ def chol_gram_bank(
         k = kernels_lib.gram_bank(times, lengthscales, kernel=kernel,
                                   noise=noise, variance=variance, mask=mask)
         return cholesky(k, method="xla")
-    if diff_times:
-        raise NotImplementedError(
-            "chol_gram_bank(diff_times=True): ROADMAP slice 4"
-        )
     return _CholGramBank.apply(times, lengthscales, mask, variance, kernel,
-                               noise, False)
+                               noise, False, diff_times)
 
 
 def _chol_gram_bank_logdet(
@@ -176,12 +181,20 @@ def _chol_gram_bank_logdet(
     variance = torch.as_tensor(variance, dtype=times.dtype,
                                device=times.device)
     return _CholGramBank.apply(times, lengthscales, mask, variance, kernel,
-                               noise, True)
+                               noise, True, False)
 
 
 # ---------------------------------------------------------------------------
 # KL divergence
 # ---------------------------------------------------------------------------
+
+def _apply_inverse(inv: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
+    """``inv [B or 1, Z, T, T]`` applied to each latent's means ``mu [B, T,
+    Z]`` -> ``[B, Z, T]``; a leading 1 is shared across the batch."""
+    if inv.shape[0] == 1 and mu.shape[0] > 1:
+        return torch.einsum("zij,bjz->bzi", inv[0], mu)
+    return torch.einsum("bzij,bjz->bzi", inv, mu)
+
 
 def gp_kl(
     mu: torch.Tensor,
@@ -211,18 +224,95 @@ def gp_kl(
     """
     if mask is not None:
         mu = mu * mask.to(mu.dtype)[..., None]
-    b, t = mu.shape[0], mu.shape[-2]
+    t = mu.shape[-2]
     inv_p = tri_inv(l_p)
     tr = _tri_tri_frob2(inv_p, l_q)                  # ||L_p^{-1} L_q||_F^2
-    if inv_p.shape[0] == 1 and b > 1:  # shared fixed-grid factor
-        v = torch.einsum("zij,bjz->bzi", inv_p[0], mu)
-    else:
-        v = torch.einsum("bzij,bjz->bzi", inv_p, mu)
+    v = _apply_inverse(inv_p, mu)
     quad = torch.sum(v * v, dim=-1)
     ld_p = logdet_p if logdet_p is not None else logdet_from_chol(l_p)
     ld_q = logdet_q if logdet_q is not None else logdet_from_chol(l_q)
     return 0.5 * (tr.expand_as(quad) + quad - t
                   + (ld_p - ld_q).expand_as(quad))
+
+
+def gp_prior_diag_kl(
+    mu: torch.Tensor,
+    log_var: torch.Tensor,
+    l_p: torch.Tensor,
+    mask: torch.Tensor | None = None,
+    *,
+    logdet_p: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """KL( N(mu, diag v) || N(0, K_p) ) per (sequence, latent) -> ``[B,
+    Z]`` (``gp.py:305-365``):
+
+        KL = 1/2 [ sum_i v_i d_i + ||L_p^{-1} mu||^2 - T
+                   + logdet K_p - sum_i log v_i ]
+
+    with ``d = diag(K_p^{-1})``, the column sums of squares of ONE
+    triangular inverse ``W = L_p^{-1}`` that also gives the quadratic
+    term.  Masked steps take v = 1 and mu = 0 and contribute 0.  ``l_p``
+    with leading dim 1 is shared across the batch; ``logdet_p`` as in
+    :func:`gp_kl`."""
+    if mask is not None:
+        m = mask.to(mu.dtype)[..., None]
+        mu = mu * m
+        log_var = log_var * m            # masked -> log v = 0 -> v = 1
+    t = mu.shape[-2]
+    w = tri_inv(l_p)
+    y = _apply_inverse(w, mu)
+    quad = torch.sum(y * y, dim=-1)
+    dinv = torch.sum(w * w, dim=-2)      # diag(K_p^{-1}) [B or 1, Z, T]
+    tr = torch.sum(dinv * torch.exp(log_var).mT, dim=-1)
+    ld_p = logdet_p if logdet_p is not None else logdet_from_chol(l_p)
+    sum_log_v = torch.sum(log_var, dim=-2)
+    return 0.5 * (tr + quad - t + ld_p.expand_as(tr) - sum_log_v)
+
+
+def standard_kl(
+    mu: torch.Tensor,
+    log_var: torch.Tensor,
+    mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """KL( N(mu, diag v) || N(0, I) ) summed over latents and observed
+    steps -> ``[B]`` (``gp.py:464-479``)."""
+    kl_t = torch.sum(-0.5 * (1.0 + log_var - mu * mu - torch.exp(log_var)),
+                     dim=-1)
+    if mask is not None:
+        kl_t = kl_t * mask.to(kl_t.dtype)
+    return torch.sum(kl_t, dim=-1)
+
+
+def recog_gp_kl(
+    mu: torch.Tensor,
+    log_var: torch.Tensor,
+    l_q: torch.Tensor,
+    mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The exact KL of the recognition model's sampling distribution,
+    ``z = mu + C eps`` with ``C = L_q + diag(sqrt v)``, against N(0, I)
+    -> ``[B, Z]`` (``gp.py:482-514``):
+
+        KL = 1/2 [ ||C||_F^2 + ||mu||^2 - T - 2 sum_i log C_ii ]
+
+    Masked rows of ``C`` are the identity rows of ``L_q``."""
+    t = mu.shape[-2]
+    sqrt_v = torch.exp(0.5 * log_var)
+    if mask is not None:
+        m = mask.to(mu.dtype)[..., None]
+        mu = mu * m
+        sqrt_v = sqrt_v * m
+    c = l_q + _batch_diag(sqrt_v.mT)
+    fro = torch.sum(c * c, dim=(-2, -1))
+    quad = torch.sum(mu * mu, dim=-2)
+    ld = 2.0 * torch.sum(torch.log(torch.diagonal(c, dim1=-2, dim2=-1)),
+                         dim=-1)
+    return 0.5 * (fro + quad - t - ld)
+
+
+def _batch_diag(v: torch.Tensor) -> torch.Tensor:
+    """``[..., T] -> [..., T, T]`` diagonal embedding (``gp.py:517``)."""
+    return torch.diag_embed(v)
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +355,49 @@ def gp_sample(
     else:
         corr = torch.einsum("bzij,sbzj->sbiz", l_q, eps)
     out = mu[None] + corr
+    if mask is not None:
+        out = out * mask.to(out.dtype)[None, :, :, None]
+    return out
+
+
+def diag_sample(
+    mu: torch.Tensor,
+    log_var: torch.Tensor,
+    num_samples: int = 1,
+    mask: torch.Tensor | None = None,
+    *,
+    eps: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """``z = mu + sqrt(v) eps`` -> ``[S, B, T, Z]`` (``gp.py:560-575``).
+    The noise is ``eps [S, B, T, Z]`` (the layout of ``mu``, as the JAX
+    package draws it), else drawn from ``generator``."""
+    eps = _noise((num_samples,) + tuple(mu.shape), mu, eps, generator)
+    out = mu[None] + torch.exp(0.5 * log_var)[None] * eps
+    if mask is not None:
+        out = out * mask.to(out.dtype)[None, :, :, None]
+    return out
+
+
+def recog_sample(
+    mu: torch.Tensor,
+    log_var: torch.Tensor,
+    l_q: torch.Tensor,
+    num_samples: int = 1,
+    mask: torch.Tensor | None = None,
+    *,
+    eps: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """The recognition sampler ``z = mu + (L_q + diag(sqrt v)) eps`` ->
+    ``[S, B, T, Z]`` (``gp.py:578-603``).  ``l_q`` with leading dim 1 is
+    shared and broadcasts against each sequence's ``diag(sqrt v)``; the
+    noise is ``eps [S, B, Z, T]``, else drawn from ``generator``."""
+    b = mu.shape[0]
+    _, z, t, _ = l_q.shape
+    c = l_q + _batch_diag(torch.exp(0.5 * log_var.mT))
+    eps = _noise((num_samples, b, z, t), mu, eps, generator)
+    out = mu[None] + torch.einsum("bzij,sbzj->sbiz", c, eps)
     if mask is not None:
         out = out * mask.to(out.dtype)[None, :, :, None]
     return out

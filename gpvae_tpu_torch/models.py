@@ -1,19 +1,30 @@
 """The GP-VAE as a PyTorch module.
 
-Counterpart of ``gpvae_tpu/models.py:49-172`` and ``:251-511``, with
-``sample_posterior`` (:396-418) for the GP posterior.
-``GPVAEConfig`` keeps the JAX package's field names and validation, so a
-preset reads the same in both packages.  ``GPVAE`` ports the main path:
-a GP posterior with learnable lengthscales against a GP prior, dense
-nets, irregular masked time grids.  The other combinations of the zoo
-raise ``NotImplementedError`` naming their ROADMAP slice.
+Counterpart of ``gpvae_tpu/models.py:49-511``.  ``GPVAEConfig`` keeps the
+JAX package's field names and validation, so a preset reads the same in
+both packages.  ``GPVAE`` covers the zoo's capability matrix:
 
-One step of the main path: factor ONE stacked 2Z-wide gram bank
-(posterior and prior lengthscales side by side) with the fused
-``gram_chol`` kernel (T <= 64) or the blocked large-T factorization, and
-take every factor's logdet in the same autograd node, encode the means,
-draw ``z = mu + L_q eps``, take the KL from one ``tri_inv`` of ``L_p``,
-decode and take the Bernoulli NLL.
+| prior    | posterior     | KL                                    |
+|----------|---------------|---------------------------------------|
+| gp       | gp            | ``gp.gp_kl``                          |
+| gp       | diag          | ``gp.gp_prior_diag_kl``               |
+| standard | diag          | ``gp.standard_kl``                    |
+| standard | gp_plus_diag  | ``gp.recog_gp_kl`` (``standard_kl``   |
+|          |               | with ``reference_recog_kl``)          |
+| standard | gp            | ``gp.gp_kl`` against an identity      |
+
+on dense or conv nets, Bernoulli or Gaussian likelihoods, irregular
+masked time grids or one grid shared by the batch (``shared_time_grid``),
+with ``feature_mask``.  The FITC prior (``sparse_gp``) and the Toeplitz
+structured prior raise ``NotImplementedError`` naming their ROADMAP
+slices.
+
+One step: factor the gram banks the pair needs in ONE call (the
+posterior's and the prior's lengthscales side by side in one stacked
+2Z-wide bank when both are GPs) with the fused ``gram_chol`` kernel
+(T <= 64) or the blocked large-T factorization, each factor's logdet
+from the same autograd node; encode; draw ``z``; take the KL (the GP
+priors' from one ``tri_inv`` of ``L_p``); decode and take the NLL.
 """
 from __future__ import annotations
 
@@ -21,6 +32,7 @@ import dataclasses
 import math
 from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -130,25 +142,56 @@ class GPVAEConfig:
 
 
 def check_ported(config: GPVAEConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration outside the
-    port's first slice, naming the ROADMAP slice that brings it."""
+    """Raise ``NotImplementedError`` for a configuration the port does not
+    have yet, naming the ROADMAP slice that brings it."""
     if config.prior == "sparse_gp":
-        raise NotImplementedError("sparse_gp (FITC) prior: ROADMAP slice 5")
+        raise NotImplementedError("sparse_gp (FITC) prior: ROADMAP slice 5a")
     if config.structured_prior == "toeplitz":
         raise NotImplementedError(
-            "toeplitz structured prior: ROADMAP slice 5"
+            "toeplitz structured prior: ROADMAP slice 5b"
         )
-    if config.prior != "gp" or config.posterior != "gp":
-        raise NotImplementedError(
-            f"prior={config.prior!r} posterior={config.posterior!r}: "
-            "ROADMAP slice 4 (the port has gp/gp)"
+
+
+def check_structured_grid(config: GPVAEConfig, times, mask=None) -> None:
+    """Host-side validation of the grid a Toeplitz structured prior
+    assumes (``models.py:174-213``): ``times [B, T]`` at T =
+    ``config.time_len``, an arithmetic first row, a full mask.  Nothing to
+    check for any other prior."""
+    if not config.toeplitz_prior:
+        return
+    t_arr = np.asarray(times)
+    if t_arr.ndim != 2:
+        raise ValueError(f"times must be [B, T], got {t_arr.shape}")
+    t = t_arr.shape[1]
+    if t != config.time_len:
+        raise ValueError(
+            f"structured_prior='toeplitz': batch T={t} != config.time_len="
+            f"{config.time_len}; the prior row is built at time_len"
         )
-    if config.encoder != "dense" or config.decoder != "dense":
-        raise NotImplementedError("conv nets: ROADMAP slice 4")
-    if config.likelihood != "bernoulli":
-        raise NotImplementedError("gaussian likelihood: ROADMAP slice 4")
-    if config.shared_time_grid:
-        raise NotImplementedError("shared_time_grid: ROADMAP slice 4")
+    steps = np.diff(t_arr[0].astype(np.float64))
+    if steps.size and not np.allclose(steps, steps[0], rtol=1e-4, atol=1e-6):
+        raise ValueError(
+            "structured_prior='toeplitz' requires an arithmetic (uniform) "
+            f"time grid; got steps in [{steps.min():.6g}, {steps.max():.6g}]"
+        )
+    if mask is not None and not np.all(np.asarray(mask)):
+        raise ValueError(
+            "structured_prior='toeplitz' requires a full mask (shared "
+            "uniform grid, no missing steps)"
+        )
+
+
+def resolve_structured_prior(config: GPVAEConfig, times,
+                             mask=None) -> GPVAEConfig:
+    """``structured_prior="auto"`` resolved against the first real batch
+    (``models.py:216-248``): ``"dense"``, the JAX package's measured
+    winner at every size; an explicit setting is validated by
+    :func:`check_structured_grid` and returned unchanged.  ``train.fit``
+    calls it with its first batch."""
+    if config.structured_prior != "auto":
+        check_structured_grid(config, times, mask)
+        return config
+    return dataclasses.replace(config, structured_prior="dense")
 
 
 @dataclasses.dataclass
@@ -159,19 +202,21 @@ class ELBOOutput:
     beta: float
     latent_mean: torch.Tensor    # [B, T, Z]
     latent_sample: torch.Tensor  # [S, B, T, Z]
-    logits: torch.Tensor         # [S, B, T, obs_dim]
+    logits: torch.Tensor         # [S, B, T, obs_dim] or [S, B, T, H, W, C]
     aux: dict[str, Any]
 
 
 class GPVAE(nn.Module):
-    """GP-VAE with a GP posterior (learnable log-lengthscales) against a
-    GP prior and dense nets.
+    """Configurable GP-VAE; see the module docstring for the capability
+    matrix.
 
-    Parameters: ``encoder_net``, ``decoder_net`` and ``posterior_log_ls``
-    (a buffer when ``learn_posterior_lengthscales`` is False);
-    ``prior_log_ls`` is a buffer unless ``learn_prior_lengthscales``.
-    Weights are drawn from ``generator`` (float32, on the CPU; move the
-    module with ``.to(device)``).
+    Parameters: ``encoder_net`` and ``decoder_net`` (dense or conv, with
+    a log-variance head for the diagonal and recognition posteriors), and
+    the log-lengthscales of each GP side, ``posterior_log_ls`` (GP and
+    recognition posteriors) and ``prior_log_ls`` (GP prior), each a
+    buffer where the config does not learn it.  Weights are drawn from
+    ``generator`` (float32, on the CPU; move the module with
+    ``.to(device)``).
     """
 
     def __init__(self, config: GPVAEConfig, *,
@@ -179,14 +224,34 @@ class GPVAE(nn.Module):
         super().__init__()
         check_ported(config)
         self.config = c = config
-        self.encoder_net = nets.DenseEncoder(c.obs_dim, c.latent_dim,
-                                             generator=generator)
-        self.decoder_net = nets.DenseDecoder(c.latent_dim, c.obs_dim,
-                                             generator=generator)
-        self._log_ls("posterior_log_ls", c.posterior_lengthscales,
-                     c.learn_posterior_lengthscales)
-        self._log_ls("prior_log_ls", c.prior_lengthscales,
-                     c.learn_prior_lengthscales)
+        if c.encoder == "dense":
+            self.encoder_net = nets.DenseEncoder(
+                c.obs_dim, c.latent_dim, with_log_var=c.needs_log_var,
+                generator=generator)
+        else:
+            self.encoder_net = nets.ConvEncoder(
+                c.image_shape, c.latent_dim, with_log_var=c.needs_log_var,
+                generator=generator)
+        if c.decoder == "dense":
+            self.decoder_net = nets.DenseDecoder(c.latent_dim, c.obs_dim,
+                                                 generator=generator)
+        else:
+            self.decoder_net = nets.ConvDecoder(c.image_shape, c.latent_dim,
+                                                generator=generator)
+        if self._gp_posterior:
+            self._log_ls("posterior_log_ls", c.posterior_lengthscales,
+                         c.learn_posterior_lengthscales)
+        if self._gp_prior:
+            self._log_ls("prior_log_ls", c.prior_lengthscales,
+                         c.learn_prior_lengthscales)
+
+    @property
+    def _gp_posterior(self) -> bool:
+        return self.config.posterior in ("gp", "gp_plus_diag")
+
+    @property
+    def _gp_prior(self) -> bool:
+        return self.config.prior == "gp"
 
     def _log_ls(self, name: str, raw, learn: bool) -> None:
         init = torch.tensor([math.log(v) for v in self.config._ls_tuple(raw)],
@@ -196,40 +261,80 @@ class GPVAE(nn.Module):
         else:
             self.register_buffer(name, init)
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """``[B, T, obs_dim]`` -> means ``[B, T, Z]``."""
+    def noise_shape(self, num_samples: int, b: int, t: int) -> tuple:
+        """The layout of the posterior sampler's noise ``eps``: ``[S, B,
+        T, Z]`` for the diagonal posterior (``gp.diag_sample``), ``[S, B,
+        Z, T]`` for the others."""
+        z = self.config.latent_dim
+        if self.config.posterior == "diag":
+            return (num_samples, b, t, z)
+        return (num_samples, b, z, t)
+
+    def encode(self, x: torch.Tensor):
+        """``[B, T, ...]`` -> means ``[B, T, Z]``, or ``(mean, log_var)``
+        where the posterior needs a variance (``config.needs_log_var``)."""
         b, t = x.shape[:2]
-        return self.encoder_net(x.reshape(b * t, -1)).reshape(b, t, -1)
+        out = self.encoder_net(x.reshape(b * t, *x.shape[2:]))
+        if self.config.needs_log_var:
+            mean, log_var = out
+            return mean.reshape(b, t, -1), log_var.reshape(b, t, -1)
+        return out.reshape(b, t, -1)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        """``[..., Z]`` -> logits ``[..., obs_dim]``."""
+        """Latents ``[..., Z]`` -> logits ``[..., obs_dim]`` (dense) or
+        ``[..., H, W, C]`` (conv)."""
         lead = z.shape[:-1]
         logits = self.decoder_net(z.reshape(-1, z.shape[-1]))
-        return logits.reshape(*lead, logits.shape[-1])
+        return logits.reshape(*lead, *logits.shape[1:])
+
+    def _grid(self, times: torch.Tensor, mask: torch.Tensor | None):
+        """With ``shared_time_grid``, the first row of ``times`` and no
+        mask: one gram bank (leading dim 1) that the KLs and samplers
+        share across the batch (``models.py:331-336``)."""
+        if self.config.shared_time_grid:
+            return times[:1], None
+        return times, mask
 
     def chol_banks(self, times: torch.Tensor, mask: torch.Tensor | None,
                    *, logdets: bool = False) -> dict[str, torch.Tensor]:
-        """``{"l_q", "l_p"}`` from ONE factorization of the stacked
-        2Z-wide bank (``models.py:350-394``).  ``logdets=True`` (the
-        ELBO) adds ``{"ld_q", "ld_p"}``, ``logdet K [B, Z]`` of each
-        factor: on the fused routes from the factorization's own autograd
-        node (one ``diag_logdet`` over the whole bank, its gradient folded
-        into the Cholesky backward); with ``cov_impl="xla"`` from
-        ``logdet_from_chol`` of each half, on plain autograd."""
+        """Every Cholesky factor the configuration needs, from ONE
+        factorization (``models.py:350-394``): ``"l_q"`` for a GP or
+        recognition posterior, ``"l_p"`` for a GP prior, both from one
+        stacked 2Z-wide bank when both sides are GPs.  ``[B, Z, T, T]``,
+        or ``[1, Z, T, T]`` on a shared grid.
+
+        ``logdets=True`` (the ELBO) adds ``logdet K [B or 1, Z]`` of each
+        factor a KL reads, ``"ld_q"`` of a GP posterior and ``"ld_p"`` of
+        a GP prior: on the fused routes from the factorization's own
+        autograd node (one ``diag_logdet`` over the whole bank, its
+        gradient folded into the Cholesky backward); with
+        ``cov_impl="xla"`` from ``logdet_from_chol``, on plain autograd."""
         c = self.config
-        z = c.latent_dim
-        ls = torch.cat([torch.exp(self.posterior_log_ls),
-                        torch.exp(self.prior_log_ls)]).to(times.dtype)
+        times, mask = self._grid(times, mask)
+        sides = []
+        if self._gp_posterior:
+            sides.append(("q", self.posterior_log_ls,
+                          logdets and c.posterior == "gp"))
+        if self._gp_prior:
+            sides.append(("p", self.prior_log_ls, logdets))
+        if not sides:
+            return {}
+        ls = torch.cat([torch.exp(log_ls) for _, log_ls, _ in sides]
+                       ).to(times.dtype)
         bank = dict(mask=mask, kernel=c.kernel, noise=c.noise)
-        if logdets and c.cov_impl != "xla":
+        ld = None
+        if any(with_ld for *_, with_ld in sides) and c.cov_impl != "xla":
             l_all, ld = gp._chol_gram_bank_logdet(times, ls, **bank)
-            return {"l_q": l_all[:, :z], "l_p": l_all[:, z:],
-                    "ld_q": ld[:, :z], "ld_p": ld[:, z:]}
-        l_all = gp.chol_gram_bank(times, ls, impl=c.cov_impl, **bank)
-        out = {"l_q": l_all[:, :z], "l_p": l_all[:, z:]}
-        if logdets:
-            out["ld_q"] = logdet_from_chol(out["l_q"])
-            out["ld_p"] = logdet_from_chol(out["l_p"])
+        else:
+            l_all = gp.chol_gram_bank(times, ls, impl=c.cov_impl, **bank)
+        out = {}
+        z = c.latent_dim
+        for i, (side, _, with_ld) in enumerate(sides):
+            out[f"l_{side}"] = l_all[:, i * z:(i + 1) * z]
+            if with_ld:
+                out[f"ld_{side}"] = (
+                    ld[:, i * z:(i + 1) * z] if ld is not None
+                    else logdet_from_chol(out[f"l_{side}"]))
         return out
 
     def sample_posterior(
@@ -243,45 +348,96 @@ class GPVAE(nn.Module):
         eps: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
     ):
-        """Encode and draw from the GP posterior (``models.py:396-418``):
-        ``(z [S, B, T, Z], mean [B, T, Z], log_var, aux)``, with ``log_var``
-        None (the GP posterior has none) and ``aux`` the factors of
-        :meth:`chol_banks` unless given.  The noise is ``eps [S, B, Z, T]``
-        when given, else drawn from ``generator`` on ``x``'s device."""
-        mean = self.encode(x)
+        """Encode and draw from the posterior (``models.py:396-418``):
+        ``(z [S, B, T, Z], mean [B, T, Z], log_var or None, aux)``, with
+        ``aux`` the factors of :meth:`chol_banks` unless given.  The noise
+        is ``eps`` in the layout of :meth:`noise_shape` when given, else
+        drawn from ``generator`` on ``x``'s device."""
+        c = self.config
+        if c.needs_log_var:
+            mean, log_var = self.encode(x)
+        else:
+            mean, log_var = self.encode(x), None
         if mask is not None:
             mean = mean * mask.to(mean.dtype)[..., None]
         if aux is None:
             aux = self.chol_banks(times, mask)
-        z = gp.gp_sample(mean, aux["l_q"], num_samples, mask, eps=eps,
-                         generator=generator)
-        return z, mean, None, aux
+        noise = dict(eps=eps, generator=generator)
+        if c.posterior == "diag":
+            z = gp.diag_sample(mean, log_var, num_samples, mask, **noise)
+        elif c.posterior == "gp":
+            z = gp.gp_sample(mean, aux["l_q"], num_samples, mask, **noise)
+        else:
+            z = gp.recog_sample(mean, log_var, aux["l_q"], num_samples, mask,
+                                **noise)
+        return z, mean, log_var, aux
+
+    def kl(self, mean: torch.Tensor, log_var: torch.Tensor | None,
+           mask: torch.Tensor | None,
+           aux: dict[str, torch.Tensor]) -> torch.Tensor:
+        """Per-sequence KL ``[B]`` of the configured pair
+        (``models.py:420-468``), from the factors and logdets in ``aux``
+        (:meth:`chol_banks`)."""
+        c = self.config
+        if c.prior == "gp":
+            if c.posterior == "gp":
+                kl_bz = gp.gp_kl(mean, aux["l_q"], aux["l_p"], mask,
+                                 logdet_q=aux.get("ld_q"),
+                                 logdet_p=aux.get("ld_p"))
+            else:
+                kl_bz = gp.gp_prior_diag_kl(mean, log_var, aux["l_p"], mask,
+                                            logdet_p=aux.get("ld_p"))
+            return torch.sum(kl_bz, dim=-1)
+        # the standard N(0, I) prior
+        if c.posterior == "diag" or (c.posterior == "gp_plus_diag"
+                                     and c.reference_recog_kl):
+            return gp.standard_kl(mean, log_var, mask)
+        if c.posterior == "gp_plus_diag":
+            return torch.sum(gp.recog_gp_kl(mean, log_var, aux["l_q"], mask),
+                             dim=-1)
+        # a GP posterior against the identity factor
+        l_q = aux["l_q"]
+        eye = torch.eye(l_q.shape[-1], dtype=l_q.dtype,
+                        device=l_q.device).expand_as(l_q)
+        return torch.sum(gp.gp_kl(mean, l_q, eye, mask,
+                                  logdet_q=aux.get("ld_q")), dim=-1)
 
     def forward(
         self,
         x: torch.Tensor,
-        times: torch.Tensor,
+        times: torch.Tensor | None = None,
         mask: torch.Tensor | None = None,
         *,
         beta: float = 1.0,
         num_samples: int | None = None,
+        feature_mask: torch.Tensor | None = None,
         eps: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
     ) -> ELBOOutput:
-        """The ELBO of a batch.  ``x [B, T, obs_dim]``, ``times [B, T]``,
-        ``mask [B, T]`` bool.  The posterior noise is ``eps [S, B, Z, T]``
+        """The ELBO of a batch (``models.py:470-511``).  ``x [B, T, ...]``,
+        ``times [B, T]`` (None for a model with no GP: ``0 .. T-1``),
+        ``mask [B, T]`` bool observed steps, ``feature_mask [B, T, ...]``
+        observed features (missing ones zero-filled in ``x``).  The
+        posterior noise is ``eps`` in the layout of :meth:`noise_shape`
         when given, else drawn from ``generator`` on ``x``'s device."""
         c = self.config
         s = num_samples if num_samples is not None else c.num_samples
+        if times is None:
+            if c.needs_times:
+                raise ValueError(f"{c.prior}/{c.posterior} model needs times")
+            times = torch.arange(x.shape[1], dtype=x.dtype,
+                                 device=x.device).expand(x.shape[:2])
         aux = self.chol_banks(times, mask, logdets=True)
-        z, mean, _, aux = self.sample_posterior(x, times, mask, s, aux=aux,
-                                                eps=eps, generator=generator)
-        kl_b = torch.sum(gp.gp_kl(mean, aux["l_q"], aux["l_p"], mask,
-                                  logdet_q=aux["ld_q"],
-                                  logdet_p=aux["ld_p"]), dim=-1)
+        z, mean, log_var, aux = self.sample_posterior(
+            x, times, mask, s, aux=aux, eps=eps, generator=generator)
+        kl_b = self.kl(mean, log_var, mask, aux)
         logits = self.decode(z)
-        nll_b = elbo_lib.bernoulli_nll(logits, x, mask)
+        nll = (elbo_lib.bernoulli_nll if c.likelihood == "bernoulli"
+               else elbo_lib.gaussian_nll)
+        nll_b = nll(logits, x, mask, feature_mask)
         loss = torch.mean(nll_b + beta * kl_b)
+        if log_var is not None:
+            aux = {**aux, "log_var": log_var}
         return ELBOOutput(loss=loss, nll=nll_b, kl=kl_b, beta=beta,
                           latent_mean=mean, latent_sample=z, logits=logits,
                           aux=aux)

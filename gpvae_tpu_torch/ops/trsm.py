@@ -1,7 +1,8 @@
 """Batched triangular solves.
 
 Counterpart of ``gpvae_tpu/ops/trsm.py:33-80``.  Two routes, split as the
-JAX package splits them:
+JAX package splits them by default (``via_inverse=None``; True or False
+takes one route on any device, as there):
 
 * a lower-triangular ``A`` of side <= ``INV_ROUTE_MAX_T`` on a CUDA tensor:
   the explicit inverse ``op(A)^{-1}`` from ``ops.tri_inv`` (the
@@ -33,11 +34,17 @@ def solve_triangular(
     left_side: bool = True,
     lower: bool = True,
     transpose_a: bool = False,
+    via_inverse: bool | None = None,
 ) -> torch.Tensor:
     """Solve ``op(A) X = B`` (``left_side``) or ``X op(A) = B``, ``A``
     triangular, batched over leading dims; ``op(A) = A^T`` when
-    ``transpose_a``."""
-    if dispatch.on_cuda(a) and lower and a.shape[-1] <= INV_ROUTE_MAX_T:
+    ``transpose_a``.  ``via_inverse`` forces (True) or refuses (False)
+    the inverse route; None takes it for a lower ``A`` of side <=
+    ``INV_ROUTE_MAX_T`` on a CUDA tensor.  Either way an upper ``A`` or a
+    larger side takes the substitution."""
+    if via_inverse is None:
+        via_inverse = dispatch.on_cuda(a)
+    if via_inverse and lower and a.shape[-1] <= INV_ROUTE_MAX_T:
         inv = tri_inv(a)
         op = inv.mT if transpose_a else inv
         return op @ b if left_side else b @ op

@@ -25,9 +25,9 @@ import torch
 
 from gpvae_tpu_torch import elbo as elbo_lib
 from gpvae_tpu_torch.data.batching import Batcher
-from gpvae_tpu_torch.models import GPVAE
+from gpvae_tpu_torch.models import GPVAE, resolve_structured_prior
 
-_BATCH_KEYS = ("x", "times", "mask")
+_BATCH_KEYS = ("x", "times", "mask", "feature_mask")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,8 +64,10 @@ def create_train_state(model: GPVAE, config: TrainConfig,
 
 def train_step(state: TrainState, batch: dict, beta: float, *,
                eps: torch.Tensor | None = None) -> dict:
-    """One Adam step on the ELBO of ``batch``; returns the step's metrics
-    as device tensors (reading them is the caller's choice of sync)."""
+    """One Adam step on the ELBO of ``batch`` (``x``, ``times``, ``mask``
+    and, where the data has one, ``feature_mask``); returns the step's
+    metrics as device tensors (reading them is the caller's choice of
+    sync)."""
     model = state.model
     # lengthscale trajectories are a first-class observable (the
     # reference prints them every 500 steps); values before the update
@@ -74,7 +76,8 @@ def train_step(state: TrainState, batch: dict, beta: float, *,
         for name, p in model.named_parameters() if name.endswith("_log_ls")
     }
     out = model(batch["x"], batch["times"], batch["mask"], beta=beta,
-                eps=eps, generator=state.generator)
+                feature_mask=batch.get("feature_mask"), eps=eps,
+                generator=state.generator)
     state.optimizer.zero_grad(set_to_none=True)
     out.loss.backward()
     state.optimizer.step()
@@ -201,12 +204,15 @@ class MetricsLog:
 
 def device_arrays(arrays: dict, device: torch.device) -> dict:
     """The batch arrays of a dataset as tensors on ``device``: ``x`` and
-    ``times`` float32, ``mask`` bool."""
-    dtypes = {"x": torch.float32, "times": torch.float32, "mask": torch.bool}
+    ``times`` float32, ``mask`` bool, and ``feature_mask`` (bool) where
+    the dataset has one: without it the likelihood would train the model
+    to predict the zero fill of missing features (``train.py:505-518``)."""
+    dtypes = {"x": torch.float32, "times": torch.float32, "mask": torch.bool,
+              "feature_mask": torch.bool}
     return {
         key: torch.as_tensor(np.asarray(arrays[key])).to(
             device=device, dtype=dtypes[key])
-        for key in _BATCH_KEYS
+        for key in _BATCH_KEYS if arrays.get(key) is not None
     }
 
 
@@ -238,10 +244,15 @@ def fit(
     and checkpoint.  Pass ``state`` to continue a run.  With
     ``config.checkpoint_dir`` the run resumes from the newest checkpoint
     there, saves one every ``config.checkpoint_every`` steps and one at
-    the end.
+    the end.  The model's ``structured_prior`` is first resolved against
+    the dataset's first rows (``models.resolve_structured_prior``,
+    ``train.py:412-415``).
     """
     if not isinstance(batches, Batcher):
         raise TypeError("fit takes a gpvae_tpu_torch.data.Batcher")
+    first = {key: v[:batches.batch_size] for key, v in batches.arrays.items()}
+    model.config = resolve_structured_prior(model.config, first["times"],
+                                            first.get("mask"))
     device = torch.device(device)
     if state is None:
         state = create_train_state(model, config, device)

@@ -310,10 +310,18 @@ def test_chol_gram_bank_matches_jax_kernel_route_fp32():
 
 
 def test_chol_gram_bank_times_get_no_gradient():
+    """Without ``diff_times`` the times get no gradient (the JAX package
+    returns an explicit zero); with it they do, and the lengthscales'
+    gradient is the same (tests/test_torch_zoo.py holds the times'
+    gradient against JAX)."""
     times, mask, _ = _inputs(7, 2, 6)
     tt = torch.tensor(times).requires_grad_(True)
     ls = torch.tensor([2.0, 5.0], dtype=torch.float64, requires_grad=True)
     tgp.chol_gram_bank(tt, ls, mask=torch.tensor(mask)).sum().backward()
     assert tt.grad is None and ls.grad is not None
-    with pytest.raises(NotImplementedError, match="slice"):
-        tgp.chol_gram_bank(tt, ls, diff_times=True)
+    ls_grad = ls.grad.clone()
+    ls.grad = None
+    tgp.chol_gram_bank(tt, ls, mask=torch.tensor(mask),
+                       diff_times=True).sum().backward()
+    assert tt.grad is not None and bool(torch.isfinite(tt.grad).all())
+    assert torch.allclose(ls.grad, ls_grad, rtol=1e-14, atol=0)

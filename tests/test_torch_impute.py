@@ -578,8 +578,12 @@ def test_evaluate_cli_on_the_cpu(tmp_path, capsys):
     main(["evaluate", *common, "--eval-batch", "4", "--data",
           str(tmp_path / "toy.npz")])
     assert json.loads(capsys.readouterr().out) == fresh
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["evaluate", *common, "--plots", str(tmp_path / "p")])
+    # --plots: a dense decoder's latents and traversal (Agg backend)
+    main(["evaluate", *common, "--eval-batch", "4", "--plots",
+          str(tmp_path / "p"), "--traversal", "0"])
+    assert capsys.readouterr().out.splitlines()[-1].startswith(
+        "plots written to")
+    assert sorted(os.listdir(tmp_path / "p")) == ["latents.png",
+                                                  "traversal.png"]
     with pytest.raises(SystemExit, match="no checkpoint"):
         main(["evaluate", *common, "--ckpt-dir", str(tmp_path / "none")])
-    assert not os.path.exists(tmp_path / "p")

@@ -272,15 +272,52 @@ def test_fit_refuses_what_is_not_ported():
 @pytest.mark.parametrize("overrides,slice_", [
     (dict(posterior="diag"), "slice 4"),
     (dict(prior="standard"), "slice 4"),
-    (dict(encoder="conv"), "slice 4"),
+    (dict(encoder="conv", decoder="conv", image_shape=(8, 8, 1),
+          obs_dim=64, time_len=6), "slice 4"),
     (dict(shared_time_grid=True), "slice 4"),
     (dict(prior="sparse_gp", posterior="diag",
-          inducing_time_range=(0.0, 1.0)), "slice 5"),
-])
+          inducing_time_range=(0.0, 1.0)), "slice 5a"),
+    (dict(shared_time_grid=True, structured_prior="toeplitz"), "slice 5b"),
+], ids=["overrides0-slice 4", "overrides1-slice 4", "overrides2-slice 4",
+        "overrides3-slice 4", "overrides4-slice 5", "overrides5-slice 5b"])
 def test_unported_configurations_name_their_slice(overrides, slice_):
-    cfg = GPVAEConfig(**overrides)
-    with pytest.raises(NotImplementedError, match=slice_):
-        GPVAE(cfg)
+    """The FITC prior and the Toeplitz structured prior raise, naming
+    their slices.  The configurations slice 4 brought (a diagonal
+    posterior, the standard prior, conv nets, a shared grid) build, and
+    their ELBO matches the JAX model's in float64 with its own noise
+    (every pair and gradient: tests/test_torch_zoo.py)."""
+    cfg = GPVAEConfig(learn_prior_lengthscales=True, **overrides)
+    if slice_ != "slice 4":
+        with pytest.raises(NotImplementedError, match=slice_):
+            GPVAE(cfg)
+        return
+    from gpvae_tpu.models import GPVAEConfig as JConfig
+    jcfg = JConfig(**dataclasses.asdict(cfg))
+    t, b = cfg.time_len, 2
+    x, times, mask = _batch(20, b=b, t=t)
+    if cfg.encoder == "conv":
+        x = ((np.random.default_rng(21).random((b, t, 8, 8, 1)) < 0.4)
+             * mask[..., None, None, None]).astype(np.float64)
+    if cfg.shared_time_grid:
+        times = np.broadcast_to(np.arange(t, dtype=np.float64), (b, t))
+        mask = np.ones((b, t), bool)
+    jmodel = JGPVAE(jcfg)
+    args = (jnp.asarray(x), jnp.asarray(times), jnp.asarray(mask))
+    params = jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.float64),
+        jax.jit(jmodel.init)({"params": jax.random.key(0),
+                              "sample": jax.random.key(1)}, *args))
+    key = jax.random.key(22)
+    ref = jax.jit(lambda p: jmodel.apply(p, *args, rngs={"sample": key}))(
+        params)
+    model = _port_model(jcfg, params, torch.float64)
+    eps = _jax_eps(jmodel, params, key, model.noise_shape(1, b, t),
+                   jnp.float64)
+    out = model(torch.tensor(x, dtype=torch.float64), torch.tensor(times),
+                torch.tensor(mask), eps=torch.tensor(eps))
+    for name in ("loss", "nll", "kl"):
+        assert _rel(getattr(out, name).detach().numpy(),
+                    getattr(ref, name)) <= FP64_VS_JAX_REL, name
 
 
 def test_config_validation_matches_jax():
@@ -309,7 +346,9 @@ def test_import_leaves_jax_out():
         "import sys, gpvae_tpu_torch, gpvae_tpu_torch.__main__, "
         "gpvae_tpu_torch.configs, gpvae_tpu_torch.convert, "
         "gpvae_tpu_torch.models, gpvae_tpu_torch.train, "
-        "gpvae_tpu_torch.data; "
+        "gpvae_tpu_torch.data, gpvae_tpu_torch.data.moving_mnist, "
+        "gpvae_tpu_torch.nets, gpvae_tpu_torch.gp, gpvae_tpu_torch.analysis, "
+        "gpvae_tpu_torch.utils.plotting; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'gpvae_tpu')]; "
         "assert not bad, bad"
