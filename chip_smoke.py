@@ -33,8 +33,12 @@ Phases, each printing one line (a failed check exits nonzero at once):
    and ``ops.trsm.solve_triangular`` in its four forms; for the
    right-looking route, ``trail_panel`` and ``trail_update`` at nb in
    {64, 128}, R in {256, 1024}, N=128, and ``ops.chol.cholesky(method=m)``
-   for every method on the same pre-built banks.  Every L and L^-1 has an
-   exactly zero strict upper triangle;
+   for every method on the same pre-built banks; at the shapes of
+   ``healing_mnist`` and ``sparse_t4096``, ``gram_chol`` with the Cauchy
+   kernel on a shared grid (N=128, T in {10, 17, 33}), ``chol_block`` at
+   FITC's K_mm and B (N=64, m=64), ``tri_inv`` of each, and
+   ``ops.chol.cholesky`` of evaluate's T=4096 bank (32 blocks).  Every L
+   and L^-1 has an exactly zero strict upper triangle;
 4. main paths, each with every kernel counter set to 0 just before it and
    read just after (and no call of ``torch.linalg.cholesky`` or
    ``solve_triangular`` in between), and the trained model's ELBO and
@@ -68,6 +72,20 @@ Phases, each printing one line (a failed check exits nonzero at once):
       from their checkpoints as in d. (one ``chol_block`` launch over
       N=1600), and ``vanilla_vae``'s evaluate raising the JAX package's
       ``ValueError``;
+   g. ``healing_mnist`` (BASELINE config 2) at its widths (B=64, T=10,
+      Z=64, 28 x 28 frames, the Cauchy kernel on a shared grid) 100 steps
+      on synthetic healing sequences with their ``feature_mask``:
+      ``gram_chol`` 1 and ``tri_inv`` 2 a step, no other kernel; its ELBO
+      against the CPU as the zoo's; ``evaluate`` of its checkpoint (the
+      missing-pixel metrics, no kernel) against the CPU in float64;
+   h. ``sparse_t4096`` (BASELINE config 4) at its widths (B=8, T=4096,
+      Z=8, m=64) 100 steps on unit-grid toy sequences: ``chol_block`` 2
+      and ``tri_inv`` 3 a step, no other kernel; its ELBO, and
+      ``fitc_diag_kl`` with its lengthscale gradient, against the CPU in
+      float64 at the float32 jitter; ``evaluate`` of its checkpoint at
+      ``--eval-batch 2`` (32 ``hist_panel``, 32 ``chol_block``, 31
+      ``panel_solve``, the library's solve at T=4096), metrics and
+      posterior mean against the CPU in float64, and its peak memory;
    f. ``ops.chol.cholesky(method="blocked_fused")`` of a pre-built bank
       at T=1024, N=128, forward and backward: exactly 8 ``chol_block``
       (7 with L^-1), 7 ``trail_panel`` and 7 ``trail_update`` launches,
@@ -91,7 +109,10 @@ Phases, each printing one line (a failed check exits nonzero at once):
    sector per diagonal element;
    ``trail_panel`` and ``trail_update`` at the T=1024, N=128 middle step,
    and ``cholesky`` under ``auto``, ``blocked_fused`` and ``xla`` at
-   (T, N) in {(256, 512), (512, 256), (1024, 128)}.
+   (T, N) in {(256, 512), (512, 256), (1024, 128)}; the two BASELINE
+   paths' steps/s and their evaluate calls, ``gram_chol`` (Cauchy, N=128,
+   T=10), ``chol_block`` and ``tri_inv`` (N=64, m=64) and the pre-built
+   factorization at T=4096 (N=16).
 
 Then one JSON line with the kernels' results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -102,6 +123,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -194,6 +216,8 @@ IMPUTE_MEAN_REL = 1e-4
 METRIC_REL = 1e-4
 SAMPLE_REL = 1e-3
 METRICS = ("nll_gp_impute", "mse_gp_impute", "nll_baseline", "mse_baseline")
+PIXEL_METRICS = ("nll_model", "mse_model", "nll_marginal_baseline",
+                 "mse_marginal_baseline")
 
 SYN_B, SYN_T, SYN_Z, SYN_D = 20, 45, 2, 15
 MAIN_STEPS = 400
@@ -233,9 +257,49 @@ ZOO_WINDOW = 20
 # (gpvae_tpu/analysis.py:346-353)
 VANILLA_EVAL_ERROR = "lengthscales (9.0, 3.0) incompatible with Z=100"
 
+# BASELINE config 2, healing_mnist at its widths (phase 4g): 28 x 28 frames,
+# T=10, Z=64, B=64, the Cauchy kernel on one grid shared by the batch;
+# synthetic healing sequences from seed 0, split as the CLI splits them
+# (144 train, the last 16 the evaluate batch)
+HEAL_T, HEAL_Z, HEAL_B = 10, 64, 64
+HEAL_STEPS = 100
+HEAL_SEQS = 160
+HEAL_EVAL_B = 16
+# phase 3's Cauchy sides of gram_chol at healing's N = 2Z: its T=10, and
+# ragged last panels above one panel of 16
+CAUCHY_TS = (HEAL_T, 17, 33)
+# BASELINE config 4, sparse_t4096 at its widths (phase 4h): T=4096, Z=8,
+# B=8, m=64 inducing points over [0, 4096].  Training and the ELBO take toy
+# sequences on the unit grid 0 .. 4095, the inducing grid's range (the
+# CLI's toy data lie on 0 .. 60: ROADMAP, "Found in the reference");
+# evaluate takes the CLI's own, 20 sequences of which it scores the last 2
+SPARSE_T, SPARSE_Z, SPARSE_B, SPARSE_M = 4096, 8, 8, 64
+SPARSE_STEPS = 100
+SPARSE_SEQS = 32
+SPARSE_XMAX = 4095.0
+SPARSE_EVAL_B = 2
+# the FITC jitter of a float32 run (sparse._resolve_jitter), given to the
+# float64 side of every sparse comparison: float64's own default (1e-6) is
+# another prior by design
+SPARSE_JITTER = 1e-4
+# the sparse_t4096 row of the float64-oracle accuracy table (BASELINE.md):
+# KL rel 9.8e-4 (of |KL|), dKL/dlog ls rel 1.0e-2
+SPARSE_KL_REL = 9.8e-4
+SPARSE_LOG_LS_GRAD_REL = 1.0e-2
+# the batches of phase 4h's fitc_diag_kl comparison
+FITC_SEEDS = (11, 12, 13, 14)
+# launches a training step, every other counter 0: healing's one stacked
+# Cauchy bank, the KL's inverse of L_p and the Cholesky backward's (the
+# learned posterior lengthscale); FITC's K_mm and B, and its three solves
+# (L_mm twice, as the JAX package solves, and L_B) with no backward
+# through them (the prior lengthscale is fixed)
+HEAL_LAUNCHES = {"gram_chol": 1, "tri_inv": 2}
+SPARSE_LAUNCHES = {"chol_block": 2, "tri_inv": 3}
+
 # sequences each evaluate run generates (the CLI scores the last 10%)
 EVAL_SEQS = {"syn_data": 200, "bench_t100": 320,
-             "full_gp_dynamic": ZOO_SEQS, "gp_prior_diag": ZOO_SEQS}
+             "full_gp_dynamic": ZOO_SEQS, "gp_prior_diag": ZOO_SEQS,
+             "healing_mnist": HEAL_SEQS, "sparse_t4096": 20}
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): float32 outside the
 # tensor cores and HBM3 bandwidth; a bound is the larger of the two times
 PEAK_FP32_FLOPS = 67e12
@@ -830,18 +894,84 @@ def solve_at(view, o, w) -> None:
     _build.check_status(lib, status, "panel_solve")
 
 
+def check_solve_case(l64, o, w, col=None) -> float:
+    """``panel_solve`` on the factored block ``L_d`` of the float64 factor
+    ``l64 [N, T, T]`` and the panel below it as the factorization hands it
+    over (P = L[o+w:, o:o+w] L_d^T), the rest of L noise, in float32 (in a
+    view at column offset ``col`` where given): against the plain version
+    in float64 on the same inputs (band ``PANEL_ABS``), the zero tile
+    exactly zero, and nothing else written.  Returns the max abs error."""
+    import torch
+
+    from gpvae_tpu_torch.ops import blocked
+
+    n, t, _ = l64.shape
+    dev = l64.device
+    l = torch.randn((n, t, t), dtype=torch.float64, device=dev)
+    d = l64[:, o:o + w, o:o + w]
+    l[:, o:o + w, o:o + w] = d
+    l[:, o + w:, o:o + w] = l64[:, o + w:, o:o + w] @ d.mT
+    l = l.float()
+    ref = l.double()
+    blocked.panel_solve_plain(ref, o, w)
+    name = f"panel_solve N={n} T={t} o={o} w={w} view={col}"
+    if col is None:
+        got = l.clone()
+        blocked.panel_solve(got, o, w)
+    else:
+        big = torch.full((n, t + 6, t + 16), float("nan"), device=dev)
+        big[:, 3:t + 3, col:t + col] = l
+        got = big[:, 3:t + 3, col:t + col]
+        solve_at(got, o, w)
+        outside = big.clone()
+        outside[:, 3:t + 3, col:t + col] = float("nan")
+        if not bool(torch.isnan(outside).all()):
+            fail(f"{name}: wrote outside the view")
+    torch.cuda.synchronize()
+    err = (got.double() - ref).abs().max().item()
+    if not err <= PANEL_ABS:
+        fail(f"{name}: max abs err {err:.3e} > {PANEL_ABS:.0e}")
+    if not bool((got[:, o:o + w, o + w:] == 0).all()):
+        fail(f"{name}: the zero tile is not zero")
+    keep = torch.ones((t, t), dtype=torch.bool, device=dev)
+    keep[o + w:, o:o + w] = False
+    keep[o:o + w, o + w:] = False
+    if not torch.equal(got[:, keep], l[:, keep]):
+        fail(f"{name}: wrote outside the panel and the zero tile")
+    return err
+
+
+def check_hist_case(l64, k, r0, o, w) -> float:
+    """``hist_panel`` on the float32 rounding of the factor ``l64 [N, T,
+    T]`` of ``k`` (its own history) against its plain version in float64
+    on the same inputs (band ``PANEL_ABS``), ``k`` read, never written.
+    Returns the max abs error."""
+    import torch
+
+    from gpvae_tpu_torch.ops import blocked
+
+    n, t, _ = l64.shape
+    k_copy = k.clone()
+    got = l64.float().contiguous()
+    ref = got.double()
+    blocked.hist_panel(got, k, r0, o, w)
+    blocked.hist_panel_plain(ref, k.double(), r0, o, w)
+    err = (got.double() - ref).abs().max().item()
+    if not err <= PANEL_ABS:
+        fail(f"hist_panel N={n} T={t} r0={r0} o={o} w={w}: max abs err "
+             f"{err:.3e} > {PANEL_ABS:.1e}")
+    if not torch.equal(k, k_copy):
+        fail("hist_panel wrote into K")
+    return err
+
+
 def check_panel_solve(dev) -> dict:
-    """Phase 3, ``panel_solve`` at ``SOLVE_CASES``: the factored block of a
-    masked gram's float64 factor and the panel below it as the
-    factorization hands it over (P = L[o+w:, o:o+w] L_d^T), the rest of L
-    noise, in float32; against the plain version in float64 on the same
-    inputs (band ``PANEL_ABS``), the zero tile exactly zero, and nothing
-    else written."""
+    """Phase 3, ``panel_solve`` at ``SOLVE_CASES`` (:func:`check_solve_case`)
+    on the factor of a masked gram, computed in float64."""
     import numpy as np
     import torch
 
     from gpvae_tpu_torch import kernels as kernels_lib
-    from gpvae_tpu_torch.ops import blocked
 
     rng = np.random.default_rng(6)
     worst = 0.0
@@ -850,39 +980,8 @@ def check_panel_solve(dev) -> dict:
         l64 = torch.linalg.cholesky(kernels_lib.gram(
             times.double(), ls.double()[:, None, None],
             variance=var.double()[:, None, None], mask=mask))
-        l = torch.randn((n, t, t), dtype=torch.float64, device=dev)
-        d = l64[:, o:o + w, o:o + w]
-        l[:, o:o + w, o:o + w] = d
-        l[:, o + w:, o:o + w] = l64[:, o + w:, o:o + w] @ d.mT
-        l = l.float()
-        ref = l.double()
-        blocked.panel_solve_plain(ref, o, w)
-        name = f"panel_solve N={n} T={t} o={o} w={w} view={col}"
-        if col is None:
-            got = l.clone()
-            blocked.panel_solve(got, o, w)
-        else:
-            big = torch.full((n, t + 6, t + 16), float("nan"), device=dev)
-            big[:, 3:t + 3, col:t + col] = l
-            got = big[:, 3:t + 3, col:t + col]
-            solve_at(got, o, w)
-            outside = big.clone()
-            outside[:, 3:t + 3, col:t + col] = float("nan")
-            if not bool(torch.isnan(outside).all()):
-                fail(f"{name}: wrote outside the view")
-        torch.cuda.synchronize()
-        err = (got.double() - ref).abs().max().item()
-        if not err <= PANEL_ABS:
-            fail(f"{name}: max abs err {err:.3e} > {PANEL_ABS:.0e}")
-        if not bool((got[:, o:o + w, o + w:] == 0).all()):
-            fail(f"{name}: the zero tile is not zero")
-        keep = torch.ones((t, t), dtype=torch.bool, device=dev)
-        keep[o + w:, o:o + w] = False
-        keep[o:o + w, o + w:] = False
-        if not torch.equal(got[:, keep], l[:, keep]):
-            fail(f"{name}: wrote outside the panel and the zero tile")
-        worst = max(worst, err)
-        del l64, l, ref, got
+        worst = max(worst, check_solve_case(l64, o, w, col))
+        del l64
     return {"panel_solve_shapes": worst,
             "panel_solve_cases": len(SOLVE_CASES)}
 
@@ -894,7 +993,7 @@ def check_prebuilt_kernels(dev) -> dict:
     import torch
 
     from gpvae_tpu_torch import kernels as kernels_lib
-    from gpvae_tpu_torch.ops import blocked, chol, trsm
+    from gpvae_tpu_torch.ops import chol, trsm
 
     rng = np.random.default_rng(3)
     worst = {"hist_panel": 0.0, "cholesky": 0.0, "cholesky_vs_library": 0.0,
@@ -910,26 +1009,15 @@ def check_prebuilt_kernels(dev) -> dict:
                                mask=mask)
         return k64, k64.float()
 
-    # hist_panel against its plain version in float64 on the same inputs,
-    # on a factor's own history; K read, never written
+    # hist_panel on a factor's own history
     mid = LONG_T // 2
     for n, t, r0, o, w in ((64, LONG_T, mid, mid, 128),
                            (16, 300, 256, 256, 44), (16, 300, 280, 256, 44)):
         k64, k = bank(n, t)
-        l = torch.linalg.cholesky(k64).float().contiguous()
-        k_copy = k.clone()
-        got, ref = l.clone(), l.double()
-        blocked.hist_panel(got, k, r0, o, w)
-        blocked.hist_panel_plain(ref, k.double(), r0, o, w)
-        err = (got.double() - ref).abs().max().item()
-        if not err <= PANEL_ABS:
-            fail(f"hist_panel N={n} T={t} r0={r0} o={o} w={w}: max abs err "
-                 f"{err:.3e} > {PANEL_ABS:.1e}")
-        if not torch.equal(k, k_copy):
-            fail("hist_panel wrote into K")
-        worst["hist_panel"] = max(worst["hist_panel"], err)
+        worst["hist_panel"] = max(worst["hist_panel"], check_hist_case(
+            torch.linalg.cholesky(k64), k, r0, o, w))
         cases += 1
-        del k64, k, l, k_copy, got, ref
+        del k64, k
 
     # ops.cholesky of pre-built banks [B, 2, T, T], every route
     for t in PREBUILT_TS:
@@ -1100,6 +1188,158 @@ def check_trail_kernels(dev) -> dict:
     return worst
 
 
+def fitc_v0(times, inducing, ls, noise=1e-3, jitter=SPARSE_JITTER):
+    """FITC's whitened ``V0 = L_mm^{-1} K_mt D^{-1/2}`` and ``K_mm +
+    jitter I`` on the grids given, by the library in the inputs' dtype."""
+    import torch
+
+    from gpvae_tpu_torch import kernels as kernels_lib
+
+    m = inducing.shape[-1]
+    eye = torch.eye(m, dtype=times.dtype, device=times.device)
+    k_mm = kernels_lib.cross_gram(inducing, inducing, ls, noise=noise) + (
+        jitter * eye)
+    k_tm = kernels_lib.cross_gram(times, inducing, ls, noise=noise)
+    v = torch.linalg.solve_triangular(torch.linalg.cholesky(k_mm), k_tm.mT,
+                                      upper=False)
+    d = torch.clamp((1.0 - noise) - (v * v).sum(-2), min=0.0) + noise
+    return v / torch.sqrt(d)[..., None, :], k_mm
+
+
+# the column offsets (multiples of 128) of phase 3's hist_panel and
+# panel_solve cases on the T=4096 pre-built factor
+T4096_BLOCKS = (1920, 3840)
+
+
+def check_healing_fitc_kernels(dev) -> dict:
+    """Phase 3, the kernels at the shapes of ``healing_mnist`` and
+    ``sparse_t4096``: ``gram_chol`` with the Cauchy kernel on a grid shared
+    by the batch (one row of times 0 .. T-1, no mask, N = 2Z = 128, T in
+    ``CAUCHY_TS``) and ``tri_inv`` of each factor; ``ops.chol.cholesky``
+    (one ``chol_block`` launch) and ``tri_inv`` at FITC's two factors, the
+    inducing grams ``K_mm + 1e-4 I`` (N = B Z = 64 matrices of m=64) and
+    ``B = I + V0 V0^T`` on the unit grid; and ``ops.chol.cholesky`` of
+    evaluate's T=4096 pre-built bank (2 sequences x 8 latents on the CLI's
+    toy times, half the observed steps kept, ls 256, the jitter 1e-5 of
+    ``posterior_conditional``): 32 blocks of 128, with ``hist_panel`` and
+    ``panel_solve`` each held to its plain version on that bank's float64
+    factor at the column blocks ``T4096_BLOCKS``.  Returns the worst error
+    of each."""
+    import numpy as np
+    import torch
+
+    from gpvae_tpu_torch import kernels as kernels_lib
+    from gpvae_tpu_torch.ops import blocked, chol, chol_block, gram_chol
+    from gpvae_tpu_torch.ops import tri_inv
+
+    rng = np.random.default_rng(10)
+    worst = {"cauchy_gram_chol": 0.0, "cauchy_gram_chol_vs_library": 0.0,
+             "healing_fitc_tri_inv_rel": 0.0, "healing_fitc_tri_inv_abs": 0.0,
+             "fitc_cholesky": 0.0, "fitc_cholesky_vs_library": 0.0}
+    cases = 0
+
+    def inverse(name, l):
+        lf = l.reshape(-1, l.shape[-1], l.shape[-1])
+        rel, err = check_inverse(name, tri_inv.tri_inv_cuda(lf.contiguous()),
+                                 lf)
+        for key, v in (("healing_fitc_tri_inv_rel", rel),
+                       ("healing_fitc_tri_inv_abs", err)):
+            worst[key] = max(worst[key], v)
+
+    for t in CAUCHY_TS:
+        times = torch.arange(t, dtype=torch.float32, device=dev)[None]
+        ls = torch.tensor(rng.uniform(0.5, 4.0, 2 * HEAL_Z),
+                          dtype=torch.float32, device=dev)
+        name = f"T={t} N={2 * HEAL_Z} cauchy shared grid"
+        l = gram_chol.gram_chol_fused(times, ls, kernel="cauchy")
+        err, ratio = check_l(
+            f"gram_chol {name}", l,
+            gram_chol.gram_chol_plain(times.double(), ls.double(),
+                                      kernel="cauchy"),
+            gram_chol.gram_chol_plain(times, ls, kernel="cauchy"))
+        worst["cauchy_gram_chol"] = max(worst["cauchy_gram_chol"], err)
+        worst["cauchy_gram_chol_vs_library"] = max(
+            worst["cauchy_gram_chol_vs_library"], ratio)
+        inverse(f"tri_inv {name}", l)
+        cases += 2
+
+    # FITC's factors at the path's widths, on the preset's inducing grid
+    f64 = dict(dtype=torch.float64, device=dev)
+    s = torch.linspace(0.0, 4096.0, SPARSE_M, **f64)[None].expand(
+        SPARSE_B, -1)
+    ls = torch.tensor(rng.uniform(128.0, 384.0, SPARSE_Z), **f64)
+    grid = torch.arange(SPARSE_T, **f64)[None].expand(SPARSE_B, -1)
+    v0, k_mm = fitc_v0(grid, s, ls)
+    b_mat = torch.eye(SPARSE_M, **f64) + v0 @ v0.mT
+    del v0
+    for name, k64 in (("K_mm", k_mm), ("B", b_mat)):
+        k = k64.float()
+        before = chol_block.LAUNCHES
+        l = chol.cholesky(k)
+        if chol_block.LAUNCHES - before != 1:
+            fail(f"cholesky of FITC's {name} launched chol_block "
+                 f"{chol_block.LAUNCHES - before} times, not once")
+        label = f"FITC {name} N={SPARSE_B * SPARSE_Z} m={SPARSE_M}"
+        err, ratio = check_l(f"cholesky {label}", l,
+                             torch.linalg.cholesky(k64),
+                             torch.linalg.cholesky(k),
+                             vs_library=CHOL_VS_LIBRARY)
+        worst["fitc_cholesky"] = max(worst["fitc_cholesky"], err)
+        worst["fitc_cholesky_vs_library"] = max(
+            worst["fitc_cholesky_vs_library"], ratio)
+        inverse(f"tri_inv {label}", l)
+        cases += 2
+
+    # evaluate's T=4096 bank, as posterior_conditional builds it
+    batch = toy_batch(3, SPARSE_EVAL_B, SPARSE_T)
+    times = torch.tensor(batch["times"], **f64)
+    kept = torch.tensor(batch["mask"] & (rng.random(batch["mask"].shape)
+                                         >= 0.5), device=dev)
+    ls = torch.full((SPARSE_Z,), 256.0, **f64)
+    k64 = kernels_lib.gram_bank(times, ls, mask=kept) + 1e-5 * torch.eye(
+        SPARSE_T, **f64)
+    k = k64.float()
+    reset_counts()
+    l = chol.cholesky(k)
+    torch.cuda.synchronize()
+    got = read_counts()
+    blocks = SPARSE_T // blocked.NB
+    want = {"hist_panel": blocks, "chol_block": blocks,
+            "panel_solve": blocks - 1}
+    if {k_: v for k_, v in got.items() if v} != want:
+        fail(f"cholesky of the [{SPARSE_EVAL_B}, {SPARSE_Z}, {SPARSE_T}, "
+             f"{SPARSE_T}] bank launched {got}, not {want}")
+    ref = torch.linalg.cholesky(k64)
+    lib = torch.linalg.cholesky(k)
+    err, ratio = check_l(
+        f"cholesky T={SPARSE_T} N={SPARSE_EVAL_B * SPARSE_Z} pre-built", l,
+        ref, lib, vs_library=CHOL_VS_LIBRARY)
+    # the same blocked route on the plain versions (cuBLAS products, the
+    # library's blocks and solves), for the record
+    with plain_versions():
+        plain = chol.cholesky(k)
+    plain_ratio = ((plain.double() - ref).abs().max()
+                   / (lib.double() - ref).abs().max()).item()
+    del l, lib, plain
+    # hist_panel and panel_solve on that bank's own float64 factor at the
+    # factorization's middle and last column blocks: history 1920 and 3840
+    # columns deep, 2048 and 128 rows from the block down
+    hist = solve = 0.0
+    flat = (-1, SPARSE_T, SPARSE_T)
+    for o in T4096_BLOCKS:
+        hist = max(hist, check_hist_case(ref.reshape(flat), k.reshape(flat),
+                                         o, o, blocked.NB))
+        solve = max(solve, check_solve_case(ref.reshape(flat), o,
+                                            blocked.NB))
+    worst.update(prebuilt_t4096=err, prebuilt_t4096_vs_library=ratio,
+                 prebuilt_t4096_plain_vs_library=plain_ratio,
+                 prebuilt_t4096_launches=got, hist_panel_t4096=hist,
+                 panel_solve_t4096=solve,
+                 healing_fitc_cases=cases + 1 + 2 * len(T4096_BLOCKS))
+    del k64, k, ref
+    return worst
+
+
 # -- phase 4 ------------------------------------------------------------------
 
 def toy_batch(seed, b, t):
@@ -1156,10 +1396,11 @@ def elbo_vs_cpu(model, dev, b, t, *, kl_band, log_ls_band,
     same noise.  Each band is the stated one or 4x the error of the same
     model in float32 on the CPU on the same batch, whichever is larger.
     The KL is held per sequence over ``kl_scale + |KL|`` (default ``t``:
-    one latent's terms are of size T).  With ``match_gates`` each ReLU's
-    input is held to ``PREACT_REL`` and the gradients against float64 on
-    the same side of each ReLU's kink as the run judged.  The card's
-    forward and backward launch ``diag_logdet`` exactly
+    one latent's terms are of size T).  A batch's ``feature_mask``, where
+    it has one, reaches the NLL on both sides.  With ``match_gates`` each
+    ReLU's input is held to ``PREACT_REL`` and the gradients against
+    float64 on the same side of each ReLU's kink as the run judged.  The
+    card's forward and backward launch ``diag_logdet`` exactly
     ``logdet_per_forward`` times."""
     cpu = copy.deepcopy(model).to("cpu")
     per_seed = {seed: elbo_vs_cpu_seed(model, cpu, dev, b, t, seed,
@@ -1167,7 +1408,8 @@ def elbo_vs_cpu(model, dev, b, t, *, kl_band, log_ls_band,
                                        log_ls_band=log_ls_band,
                                        logdet_per_forward=logdet_per_forward,
                                        batch_fn=batch_fn,
-                                       kl_scale=kl_scale or t,
+                                       kl_scale=t if kl_scale is None
+                                       else kl_scale,
                                        match_gates=match_gates)
                 for seed in ELBO_SEEDS}
     model.zero_grad(set_to_none=True)
@@ -1193,7 +1435,10 @@ def elbo_vs_cpu_seed(model, cpu, dev, b, t, seed, *, kl_band,
         x = torch.tensor(batch["x"], dtype=dtype, device=device)
         times = torch.tensor(batch["times"], dtype=dtype, device=device)
         mask = torch.tensor(batch["mask"], device=device)
+        fmask = batch.get("feature_mask")
         out = m(x, times, mask, beta=1.0,
+                feature_mask=None if fmask is None
+                else torch.tensor(fmask, device=device),
                 eps=torch.tensor(eps, dtype=dtype, device=device))
         out.loss.backward()
         grads = {n: p.grad.detach().double().cpu()
@@ -1276,11 +1521,13 @@ def elbo_vs_cpu_seed(model, cpu, dev, b, t, seed, *, kl_band,
 
 def probe_loss(model, probe, eps, beta) -> float:
     """The training objective (``beta`` as the schedule has it) on a fixed
-    batch with fixed noise, no gradient."""
+    batch (with its ``feature_mask`` where it has one) with fixed noise, no
+    gradient."""
     import torch
 
     with torch.no_grad():
         return model(probe["x"], probe["times"], probe["mask"], beta=beta,
+                     feature_mask=probe.get("feature_mask"),
                      eps=eps).loss.item()
 
 
@@ -1411,16 +1658,19 @@ def main_path(dev, name, t, steps, num_seqs, window, ckpt_dir, *, kl_band,
 def eval_batch(preset_name, t, eval_b):
     """The sequences ``evaluate --seed 0`` scores: the first ``eval_b`` of
     the last 10% of its ``EVAL_SEQS`` sequences (``__main__.py``): toy
-    sequences, or the test split of synthetic Moving-MNIST videos."""
+    sequences, synthetic healing sequences, or the test split of synthetic
+    Moving-MNIST videos."""
     from gpvae_tpu_torch import configs
     from gpvae_tpu_torch.data import MovingMNIST, synthetic_moving_mnist
 
     n = EVAL_SEQS[preset_name]
-    if configs.get(preset_name).resolved_data_family == "mnist":
+    family = configs.get(preset_name).resolved_data_family
+    if family == "mnist":
         test = MovingMNIST(data=synthetic_moving_mnist(
             n, t=t, size=ZOO_SIDE, seed=0)).splits["test"]
         return {k: v[:eval_b] for k, v in test.items()}
-    batch = toy_batch(0, n, t)
+    batch = healing_batch(0, n, t) if family == "healing" else toy_batch(
+        0, n, t)
     n_train = int(0.9 * n)
     return {k: v[n_train:n_train + eval_b] for k, v in batch.items()}
 
@@ -1443,23 +1693,31 @@ def restored_model(preset_name, t, ckpt_dir, dev):
 
 
 def evaluate_path(dev, preset_name, t, eval_b, ckpt_dir, *, needs,
-                  absent=()) -> tuple[dict, dict]:
+                  absent=(), exact=None, library=()) -> tuple[dict, dict]:
     """``python -m gpvae_tpu_torch evaluate`` through ``__main__.main`` on
     the checkpoint of ``ckpt_dir``, with every counter set to 0 just
-    before and read just after and no library factorization or solve in
-    between; its metrics and the restored model's posterior mean held
-    against the same model on the CPU in float64 (and float32, for the
-    bands) with the same kept mask and baseline noise.  Returns the phase
-    fields and what phase 5 needs to time the path."""
+    before and read just after (each of ``exact`` launched exactly that
+    many times, where given) and no library factorization or solve in
+    between but those named in ``library``; its metrics held against the
+    same restored model on the CPU in float64 (``METRIC_REL``, or 4x the
+    CPU's float32 error), its count of scored steps or pixels exactly; the
+    card's peak memory over the call.  A healing preset is scored as the
+    CLI scores it, by ``pixel_imputation_metrics``; every other preset by
+    ``imputation_metrics``, with the same kept mask and baseline noise on
+    both sides, and the restored model's posterior mean held to
+    ``IMPUTE_MEAN_REL`` of its largest entry, or 4x the CPU's float32
+    error.
+    Returns the phase fields and what phase 5 needs to time the path."""
     import torch
 
-    from gpvae_tpu_torch import analysis
+    from gpvae_tpu_torch import analysis, configs
     from gpvae_tpu_torch.__main__ import main as cli
 
     argv = ["evaluate", "--preset", preset_name, "--time-len", str(t),
             "--num-seqs", str(EVAL_SEQS[preset_name]), "--eval-batch",
             str(eval_b), "--ckpt-dir", ckpt_dir, "--seed", "0"]
     out = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     with library_calls() as lib_calls, contextlib.redirect_stdout(out):
         t0 = time.perf_counter()
@@ -1467,11 +1725,16 @@ def evaluate_path(dev, preset_name, t, eval_b, ckpt_dir, *, needs,
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
     label = f"evaluate {preset_name} T={t}"
-    if any(lib_calls.values()):
+    if any(v for k, v in lib_calls.items() if k not in library):
         fail(f"{label} called the library's factorization or solve: "
              f"{lib_calls}")
     check_launches(label, launches, needs, absent)
+    for kernel, count in (exact or {}).items():
+        if launches[kernel] != count:
+            fail(f"{label} launched {kernel} {launches[kernel]} times, not "
+                 f"{count}")
     printed = out.getvalue().splitlines()
     if len(printed) != 2 or not printed[0].startswith("restored step "):
         fail(f"{label} printed {printed!r}")
@@ -1483,59 +1746,64 @@ def evaluate_path(dev, preset_name, t, eval_b, ckpt_dir, *, needs,
     card = restored_model(preset_name, t, ckpt_dir, dev)
     cpu32 = copy.deepcopy(card).to("cpu")
     cpu64 = copy.deepcopy(cpu32).double()
+    pixels = configs.get(preset_name).resolved_data_family == "healing"
+    keys, counted = ((PIXEL_METRICS, "missing_pixels") if pixels
+                     else (METRICS, "dropped_steps"))
 
-    def metrics(model, device, dtype):
-        x = torch.tensor(batch["x"], dtype=dtype, device=device)
-        times = torch.tensor(batch["times"], dtype=dtype, device=device)
-        mask = torch.tensor(batch["mask"], device=device)
+    def metrics(model, dtype):
+        if pixels:
+            return analysis.pixel_imputation_metrics(model, batch)
         return analysis.imputation_metrics(
-            model, x, times, mask, drop_fraction=0.5,
+            model, torch.tensor(batch["x"], dtype=dtype),
+            torch.tensor(batch["times"], dtype=dtype),
+            torch.tensor(batch["mask"]), drop_fraction=0.5,
             generator=torch.Generator().manual_seed(0))
 
-    want, lib = metrics(cpu64, "cpu", torch.float64), metrics(
-        cpu32, "cpu", torch.float32)
-    if got["dropped_steps"] != want["dropped_steps"] or not got[
-            "dropped_steps"]:
-        fail(f"{label}: {got['dropped_steps']} dropped steps, the CPU "
-             f"{want['dropped_steps']}")
+    want, lib = metrics(cpu64, torch.float64), metrics(cpu32, torch.float32)
+    if got[counted] != want[counted] or not got[counted]:
+        fail(f"{label}: {got[counted]} {counted}, the CPU {want[counted]}")
     errors, bands = {}, {}
-    for k in METRICS:
+    for k in keys:
         errors[k] = abs(got[k] - want[k]) / abs(want[k])
         bands[k] = max(METRIC_REL,
                        ELBO_VS_LIBRARY * abs(lib[k] - want[k]) / abs(want[k]))
+    context = {"model": card, "cpu_model": cpu32, "batch": batch}
+    if not pixels:
+        # the posterior mean, on the card and on the CPU, the same kept mask
+        kept = analysis.drop_timesteps(
+            torch.tensor(batch["mask"]), 0.5,
+            generator=torch.Generator().manual_seed(0))
 
-    # the posterior mean, on the card and on the CPU, the same kept mask
-    kept = analysis.drop_timesteps(torch.tensor(batch["mask"]), 0.5,
-                                   generator=torch.Generator().manual_seed(0))
+        def post_mean(model, device, dtype):
+            return analysis.impute(
+                model, torch.tensor(batch["x"], dtype=dtype, device=device),
+                torch.tensor(batch["times"], dtype=dtype, device=device),
+                torch.tensor(batch["mask"], device=device),
+                kept.to(device))[2].mean.double().cpu()
 
-    def post_mean(model, device, dtype):
-        return analysis.impute(
-            model, torch.tensor(batch["x"], dtype=dtype, device=device),
-            torch.tensor(batch["times"], dtype=dtype, device=device),
-            torch.tensor(batch["mask"], device=device),
-            kept.to(device))[2].mean.double().cpu()
+        ref = post_mean(cpu64, "cpu", torch.float64)
+        scale = ref.abs().max().item()
 
-    ref = post_mean(cpu64, "cpu", torch.float64)
-    scale = ref.abs().max().item()
+        def mean_err(mean):
+            return (mean - ref).abs().max().item() / scale
 
-    def mean_err(mean):
-        return (mean - ref).abs().max().item() / scale
-
-    errors["posterior_mean_rel"] = mean_err(post_mean(card, dev,
-                                                      torch.float32))
-    bands["posterior_mean_rel"] = max(
-        IMPUTE_MEAN_REL,
-        ELBO_VS_LIBRARY * mean_err(post_mean(cpu32, "cpu", torch.float32)))
+        errors["posterior_mean_rel"] = mean_err(post_mean(card, dev,
+                                                          torch.float32))
+        bands["posterior_mean_rel"] = max(
+            IMPUTE_MEAN_REL,
+            ELBO_VS_LIBRARY * mean_err(post_mean(cpu32, "cpu",
+                                                 torch.float32)))
+        context["kept"] = kept
     for k, v in errors.items():
         if not (math.isfinite(v) and v <= bands[k]):
             fail(f"{label} vs CPU float64: {k} {v:.3e} > {bands[k]:.3e}")
     fields = {"preset": preset_name, "time_len": t, "eval_batch": eval_b,
               "metrics": got, "metrics_cpu_fp64": want, "errors": errors,
               "bands": bands, "launches": launches,
-              "library_calls": dict(lib_calls), "cli_seconds": seconds}
+              "library_calls": dict(lib_calls), "cli_seconds": seconds,
+              "peak_memory_bytes": peak}
     phase("evaluate_path", **fields)
-    return fields, {"model": card, "cpu_model": cpu32, "batch": batch,
-                    "kept": kept}
+    return fields, context
 
 
 def check_posterior_sample(dev, model, batch, kept, cpu_model) -> dict:
@@ -1672,11 +1940,7 @@ def zoo_paths(dev, ck: str) -> tuple[dict, dict]:
         model, out, fit_more = train_path(
             dev, name, ZOO_T, steps, None, ckpt_dir,
             data=(ds.batchers["train"], probe))
-        want = {k: ZOO_LAUNCHES[name].get(k, 0) * steps
-                for k in out["launches"]}
-        if out["launches"] != want:
-            fail(f"{name}: launches {out['launches']} in {steps} steps, not "
-                 f"{want}")
+        exact_launches(name, out["launches"], ZOO_LAUNCHES[name], steps)
         out["elbo_vs_cpu_fp64"] = elbo_vs_cpu(
             model, dev, 2, ZOO_T, kl_band=KL_REL_TERMS,
             log_ls_band=LOG_LS_GRAD_REL, logdet_per_forward=0,
@@ -1704,6 +1968,223 @@ def zoo_paths(dev, ck: str) -> tuple[dict, dict]:
              "ValueError")
     phase("evaluate_vanilla_vae", raised=VANILLA_EVAL_ERROR)
     return paths, timing
+
+
+def exact_launches(label, launches, per_step, steps) -> None:
+    """Fail unless each kernel launched ``per_step`` times a step (0 where
+    not named) in ``steps`` steps."""
+    want = {k: per_step.get(k, 0) * steps for k in launches}
+    if launches != want:
+        fail(f"{label}: launches {launches} in {steps} steps, not {want}")
+
+
+def healing_batch(seed, b, t=HEAL_T):
+    """``b`` synthetic healing sequences from ``seed``
+    (``make_healing_batch``): zero-filled frames with their
+    ``feature_mask`` and ``x_clean``, times 0 .. t-1, a full mask."""
+    from gpvae_tpu_torch.data import make_healing_batch
+
+    return make_healing_batch(b, t=t, seed=seed)
+
+
+def sparse_batch(seed, b, t=SPARSE_T):
+    """``b`` toy sequences from ``seed`` on the unit grid 0 .. t-1."""
+    import numpy as np
+
+    from gpvae_tpu_torch.data import generate_toy_data, toy_to_masked_batch
+
+    return toy_to_masked_batch(generate_toy_data(
+        np.random.default_rng(seed), b, t=t, xmax=SPARSE_XMAX))
+
+
+@contextlib.contextmanager
+def fitc_jitter(jitter=SPARSE_JITTER):
+    """Inside the block FITC takes ``jitter`` wherever none is given, in
+    every dtype: the float64 side of a comparison gets the float32 run's
+    (``sparse._resolve_jitter``)."""
+    from gpvae_tpu_torch import sparse
+
+    real = sparse._resolve_jitter
+    sparse._resolve_jitter = lambda j, dtype: real(
+        jitter if j is None else j, dtype)
+    try:
+        yield
+    finally:
+        sparse._resolve_jitter = real
+
+
+def healing_path(dev, ck: str) -> tuple[dict, dict, dict]:
+    """Phase 4g: ``healing_mnist`` at its widths (B=64, T=10, Z=64, 28 x
+    28 frames, the Cauchy kernel on a shared grid) trained ``HEAL_STEPS``
+    steps through ``train.fit`` on the CLI's training split of
+    ``HEAL_SEQS`` synthetic healing sequences, each batch with its
+    ``feature_mask``: its launches exactly ``HEAL_LAUNCHES`` a step and no
+    other kernel, its ELBO and gradients against the CPU in float64 on
+    four batches of B=2 (the KL over ``Z T + |KL|``, the gradients on the
+    card's side of each ReLU kink, as the zoo's), then timed and scored by
+    ``evaluate`` (:func:`evaluate_path`, no kernel: the missing-pixel
+    metrics decode the encoder's means).  Returns the phase fields,
+    the timing and the evaluate call's context."""
+    from gpvae_tpu_torch.data import Batcher
+
+    name = "healing_mnist"
+    n_train = int(0.9 * HEAL_SEQS)
+    keys = ("x", "times", "mask", "feature_mask")
+    data = healing_batch(0, HEAL_SEQS)
+    probe = healing_batch(1, 8)
+    ckpt_dir = os.path.join(ck, name)
+    model, out, fit_more = train_path(
+        dev, name, HEAL_T, HEAL_STEPS, None, ckpt_dir,
+        data=(Batcher({k: data[k][:n_train] for k in keys}, HEAL_B, seed=0),
+              {k: probe[k] for k in keys}))
+    exact_launches(name, out["launches"], HEAL_LAUNCHES, HEAL_STEPS)
+    out["elbo_vs_cpu_fp64"] = elbo_vs_cpu(
+        model, dev, 2, HEAL_T, kl_band=KL_REL_TERMS,
+        log_ls_band=LOG_LS_GRAD_REL, logdet_per_forward=0,
+        batch_fn=healing_batch, kl_scale=HEAL_Z * HEAL_T, match_gates=True)
+    phase("healing_path", **out)
+    timing = time_path(fit_more, ZOO_WINDOW)
+    ev, ctx = evaluate_path(dev, name, HEAL_T, HEAL_EVAL_B, ckpt_dir,
+                            needs=(), exact={k: 0 for k in read_counts()})
+    return {name: out, f"evaluate_{name}": ev}, timing, ctx
+
+
+@contextlib.contextmanager
+def inverse_route():
+    """Inside the block FITC's triangular solves take the explicit-inverse
+    route on any device (``via_inverse=True``; on the CPU the inverse is
+    ``tri_inv``'s plain version, the library's), as they do on the card."""
+    from gpvae_tpu_torch import sparse
+
+    real = sparse.solve_triangular
+    sparse.solve_triangular = functools.partial(real, via_inverse=True)
+    try:
+        yield
+    finally:
+        sparse.solve_triangular = real
+
+
+def fitc_vs_cpu(model, dev) -> dict:
+    """``sparse.fitc_diag_kl`` at the path's widths (B=2 unit-grid
+    sequences, T=4096, Z=8, m=64) on the trained encoder's means and
+    log-variances, its lengthscales requiring a gradient, on the batch of
+    each seed of ``FITC_SEEDS``: on the card in float32 against the CPU in
+    float64, both at the float32 jitter.  The KL within ``SPARSE_KL_REL``
+    of |KL|, dKL/dmu and dKL/dlog v within ``GRAD_REL`` and dKL/dlog ls
+    within ``SPARSE_LOG_LS_GRAD_REL`` (BASELINE.md's sparse_t4096 row), or
+    4x the float32 error of the same computation on the CPU: the solves'
+    explicit inverses (:func:`inverse_route`, the card's route and the JAX
+    package's on its TPU).  The CPU's own float32 route (substitution) is
+    read for the record.  Each card run, forward and backward, launches
+    ``chol_block`` twice and ``tri_inv`` five times (the forward's three,
+    the Cholesky backward's of L_mm and L_B), nothing else."""
+    import torch
+
+    from gpvae_tpu_torch import sparse
+
+    log_ls = model.prior_log_ls.detach().double().cpu()
+    stated = {"kl_rel": SPARSE_KL_REL, "grad_mu_rel": GRAD_REL,
+              "grad_log_var_rel": GRAD_REL,
+              "grad_log_ls_rel": SPARSE_LOG_LS_GRAD_REL}
+    per_seed = {}
+    for seed in FITC_SEEDS:
+        batch = sparse_batch(seed, 2)
+        with torch.no_grad():
+            mean, log_var = model.encode(torch.tensor(batch["x"],
+                                                      device=dev))
+        mean, log_var = mean.double().cpu(), log_var.double().cpu()
+
+        def run(device, dtype):
+            args = [a.to(device, dtype, copy=True).requires_grad_(True)
+                    for a in (mean, log_var, log_ls)]
+            kl = sparse.fitc_diag_kl(
+                args[0], args[1],
+                torch.tensor(batch["times"], dtype=dtype, device=device),
+                model.inducing_times(dtype=dtype, device=device),
+                torch.exp(args[2]),
+                mask=torch.tensor(batch["mask"], device=device),
+                jitter=SPARSE_JITTER)
+            kl.sum().backward()
+            return kl.detach().double().cpu(), [a.grad.double().cpu()
+                                                for a in args]
+
+        reset_counts()
+        card = run(dev, torch.float32)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        exact_launches(f"fitc_diag_kl forward and backward, seed {seed}",
+                       launches, {"chol_block": 2, "tri_inv": 5}, 1)
+        ref = run("cpu", torch.float64)
+        with inverse_route():
+            same = run("cpu", torch.float32)
+        own = run("cpu", torch.float32)
+
+        def errors(r):
+            kl, grads = r
+            rel = [(torch.linalg.norm(g - g_ref) / torch.linalg.norm(g_ref)
+                    ).item() for g, g_ref in zip(grads, ref[1])]
+            return {"kl_rel": ((kl - ref[0]).abs() / ref[0].abs()).max()
+                    .item(), "grad_mu_rel": rel[0],
+                    "grad_log_var_rel": rel[1], "grad_log_ls_rel": rel[2]}
+
+        err, err_same, err_own = errors(card), errors(same), errors(own)
+        bands = {k: max(stated[k], ELBO_VS_LIBRARY * err_same[k])
+                 for k in err}
+        for k, v in err.items():
+            if not (math.isfinite(v) and v <= bands[k]):
+                fail(f"fitc_diag_kl on the card vs CPU float64, seed {seed}: "
+                     f"{k} {v:.3e} > {bands[k]:.3e} (CPU float32 on the "
+                     f"card's route {err_same[k]:.3e}, on its own "
+                     f"{err_own[k]:.3e})")
+        per_seed[seed] = {
+            "errors": err, "bands": bands,
+            "cpu_float32_same_route_errors": err_same,
+            "cpu_float32_own_route_errors": err_own, "launches": launches,
+            "kl_ref": ref[0].tolist()}
+    return per_seed
+
+
+def sparse_path(dev, ck: str) -> tuple[dict, dict, dict]:
+    """Phase 4h: ``sparse_t4096`` at its widths (B=8, T=4096, Z=8, m=64)
+    trained ``SPARSE_STEPS`` steps through ``train.fit`` on unit-grid toy
+    sequences: its launches exactly ``SPARSE_LAUNCHES`` a step and no
+    other kernel; its ELBO and gradients against the CPU in float64 on
+    four unit-grid batches of B=2, and ``fitc_diag_kl`` with its
+    lengthscale gradient (:func:`fitc_vs_cpu`), both at the float32
+    jitter; then timed and evaluated from its checkpoint at
+    ``--eval-batch 2`` (the CLI's toy data): the T=4096 pre-built
+    factorization exactly 32 ``hist_panel``, 32 ``chol_block`` and 31
+    ``panel_solve`` launches, no other kernel, and the library's
+    triangular solve above ``trsm.INV_ROUTE_MAX_T`` (in float64, a matrix
+    at a time), where the JAX package leaves it to XLA.  Returns the
+    phase fields, the timing and the evaluate call's context."""
+    from gpvae_tpu_torch.data import Batcher
+    from gpvae_tpu_torch.ops import blocked, trsm
+
+    name = "sparse_t4096"
+    ckpt_dir = os.path.join(ck, name)
+    model, out, fit_more = train_path(
+        dev, name, SPARSE_T, SPARSE_STEPS, None, ckpt_dir,
+        data=(Batcher(sparse_batch(0, SPARSE_SEQS), SPARSE_B, seed=0),
+              sparse_batch(1, 8)))
+    exact_launches(name, out["launches"], SPARSE_LAUNCHES, SPARSE_STEPS)
+    with fitc_jitter():
+        out["elbo_vs_cpu_fp64"] = elbo_vs_cpu(
+            model, dev, 2, SPARSE_T, kl_band=SPARSE_KL_REL,
+            log_ls_band=SPARSE_LOG_LS_GRAD_REL, logdet_per_forward=0,
+            batch_fn=sparse_batch, kl_scale=0.0)
+        out["fitc_kl_vs_cpu_fp64"] = fitc_vs_cpu(model, dev)
+    phase("sparse_path", **out)
+    timing = time_path(fit_more, ZOO_WINDOW)
+    blocks = SPARSE_T // blocked.NB
+    inverse_route = SPARSE_T <= trsm.INV_ROUTE_MAX_T
+    ev, ctx = evaluate_path(
+        dev, name, SPARSE_T, SPARSE_EVAL_B, ckpt_dir, needs=(),
+        exact={k: 0 for k in read_counts()} | {
+            "hist_panel": blocks, "chol_block": blocks,
+            "panel_solve": blocks - 1, "tri_inv": int(inverse_route)},
+        library=() if inverse_route else ("solve_triangular",))
+    return {name: out, f"evaluate_{name}": ev}, timing, ctx
 
 
 @contextlib.contextmanager
@@ -2260,12 +2741,101 @@ def time_methods(dev, rng) -> dict:
     return out
 
 
-def time_evaluate(ctx) -> dict:
-    """The T=1024 evaluate path (``imputation_metrics`` of the restored
-    model on its B=32 batch, the kept mask and baseline noise given):
-    sequences imputed per second by the host clock, median of 5 calls
-    (each ends in the host reading the metrics), and the card's time and
-    busy share of one profiled call."""
+def time_healing_fitc_kernels(dev) -> dict:
+    """The kernels at the shapes ``healing_mnist`` and ``sparse_t4096``
+    give them: ``gram_chol`` with the Cauchy kernel at healing's step
+    (one shared grid of T=10, N=128), ``chol_block`` and ``tri_inv`` at
+    FITC's (N=64 inducing grams of m=64, pre-built, the float32 jitter),
+    and the pre-built factorization at evaluate's T=4096 bank (N=16)."""
+    import numpy as np
+    import torch
+
+    from gpvae_tpu_torch import kernels as kernels_lib
+    from gpvae_tpu_torch.ops import blocked, chol_block, gram_chol, tri_inv
+
+    rng = np.random.default_rng(12)  # its own draws: later banks unchanged
+    f, t, n = 4, HEAL_T, 2 * HEAL_Z
+    times = torch.arange(t, dtype=torch.float32, device=dev)[None]
+    ls = torch.tensor(rng.uniform(0.5, 4.0, n), dtype=torch.float32,
+                      device=dev)
+    k = kernels_lib.gram_bank(times, ls, kernel="cauchy")
+    out = {f"gram_chol_cauchy_T{t}_N{n}": time_kernel(
+        "gram_chol",
+        lambda: gram_chol.gram_chol_fused(times, ls, kernel="cauchy"),
+        lambda: gram_chol.gram_chol_plain(times, ls, kernel="cauchy"),
+        lambda: torch.linalg.cholesky(k),
+        # one row of times, ls [N]; L written whole
+        f * t + f * n + f * n * t * t, n * (t ** 3 / 3 + GRAM_OPS * t * t),
+        f"N={n}, T={t}, Cauchy, one shared grid", kernel="gram_chol")}
+
+    m, n = SPARSE_M, SPARSE_B * SPARSE_Z
+    s = torch.linspace(0.0, 4096.0, m, device=dev)[None].expand(SPARSE_B, -1)
+    ls = torch.full((SPARSE_Z,), 256.0, device=dev)
+    k_mm = (kernels_lib.cross_gram(s, s, ls) + SPARSE_JITTER * torch.eye(
+        m, device=dev)).reshape(n, m, m).contiguous()
+    buf = torch.empty_like(k_mm)
+    out[f"chol_block_fitc_m{m}_N{n}"] = time_kernel(
+        "chol_block", lambda: chol_block.chol_block(k_mm, out=buf),
+        lambda: chol_block.chol_block_plain(k_mm, out=buf),
+        lambda: torch.linalg.cholesky(k_mm),
+        f * n * (m * (m + 1) / 2 + m * m), n * m ** 3 / 3,
+        f"N={n}, m={m}, pre-built (FITC's K_mm)", kernel="chol_block")
+    lf = chol_block.chol_block(k_mm)[0]
+    eye = torch.eye(m, device=dev).expand_as(lf)
+    out[f"tri_inv_fitc_m{m}_N{n}"] = time_kernel(
+        "tri_inv", lambda: tri_inv.tri_inv_cuda(lf),
+        lambda: tri_inv.tri_inv_plain(lf),
+        lambda: torch.linalg.solve_triangular(lf, eye, upper=False),
+        f * n * (m * (m + 1) / 2 + m * m), n * m ** 3 / 3,
+        f"N={n}, m={m} (L_mm)", kernel="tri_inv")
+
+    batch = toy_batch(3, SPARSE_EVAL_B, SPARSE_T)
+    t, n = SPARSE_T, SPARSE_EVAL_B * SPARSE_Z
+    kept = torch.tensor(batch["mask"] & (rng.random(batch["mask"].shape)
+                                         >= 0.5), device=dev)
+    kb = (kernels_lib.gram_bank(torch.tensor(batch["times"], device=dev),
+                                torch.full((SPARSE_Z,), 256.0, device=dev),
+                                mask=kept)
+          + 1e-5 * torch.eye(t, device=dev)).reshape(n, t, t)
+
+    def factor_plain():
+        with plain_versions():
+            return blocked.cholesky_inplace(kb)
+
+    out[f"prebuilt_factorization_T{t}_N{n}"] = time_kernel(
+        "prebuilt factorization", lambda: blocked.cholesky_inplace(kb),
+        factor_plain, lambda: torch.linalg.cholesky(kb),
+        # K's lower triangle read, L written whole
+        f * n * (t * (t + 1) / 2 + t * t), n * t ** 3 / 3.0,
+        f"N={n}, T={t}, pre-built (evaluate's bank)", kernel="hist_panel")
+    return out
+
+
+def time_call(call, seqs, label) -> dict:
+    """Sequences scored per second by the host clock, median of 5 calls of
+    ``call`` (each ends in the host reading the metrics), and the card's
+    time and busy share of one profiled call."""
+    call()
+    secs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        call()
+        secs.append(time.perf_counter() - t0)
+    secs.sort()
+    prof = device_profile(call, label=label)
+    return {"sequences_per_call": seqs,
+            "seqs_imputed_per_s": seqs / secs[2],
+            "seconds_per_call": secs, "device_us_per_call":
+            prof["device_us"], "kernels_per_call": prof["kernels"],
+            "wall_us_per_call_under_profiler": prof["wall_us"],
+            "device_busy_share": prof["device_us"] / prof["wall_us"],
+            "top_kernels_us_per_call": prof["top"]}
+
+
+def time_evaluate(ctx, label) -> dict:
+    """An imputation evaluate path (``imputation_metrics`` of the restored
+    model on its batch, the kept mask and baseline noise given), timed by
+    :func:`time_call`."""
     import torch
 
     from gpvae_tpu_torch import analysis, train as train_lib
@@ -2277,27 +2847,11 @@ def time_evaluate(ctx) -> dict:
     noise = torch.randn((kept.shape[0], kept.shape[1],
                          model.config.latent_dim),
                         generator=torch.Generator().manual_seed(2)).to(dev)
-
-    def call():
-        return analysis.imputation_metrics(model, b["x"], b["times"],
-                                           b["mask"], kept=kept,
-                                           baseline_eps=noise)
-
-    call()
-    secs = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        call()
-        secs.append(time.perf_counter() - t0)
-    secs.sort()
-    prof = device_profile(call, label="the T=1024 evaluate call")
-    return {"sequences_per_call": kept.shape[0],
-            "seqs_imputed_per_s": kept.shape[0] / secs[2],
-            "seconds_per_call": secs, "device_us_per_call":
-            prof["device_us"], "kernels_per_call": prof["kernels"],
-            "wall_us_per_call_under_profiler": prof["wall_us"],
-            "device_busy_share": prof["device_us"] / prof["wall_us"],
-            "top_kernels_us_per_call": prof["top"]}
+    return time_call(
+        lambda: analysis.imputation_metrics(model, b["x"], b["times"],
+                                            b["mask"], kept=kept,
+                                            baseline_eps=noise),
+        kept.shape[0], label)
 
 
 def main() -> int:
@@ -2321,6 +2875,7 @@ def main() -> int:
 def run(dev) -> int:
     import torch
 
+    from gpvae_tpu_torch import analysis
     from gpvae_tpu_torch.ops import (
         _build, blocked, chol_block, gram_chol, logdet, trail, tri_inv,
     )
@@ -2356,9 +2911,10 @@ def run(dev) -> int:
     worst_pre = check_prebuilt_kernels(dev)
     worst_trail = check_trail_kernels(dev)
     worst_solve = check_panel_solve(dev)
+    worst_hf = check_healing_fitc_kernels(dev)
     phase("kernels_vs_plain", **worst, **worst_zoo, **worst_large,
-          **worst_pre,
-          **worst_trail, **worst_solve, l_band=L_MAX_ABS,
+          **worst_pre, **worst_trail, **worst_solve, **worst_hf,
+          l_band=L_MAX_ABS,
           l_vs_library=L_VS_LIBRARY, panel_band=PANEL_ABS,
           cholesky_band_vs_library=CHOL_VS_LIBRARY,
           fused_band_vs_library=FUSED_VS_LIBRARY,
@@ -2372,27 +2928,46 @@ def run(dev) -> int:
     with tempfile.TemporaryDirectory(prefix="_smoke_ckpt_", dir=root) as ck:
         paths, timing, context = main_paths(dev, ck)
         zoo, zoo_timing = zoo_paths(dev, ck)
+        heal, timing["healing_mnist"], heal_ctx = healing_path(dev, ck)
+        sparse, timing["sparse_t4096"], sparse_ctx = sparse_path(dev, ck)
     paths.update(zoo)
+    paths.update(heal)
+    paths.update(sparse)
     timing.update(zoo_timing)
     paths.update(method_paths(dev))
 
     # -- 5. timing -------------------------------------------------------
     per_kernel, whole = time_kernels(dev)
-    timing["evaluate_bench_t100_t1024"] = time_evaluate(context)
+    new_shapes = time_healing_fitc_kernels(dev)
+    whole.update(new_shapes)
+    timing["evaluate_bench_t100_t1024"] = time_evaluate(
+        context, "the T=1024 evaluate call")
+    timing["evaluate_sparse_t4096"] = time_evaluate(
+        sparse_ctx, "the T=4096 evaluate call")
+    heal_model = heal_ctx["model"]
+    timing["evaluate_healing_mnist"] = time_call(
+        lambda: analysis.pixel_imputation_metrics(heal_model,
+                                                  heal_ctx["batch"]),
+        HEAL_EVAL_B, "the healing evaluate call")
     phase("timing", paths=timing, kernels=per_kernel, whole_functions=whole,
           seconds_so_far=time.perf_counter() - t_start)
 
-    errors = {"gram_chol": max(worst["gram_chol"], worst_zoo["zoo_gram_chol"]),
+    errors = {"gram_chol": max(worst["gram_chol"], worst_zoo["zoo_gram_chol"],
+                               worst_hf["cauchy_gram_chol"]),
               "tri_inv": max(worst["tri_inv_abs"],
                              worst_large["tri_inv_large_abs"],
-                             worst_zoo["zoo_tri_inv_abs"]),
+                             worst_zoo["zoo_tri_inv_abs"],
+                             worst_hf["healing_fitc_tri_inv_abs"]),
               "chol_block": max(worst_large["chol_block"],
-                                worst_zoo["zoo_cholesky"]),
+                                worst_zoo["zoo_cholesky"],
+                                worst_hf["fitc_cholesky"]),
               "gram_panel": worst_large["gram_panel"],
               "panel_solve": max(worst_large["panel_solve"],
-                                 worst_solve["panel_solve_shapes"]),
+                                 worst_solve["panel_solve_shapes"],
+                                 worst_hf["panel_solve_t4096"]),
               "diag_logdet": worst_large["diag_logdet"],
-              "hist_panel": worst_pre["hist_panel"],
+              "hist_panel": max(worst_pre["hist_panel"],
+                                worst_hf["hist_panel_t4096"]),
               "trail_panel": worst_trail["trail_panel_abs"],
               "trail_update": worst_trail["trail_update_abs"]}
     sources = {"gram_chol": ("gram_chol.cu", "pallas_chol.py:673"),
@@ -2404,6 +2979,17 @@ def run(dev) -> int:
                "hist_panel": ("gram_panel.cu", "pallas_big.py:105"),
                "trail_panel": ("gram_panel.cu", "pallas_trail.py:53"),
                "trail_update": ("gram_panel.cu", "pallas_trail.py:53")}
+    # each kernel's times at the shapes of healing_mnist and sparse_t4096
+    # (hist_panel's: the whole T=4096 pre-built factorization it leads)
+    at_new = {}
+    for r in new_shapes.values():
+        kernel = {"prebuilt factorization": "hist_panel"}.get(r["name"],
+                                                              r["name"])
+        at_new.setdefault(kernel, []).append({
+            k: r[k] for k in ("name", "shape", "ms", "device_ms",
+                              "kernel_device_ms", "plain_ms",
+                              "plain_device_ms", "library_ms",
+                              "library_device_ms", "bound_ms", "bound_by")})
     lines = []
     for name, (src, tpu) in sources.items():
         r = per_kernel[name]
@@ -2418,7 +3004,8 @@ def run(dev) -> int:
             "device_ms": r["device_ms"],
             "kernel_device_ms": r["kernel_device_ms"],
             "plain_device_ms": r["plain_device_ms"],
-            "library_device_ms": r["library_device_ms"]})
+            "library_device_ms": r["library_device_ms"],
+            "at_new_shapes": at_new.get(name, [])})
     print(json.dumps({"kernels": lines}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

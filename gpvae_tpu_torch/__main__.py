@@ -1,7 +1,9 @@
 """Command-line entry point: ``python -m gpvae_tpu_torch <command>``.
 
     python -m gpvae_tpu_torch list-presets
-    python -m gpvae_tpu_torch train --preset syn_data --steps 5000 --ckpt-dir D
+    python -m gpvae_tpu_torch generate-data --out toy.npz --num-seqs 10000
+    python -m gpvae_tpu_torch train --preset syn_data --steps 5000 \
+        --data toy.npz --ckpt-dir D
     python -m gpvae_tpu_torch train --preset syn_data --steps 5 --device cpu
     python -m gpvae_tpu_torch train --preset bench_t100 --time-len 1024
     python -m gpvae_tpu_torch evaluate --preset syn_data --ckpt-dir D
@@ -11,15 +13,23 @@
         --num-seqs 64 --ckpt-dir D
     python -m gpvae_tpu_torch evaluate --preset full_gp_dynamic --ckpt-dir D \
         --plots out/ --traversal 0
+    python -m gpvae_tpu_torch train --preset healing_mnist --num-seqs 4608 \
+        --ckpt-dir D --plots out/ --plots-every 10000
+    python -m gpvae_tpu_torch evaluate --preset healing_mnist --ckpt-dir D
+    python -m gpvae_tpu_torch train --preset sparse_t4096 --ckpt-dir D
+    python -m gpvae_tpu_torch evaluate --preset sparse_t4096 --ckpt-dir D \
+        --eval-batch 2
 
 ``train`` and ``evaluate`` run on ``cuda`` unless ``--device`` says
 otherwise, and fail when no CUDA device is present.  The data follow the
 preset's family (``gpvae_tpu/__main__.py:49-110``): toy GP draws for the
 dense presets, of which ``evaluate`` scores the 10% that ``train`` holds
 out; Moving-MNIST videos for the conv presets, whose test split (the
-last 10%) ``evaluate`` scores.  Both are generated from ``--seed``;
-``--data`` reads a ``.npz`` of toy fields or a Moving-MNIST ``.npy``
-instead.
+last 10%) ``evaluate`` scores; healing sequences with missing pixels for
+``healing_mnist``, whose last 10% ``evaluate`` scores on the missing
+pixels (``analysis.pixel_imputation_metrics``).  All are generated from
+``--seed``; ``--data`` reads a ``.npz`` of toy fields (``generate-data``)
+or a Moving-MNIST ``.npy`` instead.
 """
 from __future__ import annotations
 
@@ -36,6 +46,17 @@ def cmd_list_presets(_args):
     for name in sorted(configs.PRESETS):
         p = configs.get(name)
         print(f"{name:20s} batch={p.batch_size:<5d} {p.description}")
+
+
+def cmd_generate_data(args):
+    """A ``.npz`` of ``data.generate_toy_data``'s fields from ``--seed``,
+    which ``--data`` reads (``gpvae_tpu/__main__.py:32-42``)."""
+    from gpvae_tpu_torch.data import generate_toy_data
+
+    data = generate_toy_data(np.random.default_rng(args.seed), args.num_seqs,
+                             t=args.time_len)
+    np.savez(args.out, **data)
+    print(f"wrote {args.num_seqs} sequences to {args.out}")
 
 
 def _device(name: str):
@@ -58,14 +79,28 @@ def _model_config(args, preset):
 def _load_batches(args, preset, model_cfg):
     """``(train Batcher, test arrays)`` of the preset's data family
     (``gpvae_tpu/__main__.py:49-110``): Moving-MNIST videos (``--data``
-    ``.npy``, or synthetic ones from ``--seed``) split 80/10/10, or toy
-    sequences split 90/10."""
+    ``.npy``, or synthetic ones from ``--seed``) split 80/10/10; healing
+    sequences split 90/10, the training split with its ``feature_mask``
+    and the test split with ``x_clean`` too; or toy sequences split
+    90/10."""
     from gpvae_tpu_torch.data import (
-        Batcher, MovingMNIST, synthetic_moving_mnist,
+        Batcher, MovingMNIST, make_healing_batch, synthetic_moving_mnist,
     )
 
     batch_size = args.batch_size or preset.batch_size
-    if preset.resolved_data_family == "mnist":
+    family = preset.resolved_data_family
+    if family == "healing":
+        # the feature_mask travels with every batch, or the NLL trains the
+        # model to predict the zero fill
+        batch = make_healing_batch(args.num_seqs, t=model_cfg.time_len,
+                                   size=model_cfg.image_shape[0],
+                                   seed=args.seed)
+        n_train = int(0.9 * batch["x"].shape[0])
+        train = {k: batch[k][:n_train]
+                 for k in ("x", "times", "mask", "feature_mask")}
+        test = {k: v[n_train:] for k, v in batch.items()}
+        return Batcher(train, batch_size, seed=args.seed), test
+    if family == "mnist":
         if args.data:
             ds = MovingMNIST(args.data, batch_size=batch_size)
         else:
@@ -119,8 +154,18 @@ def cmd_train(args):
     batches, _ = _load_batches(args, preset, model_cfg)
     model = GPVAE(model_cfg,
                   generator=torch.Generator().manual_seed(args.seed))
+    callbacks = None
+    if args.plots:
+        # periodic input/reconstruction/latent artifacts during training,
+        # the reference's savefig blocks every 10-20k steps
+        from gpvae_tpu_torch import analysis
+
+        probe = {k: v[:min(8, batches.batch_size)]
+                 for k, v in batches.arrays.items()}
+        callbacks = [(args.plots_every, analysis.make_artifact_callback(
+            model, probe, args.plots))]
     state, log = train_lib.fit(model, batches, train_cfg, device=device,
-                               csv_path=args.csv)
+                               csv_path=args.csv, callbacks=callbacks)
     final = log.rows[-1] if log.rows else {}
     print(f"done at step {state.step}: "
           f"loss={final.get('loss', float('nan')):.4f}")
@@ -130,7 +175,9 @@ def cmd_evaluate(args):
     """Restore the newest checkpoint of ``--ckpt-dir`` (without one, the
     model's seeded initial weights) and print the imputation metrics of
     the held-out sequences as one JSON line (``gpvae_tpu/__main__.py:
-    152-272``), with ``--stats`` the sorted activation variances, and
+    152-272``; for the healing family the missing-pixel metrics of
+    ``analysis.pixel_imputation_metrics``), with ``--stats`` the sorted
+    activation variances, and
     with ``--plots DIR`` PNGs of the imputation and latents (and with
     ``--traversal D`` of latent D's sweeps).  The kept mask and the
     baseline's noise come from a CPU generator seeded with ``--seed``, so
@@ -158,9 +205,14 @@ def cmd_evaluate(args):
             raise SystemExit(f"no checkpoint found in {args.ckpt_dir}")
         print(f"restored step {state.step}")
     x, times, mask = batch["x"], batch["times"], batch["mask"]
-    metrics = analysis.imputation_metrics(
-        model, x, times, mask, drop_fraction=args.drop_fraction,
-        generator=torch.Generator().manual_seed(args.seed))
+    if preset.resolved_data_family == "healing":
+        # missing pixels scored against the clean frames
+        metrics = analysis.pixel_imputation_metrics(
+            model, {k: v[: args.eval_batch] for k, v in test.items()})
+    else:
+        metrics = analysis.imputation_metrics(
+            model, x, times, mask, drop_fraction=args.drop_fraction,
+            generator=torch.Generator().manual_seed(args.seed))
     print(json.dumps(metrics))
     if args.stats:
         _, var_sorted = analysis.activation_stats(
@@ -228,12 +280,19 @@ def main(argv=None):
 
     sub.add_parser("list-presets").set_defaults(fn=cmd_list_presets)
 
+    g = sub.add_parser("generate-data")
+    g.add_argument("--out", required=True)
+    g.add_argument("--num-seqs", type=int, default=10_000)
+    g.add_argument("--time-len", type=int, default=45)
+    g.add_argument("--seed", type=int, default=0)
+    g.set_defaults(fn=cmd_generate_data)
+
     t = sub.add_parser("train")
     t.add_argument("--preset", required=True)
     t.add_argument("--data", help=".npz toy data or a Moving-MNIST .npy in "
                    "place of generated sequences")
     t.add_argument("--num-seqs", type=int, default=512,
-                   help="sequences to generate (toy: 90%% train; "
+                   help="sequences to generate (toy, healing: 90%% train; "
                    "Moving-MNIST: 80%%)")
     t.add_argument("--steps", type=int)
     t.add_argument("--log-every", type=int)
@@ -244,6 +303,11 @@ def main(argv=None):
                    help="override the preset's batch size")
     t.add_argument("--time-len", type=int,
                    help="override the preset's sequence length T")
+    t.add_argument("--plots", help="directory for periodic training "
+                   "artifacts (film strips / latent trajectories; needs "
+                   "matplotlib)")
+    t.add_argument("--plots-every", type=int, default=10_000,
+                   help="callback period for --plots (reference: 10-20k)")
     t.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                    "PyTorch versions of the kernels)")

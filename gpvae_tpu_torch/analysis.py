@@ -1,6 +1,6 @@
 """Imputation and analysis of a trained GP-VAE.
 
-Counterpart of ``gpvae_tpu/analysis.py:36-293`` and ``:346-353``:
+Counterpart of ``gpvae_tpu/analysis.py:36-400``:
 
 * :func:`encode`, :func:`decode`, :func:`reconstruct`;
 * :func:`drop_timesteps` -- drop a fraction of the observed steps;
@@ -10,7 +10,10 @@ Counterpart of ``gpvae_tpu/analysis.py:36-293`` and ``:346-353``:
 * :func:`impute_vae_prior` -- the N(0, 1)-fill baseline;
 * :func:`latent_traversal`, :func:`traversal_from_gp`, :func:`prior_draws`
   (dense prior only), :func:`activation_stats`;
-* :func:`imputation_metrics` -- the synthetic-imputation evaluation.
+* :func:`imputation_metrics` -- the synthetic-imputation evaluation;
+* :func:`pixel_imputation_metrics` -- the missing-pixel evaluation of the
+  healing-MNIST regime;
+* :func:`make_artifact_callback` -- periodic PNGs during ``train.fit``.
 
 The model is the port's ``GPVAE`` module, which holds its parameters, so
 no ``params`` argument goes with it.  Every function runs under
@@ -21,8 +24,8 @@ generator with one seed gives the same draws for a run on the card and
 one on the CPU, in either dtype.  (The JAX package draws from keys; its
 tests and this port's feed both the same numpy draws instead.)
 Frames may be ``[B, T, obs_dim]`` (dense nets) or ``[B, T, H, W, C]``
-(conv nets).  ``pixel_imputation_metrics`` and ``make_artifact_callback``
-arrive with the healing-MNIST slice (ROADMAP queue A).
+(conv nets).  A model with the FITC prior (``sparse_gp``) imputes under
+its prior's exact kernel: FITC approximates only the training KL.
 """
 from __future__ import annotations
 
@@ -255,3 +258,91 @@ def imputation_metrics(model: GPVAE, x, times, mask, *,
     return {"dropped_steps": int(dropped.sum()),
             "nll_gp_impute": nll_gp, "mse_gp_impute": mse_gp,
             "nll_baseline": nll_b, "mse_baseline": mse_b}
+
+
+@torch.no_grad()
+def pixel_imputation_metrics(model: GPVAE, batch: dict) -> dict:
+    """Missing-pixel scoring, the healing-MNIST regime
+    (``analysis.py:296-343``).  ``batch`` is a ``data.make_healing_batch``
+    dict (numpy arrays or tensors; moved to the model's device, frames in
+    its dtype): the encoder sees the zero-filled ``x``, the decoded
+    posterior means are scored against ``x_clean`` on exactly the missing
+    pixels (``~feature_mask``), per pixel Bernoulli NLL and MSE, beside
+    the predictor of the observed pixels' marginal on-rate."""
+    p = next(model.parameters())
+
+    def tensor(key, dtype=None):
+        v = batch[key]
+        v = torch.as_tensor(v if isinstance(v, torch.Tensor)
+                            else np.asarray(v))
+        return v.to(device=p.device, dtype=dtype or v.dtype)
+
+    x, x_clean = tensor("x", p.dtype), tensor("x_clean", p.dtype)
+    fmask = tensor("feature_mask", torch.bool)
+    probs = torch.sigmoid(model.decode(_mean(model, x)))
+    missing = (~fmask).to(probs.dtype)
+    denom = torch.clamp(missing.sum(), min=1.0)
+
+    def score(q):
+        q = torch.clamp(q, 1e-6, 1.0 - 1e-6)
+        nll = -(x_clean * torch.log(q) + (1 - x_clean) * torch.log1p(-q))
+        mse = (q - x_clean) ** 2
+        return (float((nll * missing).sum() / denom),
+                float((mse * missing).sum() / denom))
+
+    nll_model, mse_model = score(probs)
+    # the baseline predicts the observed marginal on-rate everywhere
+    observed = fmask.to(probs.dtype)
+    obs_rate = (x_clean * observed).sum() / torch.clamp(observed.sum(),
+                                                         min=1.0)
+    nll_base, mse_base = score(torch.full_like(probs, float(obs_rate)))
+    return {"missing_pixels": int(missing.sum()),
+            "nll_model": nll_model, "mse_model": mse_model,
+            "nll_marginal_baseline": nll_base,
+            "mse_marginal_baseline": mse_base}
+
+
+def make_artifact_callback(model: GPVAE, probe_batch: dict, out_dir: str):
+    """A ``train.fit`` callback ``fn(state, step)`` that writes PNGs of
+    ``probe_batch`` (``x``, ``times``, ``mask``) each time it fires
+    (``analysis.py:356-400``, the reference's in-loop ``savefig`` blocks):
+    the first sequence's input and reconstruction film strips
+    (``input_<step>.png``, ``recon_<step>.png``) for a conv decoder, its
+    latent means against time (``latents_<step>.png``) for a dense one.
+    The posterior noise of step ``s`` comes from a CPU generator seeded
+    with ``s``."""
+    import os
+
+    from gpvae_tpu_torch.utils import plotting
+
+    os.makedirs(out_dir, exist_ok=True)
+
+    def host(v):
+        return v.detach().cpu().numpy()
+
+    @torch.no_grad()
+    def cb(state, step):
+        p = next(model.parameters())
+        x = torch.as_tensor(np.asarray(probe_batch["x"])).to(p)
+        times = torch.as_tensor(np.asarray(probe_batch["times"])).to(p)
+        mask = torch.as_tensor(np.asarray(probe_batch["mask"])).to(p.device)
+        b, t = x.shape[:2]
+        eps = _draw(torch.randn, model.noise_shape(1, b, t),
+                    torch.Generator().manual_seed(step)).to(p)
+        out = model(x, times, mask, eps=eps)
+        probs = torch.sigmoid(out.logits[0])  # the one sample
+        if model.config.decoder == "conv":
+            plotting.film_strip(
+                host(x[0]), os.path.join(out_dir, f"input_{step:08d}.png"),
+                title=f"input (step {step})")
+            plotting.film_strip(
+                host(probs[0]),
+                os.path.join(out_dir, f"recon_{step:08d}.png"),
+                title=f"reconstruction (step {step})")
+        else:
+            plotting.trajectory_plot(
+                host(times[0]), host(out.latent_mean[0]),
+                os.path.join(out_dir, f"latents_{step:08d}.png"),
+                mask=host(mask[0]))
+
+    return cb

@@ -4,10 +4,12 @@ Counterpart of ``gpvae_tpu/configs.py:17-151`` and ``:215-227``: the
 ``Preset`` record, the reference model zoo on Moving-MNIST frames
 (``vanilla_vae``, ``gp_prior_diag``, ``full_gp_fixed``,
 ``full_gp_dynamic``, ``mnist_from_syndata``, ``gp_recog``), the toy
-presets ``syn_data`` and ``syn_data_vm``, and ``bench_t100``, which runs
-the large-T covariance path (T=100; the CLI's ``--time-len`` takes it to
-T=1024).  ``healing_mnist``, ``sparse_t4096``, ``t1024_toeplitz`` and
-``dp_scale`` arrive with their slices (ROADMAP).
+presets ``syn_data`` and ``syn_data_vm``, and the BASELINE configs
+``bench_t100``, which runs the large-T covariance path (T=100; the CLI's
+``--time-len`` takes it to T=1024), ``healing_mnist`` (missing pixels,
+the Cauchy kernel, short sequences) and ``sparse_t4096`` (T=4096 under
+the FITC prior).  ``t1024_toeplitz`` and ``dp_scale`` arrive with their
+slices (ROADMAP).
 """
 from __future__ import annotations
 
@@ -25,8 +27,9 @@ class Preset:
     train: TrainConfig
     batch_size: int
     description: str = ""
-    # which data pipeline the CLI builds: "toy" (masked GP draws) or
-    # "mnist" (video frames); None infers it from the encoder type
+    # which data pipeline the CLI builds: "toy" (masked GP draws),
+    # "mnist" (video frames), or "healing" (missing-pixel regime with
+    # per-feature masks); None infers it from the encoder type
     data_family: str | None = None
 
     @property
@@ -171,6 +174,38 @@ register(Preset(
     TrainConfig(num_steps=1000, beta=_TOY_BETA),
     batch_size=32,
     description="BASELINE config 1: synthetic T=100 RBF, batch 32",
+))
+register(Preset(
+    "healing_mnist",
+    GPVAEConfig(
+        latent_dim=64, obs_dim=28 * 28, time_len=10,
+        prior="gp", posterior="gp", kernel="cauchy",
+        prior_lengthscales=(2.0,), learn_prior_lengthscales=False,
+        posterior_lengthscales=(2.0,), learn_posterior_lengthscales=True,
+        encoder="conv", decoder="conv", image_shape=(28, 28, 1),
+        shared_time_grid=True,
+    ),
+    TrainConfig(num_steps=100_000, beta=elbo_lib.BetaSchedule(
+        init=1e-3, rate=1e-6, start_step=10_000)),
+    batch_size=64,
+    description="BASELINE config 2: healing-MNIST-style missing-pixel "
+    "imputation, Cauchy kernel, short sequences (the GP-VAE paper's "
+    "benchmark; the reference repo itself has no healing-MNIST script)",
+    data_family="healing",
+))
+register(Preset(
+    "sparse_t4096",
+    GPVAEConfig(
+        latent_dim=8, obs_dim=15, time_len=4096,
+        prior="sparse_gp", posterior="diag",
+        prior_lengthscales=(256.0,), learn_prior_lengthscales=False,
+        num_inducing=64, inducing_time_range=(0.0, 4096.0),
+        encoder="dense", decoder="dense",
+    ),
+    TrainConfig(num_steps=100_000, beta=_TOY_BETA),
+    batch_size=8,
+    description="BASELINE config 4: T=4096 sequences under an m=64 "
+    "inducing-point (FITC) GP prior — O(T m^2) KL",
 ))
 
 

@@ -6,7 +6,7 @@ The names map as
     encoder_net/Conv_i/...            -> encoder_net.conv.i....
     decoder_net/ConvTranspose_i/...   -> decoder_net.deconv.i....
     <net>/{mean,log_var,logits}_head  -> <net>.{mean,log_var,logits}_head
-    posterior_log_ls, prior_log_ls    -> unchanged
+    posterior_log_ls, prior_log_ls    -> unchanged (a GP or FITC prior's)
 
 and each kernel is laid out as the torch layer holds it:
 

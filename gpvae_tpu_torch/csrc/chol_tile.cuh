@@ -1,7 +1,8 @@
 // Cholesky of one small SPD matrix inside one thread block, blocked by
 // panels, and the inverse of the factor: shared by gram_chol.cu (T <= 64)
-// and chol_block.cu (t <= 128); tri_inv.cu takes the inverse of a given
-// factor, and panel_solve.cu steps 2 and 3 for the rows below a block.
+// and chol_block.cu (t <= 128); tri_inv.cu takes the shared layout and its
+// fill and store, and panel_solve.cu steps 2 and 3 for the rows below a
+// block.
 //
 // What bounds it on Hopper: a matrix of side t holds t^3/3 flops (0.7
 // MFLOP at t = 128) and t^2 floats, so one thread block per matrix is

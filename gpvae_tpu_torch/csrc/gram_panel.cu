@@ -73,9 +73,24 @@
 // which over a depth of 900 biases it and left the pre-built
 // factorization at T = 1024 several times the library's float32 error.
 // So each 32-deep stage's twelve products sum into fresh registers, which
-// an ordinary (rounding) float32 add takes into the tile's sum: the
-// factor's error is then that of the plain float32 route (python -m
-// gpvae_tpu_torch.ops.split_emulation emulates both sums on the CPU).
+// an ordinary (rounding) float32 add takes into the tile's sum (python -m
+// gpvae_tpu_torch.ops.split_emulation emulates the tile's sums on the
+// CPU).  The order of that sum matters as much: a Cholesky factor's
+// columns shrink with its Schur complement, so the history's first
+// columns hold its largest products, and K - sum cancels down to the
+// Schur complement.  On a near-low-rank gram (T = 4096, lengthscale 256
+// over a span of 60, cond ~4e6) a sum taken first column first, into a
+// total of K's size to which every later stage adds its small part, left
+// the pre-built factor at 3.5x cuSOLVER's float32 error on an H100, and
+// the plain route (cuBLAS products) at 3.2-3.5x.  So in gram_panel and
+// hist_panel the stages run from the history's last columns back to its
+// first, and its first kBK columns, the largest products, are summed
+// apart by float32 fma (exact products, where 3xTF32 keeps 2^-22 of each)
+// and added last: in the CPU emulation 0.53x the library's error on that
+// gram, against 2.6x.  trail_update's depth is one block's columns of X,
+// which no such order ranks: it keeps every stage on the tensor cores,
+// first column first (summed last first it took the right-looking factor
+// past its band on an H100).
 // A stage is 32 k, one 128-byte row of each of the tile's BM + BN rows of
 // L.  Stages arrive through a 4-stage ring of cp.async copies (16 bytes
 // where a row starts 16-byte aligned, else 4, in the same kernel; past
@@ -422,8 +437,10 @@ __device__ __forceinline__ void store_tile(const PanelParams& p, int n,
 
 // One S::kBM x S::kBN tile of the panel of matrix n, rows row0 .., panel
 // columns col0 .. (of 0 .. w); kGram says where K comes from.  The history
-// runs over columns [h0, o).
-template <bool kGram, class S>
+// runs over columns [h0, o); kFactor: it is a factor's columns to the
+// left of the panel, largest first, summed in the order of the top of
+// this file.
+template <bool kGram, bool kFactor, class S>
 __device__ __forceinline__ void panel_tile(const PanelParams& p, int n,
                                            int row0, int col0,
                                            float* smem_raw) {
@@ -455,14 +472,20 @@ __device__ __forceinline__ void panel_tile(const PanelParams& p, int n,
     }
   }
 
-  // stage s: rows 0..BM-1 are L[row0 + m, k0 ..], rows BM.. L[o + col0 +
-  // c, k0 ..], for k0 = h0 + s kBK, in the 128-byte swizzle; past o, t or
-  // w zero-filled
-  const int stages = (p.o - p.h0 + kBK - 1) / kBK;
+  // with kFactor the history's first kBK columns [h0, h1) are summed by
+  // fma at the end, and the tensor cores take [h1, o) a stage at a time
+  // from the last columns back; else they take it all, first to last.
+  // Stage s is rows 0..BM-1 L[row0 + m, k0 ..], rows BM.. L[o + col0 + c,
+  // k0 ..], for k0 = h1 + (stages - 1 - s) kBK (kFactor) or h1 + s kBK,
+  // in the 128-byte swizzle; past o, t or w zero-filled.  With kFactor
+  // one more, s = stages, brings [h0, h1) for the fma.
+  const int h1 = kFactor ? min(p.h0 + kBK, p.o) : p.h0;
+  const int stages = (p.o - h1 + kBK - 1) / kBK;
   auto load_stage = [&](int s) {
-    if (s >= stages) return;
-    const int k0 = p.h0 + s * kBK;
-    const int depth = p.o - k0;
+    if (s > stages || (s == stages && !kFactor)) return;
+    const bool first = s == stages;
+    const int k0 = first ? p.h0 : h1 + (kFactor ? stages - 1 - s : s) * kBK;
+    const int depth = (first ? h1 : p.o) - k0;
     float* st = ring + (s % kStages) * S::kStageFloats;
     copy_rows_sw128<BM + BN, S::kThreads>(
         st, p.vec != 0, [&](int i, const float*& src, int& valid) {
@@ -545,6 +568,34 @@ __device__ __forceinline__ void panel_tile(const PanelParams& p, int n,
   }
   cp_async_wait<0>();
   __syncthreads();  // the time vectors, where no stage ran
+  if constexpr (kFactor) {
+    // the first columns, raw in the ring since stage `stages` landed, by
+    // fma, added last.  Accumulator i of this thread is row 64 wg + 16 w
+    // + g + 8 ((i >> 1) & 1), column 8 (i / 4) + 2 q + (i & 1) of the
+    // tile, as store_tile reads it: stage rows ra (+ 8) and BM + column
+    const float* st = ring + (stages % kStages) * S::kStageFloats;
+    const int lane = tid % 32, g = lane / 4, q = lane % 4;
+    const int ra = wg * 64 + (tid / 32 % 4) * 16 + g;
+    auto at = [](int r, int k) {  // the swizzle of copy_rows_sw128
+      return r * kBK + (((k >> 2) ^ (r & 7)) << 2) + (k & 3);
+    };
+    float f[S::kAcc] = {};
+    for (int k = 0; k < h1 - p.h0; ++k) {
+      const float a0 = st[at(ra, k)], a1 = st[at(ra + 8, k)];
+#pragma unroll
+      for (int j = 0; j < S::kAcc / 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float b = st[at(BM + 8 * j + 2 * q + e, k)];
+          f[4 * j + e] = fmaf(a0, b, f[4 * j + e]);
+          f[4 * j + 2 + e] = fmaf(a1, b, f[4 * j + 2 + e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < S::kAcc; ++i) acc[i] += f[i];
+    __syncthreads();  // the ring stages the epilogue next
+  }
 
   auto store = [&](auto code) {
     store_tile<decltype(code)::value, S>(p, n, row0, col0, acc, ring, tr, mr,
@@ -580,17 +631,17 @@ __device__ __forceinline__ void panel_tile(const PanelParams& p, int n,
 __global__ void __launch_bounds__(PanelTile::kThreads)
 gram_panel_kernel(PanelParams p) {
   extern __shared__ __align__(128) float smem[];
-  panel_tile<true, PanelTile>(p, blockIdx.z,
-                              p.r0 + blockIdx.y * PanelTile::kBM,
-                              blockIdx.x * PanelTile::kBN, smem);
+  panel_tile<true, true, PanelTile>(p, blockIdx.z,
+                                    p.r0 + blockIdx.y * PanelTile::kBM,
+                                    blockIdx.x * PanelTile::kBN, smem);
 }
 
 __global__ void __launch_bounds__(PanelTile::kThreads)
 hist_panel_kernel(PanelParams p) {
   extern __shared__ __align__(128) float smem[];
-  panel_tile<false, PanelTile>(p, blockIdx.z,
-                               p.r0 + blockIdx.y * PanelTile::kBM,
-                               blockIdx.x * PanelTile::kBN, smem);
+  panel_tile<false, true, PanelTile>(p, blockIdx.z,
+                                     p.r0 + blockIdx.y * PanelTile::kBM,
+                                     blockIdx.x * PanelTile::kBN, smem);
 }
 
 // trail_update: the tile over the lower-triangular tile pairs (i, j <= i)
@@ -604,8 +655,9 @@ trail_update_kernel(PanelParams p) {
   while (i * (i + 1) / 2 > x) --i;  // float rounding, either way
   while ((i + 1) * (i + 2) / 2 <= x) ++i;
   const int j = x - i * (i + 1) / 2;
-  panel_tile<false, TrailTile>(p, blockIdx.y, p.r0 + i * TrailTile::kBM,
-                               j * TrailTile::kBN, smem);
+  panel_tile<false, false, TrailTile>(p, blockIdx.y,
+                                      p.r0 + i * TrailTile::kBM,
+                                      j * TrailTile::kBN, smem);
 }
 
 // -- trail_panel -------------------------------------------------------------

@@ -8,26 +8,29 @@
 // What bounds it on Hopper: a matrix holds t^3/6 multiply-adds (15k at t
 // = 45) against t^2 floats (0.00029 ms for the bytes of N = 80 matrices of
 // 45 at 3.35 TB/s), so one thread block per matrix is bound by the latency
-// of its serial chain.  A column substituted by one thread is a chain of
-// t^2/2 dependent fmas with two shared loads each; here the inverse is
-// chol_tile.cuh's, the one chol_block.cu computes beside its factor:
+// of its serial chain.  X is computed by a column sweep, the order of a
+// forward substitution against the identity:
 //   1. L's lower triangle goes into shared memory column-major by
-//      fill_lower (4 x 8 chunks, every row's loads in flight at once), and
-//      d_j = 1 / L[j][j] by IEEE division (as the TPU kernel divides) into
-//      the slot under each column;
-//   2. invert: the diagonal tiles of 16, one warp each, lane c
-//      substituting column c from registers; then recursive doubling,
-//      X_21 = -X_22 (L_21 X_11), over every thread in 4 x 4 register tiles,
-//      two barriers a level (two levels at t = 64);
+//      chol_tile.cuh's fill_lower (4 x 8 chunks, every row's loads in
+//      flight at once), and d_j = 1 / L[j][j] by IEEE division (as the TPU
+//      kernel divides) into the slot under each column;
+//   2. sweep: four lanes of a warp (a quad) own a column c of X, lane g
+//      holding rows m = 4 r + g in registers.  At step j the lane holding
+//      row j scales it by d_j and hands x_j = X[j][c] to its quad by one
+//      shuffle, and every lane subtracts L[m][j] x_j from its rows below
+//      j, one fma each.  The chain is one shuffle and one fma a step; the
+//      updates of a step are independent;
 //   3. store_inverse writes X whole, zeros above the diagonal, a row a
 //      warp.
-// A block takes one matrix: at syn_data's N = 80 that is 80 blocks, each
-// as short as its chain allows.  kThreads = 256: eight warps issue the
-// fill's and the store's loads and stores, four take t = 64's diagonal
-// tiles at once, and a doubling level has at most 64 register tiles;
-// on an H100, at both main-path shapes (N = 80, t = 45, and the T = 1024
-// flat route's base call, N = 1,024, t = 64), 256 threads ran faster
-// than 128, and 128 faster than 64.
+// Each entry X[m][c] is d_m (delta_mc - sum_{j<m} L[m][j] X[j][c]) with
+// the terms subtracted one by one in j order: the summation order of the
+// library's substitution (the CPU's float32 solve_triangular(L, I) to the
+// bit, tests/test_torch_chol_order.py).  chol_tile.cuh's invert (the
+// diagonal tiles, then recursive doubling X_21 = -X_22 (L_21 X_11)), which
+// this kernel used before, missed float64 by 25x the library's float32
+// error on FITC's factor of B = I + V0 V0^T (cond(L) ~ 1e3; 1.0e-4 rel.
+// Frobenius on an H100); chol_block.cu keeps it for its inverse mode.
+// A block takes one matrix; kThreads = 4 kMaxT, one quad a column.
 
 #include <cuda_runtime.h>
 
@@ -38,13 +41,50 @@ namespace {
 namespace ct = gpvae::chol_tile;
 
 constexpr int kMaxT = 64;
-constexpr int kThreads = 256;
+constexpr int kLanes = 4;               // lanes a column of X
+constexpr int kRows = kMaxT / kLanes;   // rows of the column a lane holds
+constexpr int kThreads = kMaxT * kLanes;
+
+// X = L^{-1} of the factor in s (column-major, d_j = 1/L[j][j] in the slot
+// s[j * p + p - 1]) into x, row-major: x[m * p + c] = X[m][c] for c <= m <
+// t.  Every thread of the block runs every step (t is the block's), so the
+// shuffles see whole warps; a quad whose column lies past t computes
+// nothing that is stored.
+__device__ void sweep(const float* s, float* x, int p, int t) {
+  const int c = threadIdx.x / kLanes;
+  const int g = threadIdx.x % kLanes;
+  const int quad = (threadIdx.x & 31) & ~(kLanes - 1);  // its first lane
+  float acc[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc[r] = kLanes * r + g == c ? 1.0f : 0.0f;
+#pragma unroll
+  for (int j = 0; j < kMaxT; ++j) {
+    if (j < t) {
+      const float* col = s + j * p;
+      const float xj = __shfl_sync(ct::kFull, acc[j / kLanes] * col[p - 1],
+                                   quad + j % kLanes);
+      if (g == j % kLanes) acc[j / kLanes] = xj;
+#pragma unroll
+      for (int r = j / kLanes; r < kRows; ++r) {
+        const int m = kLanes * r + g;
+        if (m > j && m < t) acc[r] = fmaf(-col[m], xj, acc[r]);
+      }
+    }
+  }
+  if (c < t) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int m = kLanes * r + g;
+      if (m >= c && m < t) x[m * p + c] = acc[r];
+    }
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
 tri_inv_kernel(const float* __restrict__ l, float* __restrict__ out, int t) {
   extern __shared__ __align__(16) float smem[];
   const int p = ct::pitch(t);
-  float* s = smem;                // L, column-major; its upper half scratch
+  float* s = smem;                // L, column-major
   float* x = s + ct::floats(t);   // X, row-major
   const float* lm = l + (size_t)blockIdx.x * t * t;
   ct::fill_lower<kThreads>(s, p, t, [&](int i, int k) {
@@ -54,7 +94,8 @@ tri_inv_kernel(const float* __restrict__ l, float* __restrict__ out, int t) {
     s[j * p + p - 1] = 1.0f / lm[j * t + j];
   }
   __syncthreads();
-  ct::invert<kThreads>(s, x, p, t);
+  sweep(s, x, p, t);
+  __syncthreads();
   ct::store_inverse<kThreads>(x, p, t, out + (size_t)blockIdx.x * t * t);
 }
 

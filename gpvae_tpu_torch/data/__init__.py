@@ -1,6 +1,11 @@
 """Data layer of the port: the numpy toy generator, the Moving-MNIST
-pipeline and the batcher."""
+pipeline, the healing-MNIST missing-pixel sequences and the batcher."""
 from gpvae_tpu_torch.data.batching import Batcher
+from gpvae_tpu_torch.data.healing import (
+    make_healing_batch,
+    random_pixel_mask,
+    synthetic_healing_sequences,
+)
 from gpvae_tpu_torch.data.moving_mnist import (
     MovingMNIST,
     synthetic_moving_mnist,
@@ -12,4 +17,6 @@ from gpvae_tpu_torch.data.synthetic import (
 )
 
 __all__ = ["Batcher", "MovingMNIST", "TOY_TIME_GRID", "generate_toy_data",
-           "synthetic_moving_mnist", "toy_to_masked_batch"]
+           "make_healing_batch", "random_pixel_mask",
+           "synthetic_healing_sequences", "synthetic_moving_mnist",
+           "toy_to_masked_batch"]

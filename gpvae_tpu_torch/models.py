@@ -12,12 +12,12 @@ both packages.  ``GPVAE`` covers the zoo's capability matrix:
 | standard | gp_plus_diag  | ``gp.recog_gp_kl`` (``standard_kl``   |
 |          |               | with ``reference_recog_kl``)          |
 | standard | gp            | ``gp.gp_kl`` against an identity      |
+| sparse_gp| diag          | ``sparse.fitc_diag_kl`` (FITC)        |
 
 on dense or conv nets, Bernoulli or Gaussian likelihoods, irregular
 masked time grids or one grid shared by the batch (``shared_time_grid``),
-with ``feature_mask``.  The FITC prior (``sparse_gp``) and the Toeplitz
-structured prior raise ``NotImplementedError`` naming their ROADMAP
-slices.
+with ``feature_mask``.  The Toeplitz structured prior raises
+``NotImplementedError`` naming its ROADMAP slice.
 
 One step: factor the gram banks the pair needs in ONE call (the
 posterior's and the prior's lengthscales side by side in one stacked
@@ -37,7 +37,7 @@ import torch
 from torch import nn
 
 from gpvae_tpu_torch import elbo as elbo_lib
-from gpvae_tpu_torch import gp, nets
+from gpvae_tpu_torch import gp, nets, sparse
 from gpvae_tpu_torch.ops.logdet import logdet_from_chol
 
 PRIORS = ("standard", "gp", "sparse_gp")
@@ -144,8 +144,6 @@ class GPVAEConfig:
 def check_ported(config: GPVAEConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration the port does not
     have yet, naming the ROADMAP slice that brings it."""
-    if config.prior == "sparse_gp":
-        raise NotImplementedError("sparse_gp (FITC) prior: ROADMAP slice 5a")
     if config.structured_prior == "toeplitz":
         raise NotImplementedError(
             "toeplitz structured prior: ROADMAP slice 5b"
@@ -213,8 +211,8 @@ class GPVAE(nn.Module):
     Parameters: ``encoder_net`` and ``decoder_net`` (dense or conv, with
     a log-variance head for the diagonal and recognition posteriors), and
     the log-lengthscales of each GP side, ``posterior_log_ls`` (GP and
-    recognition posteriors) and ``prior_log_ls`` (GP prior), each a
-    buffer where the config does not learn it.  Weights are drawn from
+    recognition posteriors) and ``prior_log_ls`` (GP and FITC priors),
+    each a buffer where the config does not learn it.  Weights are drawn from
     ``generator`` (float32, on the CPU; move the module with
     ``.to(device)``).
     """
@@ -241,7 +239,7 @@ class GPVAE(nn.Module):
         if self._gp_posterior:
             self._log_ls("posterior_log_ls", c.posterior_lengthscales,
                          c.learn_posterior_lengthscales)
-        if self._gp_prior:
+        if c.prior in ("gp", "sparse_gp"):
             self._log_ls("prior_log_ls", c.prior_lengthscales,
                          c.learn_prior_lengthscales)
 
@@ -260,6 +258,15 @@ class GPVAE(nn.Module):
             self.register_parameter(name, nn.Parameter(init))
         else:
             self.register_buffer(name, init)
+
+    def inducing_times(self, *, dtype: torch.dtype = torch.float32,
+                       device: torch.device | str | None = None
+                       ) -> torch.Tensor:
+        """The FITC prior's ``num_inducing`` points spread over
+        ``inducing_time_range`` (``models.py:345-348``)."""
+        lo, hi = self.config.inducing_time_range
+        return sparse.uniform_inducing_times(lo, hi, self.config.num_inducing,
+                                             dtype=dtype, device=device)
 
     def noise_shape(self, num_samples: int, b: int, t: int) -> tuple:
         """The layout of the posterior sampler's noise ``eps``: ``[S, B,
@@ -301,7 +308,8 @@ class GPVAE(nn.Module):
         factorization (``models.py:350-394``): ``"l_q"`` for a GP or
         recognition posterior, ``"l_p"`` for a GP prior, both from one
         stacked 2Z-wide bank when both sides are GPs.  ``[B, Z, T, T]``,
-        or ``[1, Z, T, T]`` on a shared grid.
+        or ``[1, Z, T, T]`` on a shared grid.  A FITC prior needs no bank:
+        its KL factors the inducing grams itself.
 
         ``logdets=True`` (the ELBO) adds ``logdet K [B or 1, Z]`` of each
         factor a KL reads, ``"ld_q"`` of a GP posterior and ``"ld_p"`` of
@@ -373,12 +381,20 @@ class GPVAE(nn.Module):
         return z, mean, log_var, aux
 
     def kl(self, mean: torch.Tensor, log_var: torch.Tensor | None,
-           mask: torch.Tensor | None,
+           times: torch.Tensor, mask: torch.Tensor | None,
            aux: dict[str, torch.Tensor]) -> torch.Tensor:
         """Per-sequence KL ``[B]`` of the configured pair
         (``models.py:420-468``), from the factors and logdets in ``aux``
-        (:meth:`chol_banks`)."""
+        (:meth:`chol_banks`); the FITC prior's from ``times`` and the
+        inducing grid."""
         c = self.config
+        if c.prior == "sparse_gp":
+            kl_bz = sparse.fitc_diag_kl(
+                mean, log_var, times,
+                self.inducing_times(dtype=times.dtype, device=times.device),
+                torch.exp(self.prior_log_ls), mask=mask, kernel=c.kernel,
+                noise=c.noise)
+            return torch.sum(kl_bz, dim=-1)
         if c.prior == "gp":
             if c.posterior == "gp":
                 kl_bz = gp.gp_kl(mean, aux["l_q"], aux["l_p"], mask,
@@ -430,7 +446,7 @@ class GPVAE(nn.Module):
         aux = self.chol_banks(times, mask, logdets=True)
         z, mean, log_var, aux = self.sample_posterior(
             x, times, mask, s, aux=aux, eps=eps, generator=generator)
-        kl_b = self.kl(mean, log_var, mask, aux)
+        kl_b = self.kl(mean, log_var, times, mask, aux)
         logits = self.decode(z)
         nll = (elbo_lib.bernoulli_nll if c.likelihood == "bernoulli"
                else elbo_lib.gaussian_nll)

@@ -1,16 +1,22 @@
 """The arithmetic of the panel tile's tensor-core products
 (``csrc/gram_panel.cu``), emulated on the CPU with numpy, at the shapes
-the T=1024 path gives them.
+the T=1024 path gives them, and on evaluate's T=4096 gram.
 
 The tile multiplies float32 operands as TF32 parts: ``a b = al bh + ah bl
 + ah bh`` with ``ah = rna(a)``, ``al = rna(a - ah)`` (10 mantissa bits,
 rounded to nearest), summed by the tensor cores in float32 with
 truncation, so each 32-deep stage sums into fresh accumulators that an
 ordinary float32 add rounds into the total.  Products of TF32 parts are
-exact in float64; the truncating sum is emulated per 8-deep step.
+exact in float64; the truncating sum is emulated per 8-deep step.  The
+stages run from the history's last columns back to its first, and its
+first 32 columns are summed apart by float32 FMA and added last
+(``order="tile"``, gram_panel's and hist_panel's); ``order="forward"``,
+every column on the tensor cores first column first, is trail_update's
+and was theirs before.
 
-Run ``python -m gpvae_tpu_torch.ops.split_emulation`` (about half a
-minute on one core); it prints one JSON object:
+Run ``python -m gpvae_tpu_torch.ops.split_emulation`` (a few minutes on
+one core; ``--t4096`` adds the T=4096 factorization, about five more); it
+prints one JSON object:
 
 * ``split``: the largest relative error of ``ah + al`` over float32
   values of every magnitude, and its mean over its mean magnitude (a
@@ -25,7 +31,12 @@ minute on one core); it prints one JSON object:
   factor's;
 * ``trail_panel``: ``X = P Ld^-T`` of the right-looking route's middle
   step (o=384, nb=128) against the explicit inverse, where the product
-  cancels, by the float32 FMA loop and by 3xTF32.
+  cancels, by the float32 FMA loop and by 3xTF32;
+* with ``--t4096``, ``factor_vs_library_t4096``: the same on the
+  ``sparse_t4096`` evaluate's gram (T=4096, one sequence of the CLI's toy
+  times, half its observed steps kept, lengthscale 256, the jitter 1e-5),
+  for the FMA loop and both orders of the tile, each also with its
+  history summed from the last columns back.
 """
 from __future__ import annotations
 
@@ -84,13 +95,36 @@ def _mma_sum(pairs, depth, flush, shape):
     return total
 
 
-def product_3xtf32(a, b, flush=STAGE):
-    """``a [N, M, K] @ b [N, C, K]^T`` as the tile computes it; ``flush``
-    = K sums the whole depth in one truncated accumulator."""
+def _tensor_sum(a, b, flush):
     ah, al = split2(a)
     bh, bl = split2(b)
     return _mma_sum([(al, bh), (ah, bl), (ah, bh)], a.shape[2], flush,
                     (a.shape[0], a.shape[1], b.shape[1]))
+
+
+def _last_first(x):
+    """The depth of ``x [..., K]`` in stages of ``STAGE`` taken from the
+    last back to the first (the top stage, ragged, padded with zeros to a
+    whole one, whose exact zero products change no sum)."""
+    k = x.shape[-1]
+    pad = (-k) % STAGE
+    x = np.concatenate([x, np.zeros(x.shape[:-1] + (pad,), x.dtype)], -1)
+    stages = x.reshape(x.shape[:-1] + (-1, STAGE))[..., ::-1, :]
+    return np.ascontiguousarray(stages.reshape(x.shape))
+
+
+def product_3xtf32(a, b, flush=STAGE, order="tile"):
+    """``a [N, M, K] @ b [N, C, K]^T`` as the tile computes it (``order``:
+    see the module's doc); ``flush`` = K sums the tensor cores' depth in
+    one truncated accumulator."""
+    if order == "forward":
+        return _tensor_sum(a, b, flush)
+    head = product_fma(a[..., :STAGE], b[..., :STAGE])
+    if a.shape[2] <= STAGE:
+        return head
+    rest = _tensor_sum(_last_first(a[..., STAGE:]),
+                       _last_first(b[..., STAGE:]), flush)
+    return (rest.astype(np.float64) + head).astype(np.float32)
 
 
 def product_fma(a, b):
@@ -133,21 +167,63 @@ def factor(k32, product):
     """The left-looking blocked factorization of ``k32 [N, T, T]`` in
     float32 with ``product`` for each panel's history."""
     l = np.zeros_like(k32)
-    for o in range(0, T, NB):
-        w = min(NB, T - o)
+    t = k32.shape[-1]
+    for o in range(0, t, NB):
+        w = min(NB, t - o)
         panel = k32[:, o:, o:o + w].copy()
         if o:
             panel -= product(l[:, o:, :o], l[:, o:o + w, :o])
         ld = torch.linalg.cholesky(torch.from_numpy(panel[:, :w]))
         l[:, o:o + w, o:o + w] = ld.numpy()
-        if o + w < T:
+        if o + w < t:
             x = torch.linalg.solve_triangular(
                 ld, torch.from_numpy(panel[:, w:]).mT, upper=False).mT
             l[:, o + w:, o:o + w] = x.numpy()
     return l
 
 
+def evaluate_gram_t4096():
+    """``[1, 4096, 4096]``: the gram ``posterior_conditional`` factors for
+    one sequence of ``sparse_t4096``'s CLI toy data (seed 3), half its
+    observed steps kept (seed 10), lengthscale 256, plus 1e-5 I."""
+    from gpvae_tpu_torch.data import generate_toy_data, toy_to_masked_batch
+
+    t = 4096
+    batch = toy_to_masked_batch(generate_toy_data(np.random.default_rng(3),
+                                                  2, t=t))
+    kept = batch["mask"] & (np.random.default_rng(10).random((2, t)) >= 0.5)
+    f64 = torch.float64
+    k = kernels_lib.gram_bank(torch.tensor(batch["times"][:1], dtype=f64),
+                              torch.tensor([256.0], dtype=f64),
+                              mask=torch.tensor(kept[:1]))
+    return (k + 1e-5 * torch.eye(t, dtype=torch.float64)).reshape(
+        1, t, t).numpy()
+
+
+def _reversed(product):
+    """``product`` with the history's columns taken last first."""
+    return lambda a, b: product(np.ascontiguousarray(a[..., ::-1]),
+                                np.ascontiguousarray(b[..., ::-1]))
+
+
+def t4096_ratios() -> dict:
+    k64 = evaluate_gram_t4096()
+    l64 = np.linalg.cholesky(k64)
+    k32 = k64.astype(np.float32)
+    err_lib = np.abs(torch.linalg.cholesky(torch.from_numpy(k32)).numpy()
+                     - l64).max()
+    forward = lambda a, b: product_3xtf32(a, b, order="forward")  # noqa
+    routes = {"fma": product_fma, "fma_last_first": _reversed(product_fma),
+              "tile_forward": forward,
+              "tile_forward_last_first": _reversed(forward),
+              "tile": product_3xtf32}
+    return {name: float(np.abs(factor(k32, fn) - l64).max() / err_lib)
+            for name, fn in routes.items()}
+
+
 def main() -> None:
+    import sys
+
     rng = np.random.default_rng(0)
     x = (rng.standard_normal(100_000)
          * 10.0 ** rng.uniform(-20, 20, 100_000)).astype(np.float32)
@@ -191,7 +267,10 @@ def main() -> None:
                     inv.astype(np.float64))
     out["trail_panel"] = {
         "fma": float(np.abs(product_fma(p, inv) - ref).max()),
-        "3xtf32": float(np.abs(product_3xtf32(p, inv) - ref).max())}
+        "3xtf32": float(np.abs(product_3xtf32(p, inv, order="forward")
+                               - ref).max())}
+    if "--t4096" in sys.argv[1:]:
+        out["factor_vs_library_t4096"] = t4096_ratios()
     print(json.dumps(out))
 
 

@@ -11,9 +11,20 @@ takes one route on any device, as there):
   sqrt(cond(K)), so the inverse costs about an ulp of amplification;
 * everything else, and every CPU tensor: ``torch.linalg.
   solve_triangular``, as the JAX package leaves it to XLA's
-  ``triangular_solve`` (no Pallas kernel there either).
+  ``triangular_solve`` (no Pallas kernel there either).  A float32
+  triangle on a CUDA tensor is solved in float64, one matrix at a time
+  (the float64 copies of a [B, Z, 4096, 4096] bank would double
+  evaluate's peak memory), and the result rounded back: the library's
+  float32 solve on an H100 put ``sparse_t4096``'s T=4096 posterior mean
+  6.7e-3 of its largest entry from float64, 15x the CPU library's
+  float32 (4.6e-4), whichever factor it was given (the port's,
+  cuSOLVER's or the CPU's); in float64, 9.5e-5.
 
-Both routes are differentiable.
+Both routes are differentiable.  The inverse route's reverse mode is the
+triangular solve's, with ``X`` in place of the solves (:class:`_ByInverse`):
+autograd through the inverse would multiply by ``X`` twice, which cost
+FITC's lengthscale gradient at T=4096 on an H100 ~50x the substitution's
+float32 error.
 """
 from __future__ import annotations
 
@@ -25,6 +36,40 @@ from gpvae_tpu_torch.ops.tri_inv import tri_inv
 # above this side the [.., T, T] inverse's memory and extra work outgrow
 # the substitution it replaces (the JAX package's threshold)
 INV_ROUTE_MAX_T = 2048
+
+
+class _ByInverse(torch.autograd.Function):
+    """``y = op(X) b`` (``left_side``) or ``b op(X)`` with ``X = A^{-1}``
+    from ``tri_inv``, ``op(X) = X^T`` when ``transpose_a``.  Backward, the
+    reverse mode of the solve it stands for, each line one product with
+    ``X``: ``b_bar = op(X)^T y_bar`` (or ``y_bar op(X)^T``) and ``A_bar =
+    -tril`` of ``b_bar y^T``, ``y b_bar^T``, ``y^T b_bar`` or ``b_bar^T y``
+    for the four forms, summed over broadcast batch dims."""
+
+    @staticmethod
+    def forward(ctx, a, b, left_side, transpose_a):
+        x = tri_inv(a)
+        op = x.mT if transpose_a else x
+        y = op @ b if left_side else b @ op
+        ctx.save_for_backward(x, y)
+        ctx.form = left_side, transpose_a
+        ctx.shapes = a.shape, b.shape
+        return y
+
+    @staticmethod
+    def backward(ctx, y_bar):
+        x, y = ctx.saved_tensors
+        left_side, transpose_a = ctx.form
+        op = x.mT if transpose_a else x
+        b_bar = op.mT @ y_bar if left_side else y_bar @ op.mT
+        a_bar = None
+        if ctx.needs_input_grad[0]:
+            if left_side:
+                outer = y @ b_bar.mT if transpose_a else b_bar @ y.mT
+            else:
+                outer = b_bar.mT @ y if transpose_a else y.mT @ b_bar
+            a_bar = -torch.tril(outer).sum_to_size(ctx.shapes[0])
+        return a_bar, b_bar.sum_to_size(ctx.shapes[1]), None, None
 
 
 def solve_triangular(
@@ -45,9 +90,16 @@ def solve_triangular(
     if via_inverse is None:
         via_inverse = dispatch.on_cuda(a)
     if via_inverse and lower and a.shape[-1] <= INV_ROUTE_MAX_T:
-        inv = tri_inv(a)
-        op = inv.mT if transpose_a else inv
-        return op @ b if left_side else b @ op
-    return torch.linalg.solve_triangular(
-        a.mT if transpose_a else a, b, upper=lower == transpose_a,
-        left=left_side)
+        return _ByInverse.apply(a, b, left_side, transpose_a)
+    op, upper = (a.mT if transpose_a else a), lower == transpose_a
+    if not (a.is_cuda and torch.promote_types(a.dtype, b.dtype)
+            == torch.float32):
+        return torch.linalg.solve_triangular(op, b, upper=upper,
+                                             left=left_side)
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    ops = op.expand(*batch, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
+    bs = b.expand(*batch, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
+    x = torch.stack([torch.linalg.solve_triangular(
+        ai.double(), bi.double(), upper=upper, left=left_side).float()
+        for ai, bi in zip(ops, bs)])
+    return x.reshape(*batch, *b.shape[-2:])

@@ -1,14 +1,16 @@
 """Training: the Adam step on the ELBO, metrics, checkpoints, and the
 training loop.
 
-Counterpart of ``gpvae_tpu/train.py:55-232`` (config, step, the
-device-resident sampled loop), ``:250-300`` (``CheckpointManager``),
-``:307-372`` (``MetricsLog``) and ``:375-519`` (``fit``).  PyTorch runs
-eagerly, so the JAX package's jitted ``lax.scan`` over ``k`` steps
-becomes a Python loop of steps whose work is all queued on the device:
-the dataset lives on the device, each step gathers its batch there from a
-row of a ``[k, B]`` index tensor, and the host waits for the device only
-at a log point or a checkpoint.  Checkpoints are ``torch.save`` files,
+Counterpart of ``gpvae_tpu/train.py:55-243`` (config, step, the
+device-resident sampled loop, ``eval_step``), ``:250-300``
+(``CheckpointManager``), ``:307-372`` (``MetricsLog``) and ``:375-519``
+(``fit``).  PyTorch runs eagerly, so the JAX package's jitted
+``lax.scan`` over ``k`` steps becomes a Python loop of steps whose work
+is all queued on the device: from a ``Batcher`` the dataset lives on the
+device, each step gathers its batch there from a row of a ``[k, B]``
+index tensor, and the host waits for the device only at a log point, a
+checkpoint or a callback; from any other iterator each batch is moved to
+the device as it comes.  Checkpoints are ``torch.save`` files,
 not the JAX package's orbax directories (weights cross from JAX through
 ``convert.load_flax_params``).
 """
@@ -19,6 +21,7 @@ import os
 import re
 import time
 import warnings
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
@@ -89,6 +92,19 @@ def train_step(state: TrainState, batch: dict, beta: float, *,
         "beta": beta,
         **metrics,
     }
+
+
+@torch.no_grad()
+def eval_step(model: GPVAE, batch: dict, *, beta: float = 1.0,
+              eps: torch.Tensor | None = None,
+              generator: torch.Generator | None = None) -> dict:
+    """The ELBO of ``batch`` (``x``, ``times``, ``mask``) without a step
+    (``train.py:234-243``): ``loss``, and ``nll`` and ``kl`` averaged over
+    the batch, as device tensors.  The noise is ``eps`` (the layout of
+    ``model.noise_shape``) or drawn from ``generator``."""
+    out = model(batch["x"], batch["times"], batch["mask"], beta=beta,
+                eps=eps, generator=generator)
+    return {"loss": out.loss, "nll": out.nll.mean(), "kl": out.kl.mean()}
 
 
 class CheckpointManager:
@@ -203,15 +219,20 @@ class MetricsLog:
 
 
 def device_arrays(arrays: dict, device: torch.device) -> dict:
-    """The batch arrays of a dataset as tensors on ``device``: ``x`` and
-    ``times`` float32, ``mask`` bool, and ``feature_mask`` (bool) where
-    the dataset has one: without it the likelihood would train the model
-    to predict the zero fill of missing features (``train.py:505-518``)."""
+    """The batch arrays (numpy arrays or tensors) of a dataset as tensors
+    on ``device``: ``x`` and ``times`` float32, ``mask`` bool, and
+    ``feature_mask`` (bool) where the dataset has one: without it the
+    likelihood would train the model to predict the zero fill of missing
+    features (``train.py:505-518``)."""
     dtypes = {"x": torch.float32, "times": torch.float32, "mask": torch.bool,
               "feature_mask": torch.bool}
+
+    def tensor(v):
+        return torch.as_tensor(v if isinstance(v, torch.Tensor)
+                               else np.asarray(v))
+
     return {
-        key: torch.as_tensor(np.asarray(arrays[key])).to(
-            device=device, dtype=dtypes[key])
+        key: tensor(arrays[key]).to(device=device, dtype=dtypes[key])
         for key in _BATCH_KEYS if arrays.get(key) is not None
     }
 
@@ -225,32 +246,78 @@ def _stage_indices(idx: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def _train_loop(state: TrainState, batches, config: TrainConfig,
+                ckpt, log: MetricsLog, callbacks, verbose: bool) -> None:
+    """Steps ``state`` to ``config.num_steps`` on the device batches that
+    ``batches(n)`` yields (``n`` steps' worth, one log window at a time),
+    with the checkpoints, log rows and callbacks of :func:`fit`."""
+    step = state.step
+    t_last = time.perf_counter()
+    while step < config.num_steps:
+        # one window runs up to the next log point, which is its only sync
+        # (a checkpoint or a callback reads the device too)
+        stop = min((step // config.log_every + 1) * config.log_every,
+                   config.num_steps)
+        n = stop - step
+        for batch in batches(n):
+            metrics = train_step(state, batch, config.beta(step))
+            step += 1
+            if ckpt is not None and step % config.checkpoint_every == 0:
+                ckpt.save(state)
+            for every, fn in callbacks or ():
+                if step % every == 0:
+                    fn(state, step)
+        host = {name: MetricsLog._host(v) for name, v in metrics.items()}
+        now = time.perf_counter()
+        sps = n / max(now - t_last, 1e-9)
+        t_last = now
+        log.append(step, {**host, "steps_per_sec": sps})
+        if verbose:
+            print(
+                f"step {step}: loss={float(host['loss']):.4f} "
+                f"nll={float(host['nll']):.4f} "
+                f"kl={float(host['kl']):.4f} "
+                f"beta={float(host['beta']):.2e} ({sps:.1f} steps/s)"
+            )
+
+
 def fit(
     model: GPVAE,
-    batches: Batcher,
+    batches: Batcher | Iterator[dict],
     config: TrainConfig,
     *,
     device: torch.device | str = "cuda",
     state: TrainState | None = None,
     csv_path: str | None = None,
     verbose: bool = True,
+    callbacks: list[tuple[int, Callable[[TrainState, int], None]]]
+    | None = None,
 ) -> tuple[TrainState, MetricsLog]:
-    """Train ``model`` on a :class:`Batcher` for ``config.num_steps``.
+    """Train ``model`` for ``config.num_steps`` on a :class:`Batcher` or
+    any iterator of batch dicts (numpy arrays or tensors: ``x``,
+    ``times``, ``mask`` and, where the data has one, ``feature_mask``).
 
-    The Batcher's arrays are staged on ``device`` once; each step gathers
+    A Batcher's arrays are staged on ``device`` once; each step gathers
     its batch on the device from the Batcher's index stream (same wrap and
-    reshuffle semantics as iterating it).  The host reads the device only
-    at each log point (every ``config.log_every`` steps and at the end)
-    and checkpoint.  Pass ``state`` to continue a run.  With
-    ``config.checkpoint_dir`` the run resumes from the newest checkpoint
-    there, saves one every ``config.checkpoint_every`` steps and one at
-    the end.  The model's ``structured_prior`` is first resolved against
-    the dataset's first rows (``models.resolve_structured_prior``,
-    ``train.py:412-415``).
+    reshuffle semantics as iterating it).  Another iterator's batches are
+    moved to ``device`` one a step, and no batch is taken past the last
+    step.  The host reads the device only at each log point (every
+    ``config.log_every`` steps and at the end), checkpoint and callback.
+    Pass ``state`` to continue a run.  With ``config.checkpoint_dir`` the
+    run resumes from the newest checkpoint there, saves one every
+    ``config.checkpoint_every`` steps and one at the end.  ``callbacks``
+    are ``(every, fn(state, step))`` pairs, each called after every
+    ``every``-th step (``train.py:375-392``: the home of periodic artifact
+    dumps, ``analysis.make_artifact_callback``).  The model's
+    ``structured_prior`` is first resolved against the first batch
+    (``models.resolve_structured_prior``, ``train.py:412-415``).
     """
-    if not isinstance(batches, Batcher):
-        raise TypeError("fit takes a gpvae_tpu_torch.data.Batcher")
-    first = {key: v[:batches.batch_size] for key, v in batches.arrays.items()}
+    sampler = batches if isinstance(batches, Batcher) else None
+    if sampler is not None:
+        first = {key: v[:sampler.batch_size]
+                 for key, v in sampler.arrays.items()}
+    else:
+        first = next(batches)
     model.config = resolve_structured_prior(model.config, first["times"],
                                             first.get("mask"))
     device = torch.device(device)
@@ -261,36 +328,28 @@ def fit(
     if ckpt is not None and ckpt.restore_latest(state) is not None \
             and verbose:
         print(f"resumed from step {state.step}")
-    dev = device_arrays(batches.arrays, device)
+    if sampler is not None:
+        dev = device_arrays(sampler.arrays, device)
+
+        def window(n):
+            # the window's indices cross to the device in one copy
+            idx = _stage_indices(
+                np.stack([sampler.next_indices() for _ in range(n)]), device)
+            for row in idx:
+                yield {key: v.index_select(0, row) for key, v in dev.items()}
+    else:
+        pending = [first]
+
+        def window(n):
+            for i in range(n):
+                # the first batch was read above; the rest are taken as
+                # they are needed, so a finite iterator may end at the
+                # last step
+                batch = pending.pop() if pending else next(batches)
+                yield device_arrays(batch, device)
+
     log = MetricsLog(csv_path)
-    step = state.step
-    t_last = time.perf_counter()
-    while step < config.num_steps:
-        # one window runs up to the next log point; its indices cross to
-        # the device in one copy, and the log point is its only sync
-        stop = min((step // config.log_every + 1) * config.log_every,
-                   config.num_steps)
-        idx = _stage_indices(
-            np.stack([batches.next_indices() for _ in range(stop - step)]),
-            device)
-        for row in idx:
-            batch = {key: v.index_select(0, row) for key, v in dev.items()}
-            metrics = train_step(state, batch, config.beta(step))
-            step += 1
-            if ckpt is not None and step % config.checkpoint_every == 0:
-                ckpt.save(state)
-        host = {name: MetricsLog._host(v) for name, v in metrics.items()}
-        now = time.perf_counter()
-        sps = len(idx) / max(now - t_last, 1e-9)
-        t_last = now
-        log.append(step, {**host, "steps_per_sec": sps})
-        if verbose:
-            print(
-                f"step {step}: loss={float(host['loss']):.4f} "
-                f"nll={float(host['nll']):.4f} "
-                f"kl={float(host['kl']):.4f} "
-                f"beta={float(host['beta']):.2e} ({sps:.1f} steps/s)"
-            )
+    _train_loop(state, window, config, ckpt, log, callbacks, verbose)
     if ckpt is not None:
         ckpt.save(state)
     return state, log

@@ -23,8 +23,16 @@ The same for ``csrc/panel_solve.cu`` (the rows below a factored block,
 the panel's diagonal tile in column order with ``d_j = 1 / L_d[j][j]`` (a
 float32 division) and ``x_j = a_j d_j``; then the columns to the right
 updated by the panel's 16 products summed by fma into a fresh total that
-is subtracted once.  And for ``csrc/tri_inv.cu``: ``chol_tile::invert`` of
-a given factor, its ``d_j`` divided rather than the factorization's.
+is subtracted once.  And for ``csrc/tri_inv.cu``: a column sweep of a
+given factor, ``x_j = acc_j d_j`` with ``d_j`` divided, then each row
+below ``j`` one fma, step by step (``panel_inverse`` with one tile the
+whole matrix): the order of the library's substitution, which it matches
+to the bit, also on FITC's ill-conditioned factors, where the recursive
+doubling of ``chol_tile::invert`` lost 25x the library's error.
+
+The panel tile's history order (``csrc/gram_panel.cu``) is emulated by
+``gpvae_tpu_torch.ops.split_emulation`` and held here on a near-low-rank
+gram, where the order decides the factor's error.
 
 No JAX: the reference is ``torch.linalg.cholesky`` in float64 on the same
 banks as ``chip_smoke.py`` phase 3 draws them (masked, noise 1e-3).
@@ -182,16 +190,53 @@ def _solve_errors(t, o, w, n):
             (lib.double() - ref).abs().max().item())
 
 
+def sweep_inverse(l):
+    """``X = L^{-1}`` in the order of ``tri_inv.cu``'s column sweep, with
+    ``d_j = 1 / L[j][j]``."""
+    d = 1.0 / torch.diagonal(l, dim1=-2, dim2=-1)
+    return panel_inverse(l, d, nb=max(1, l.shape[-1]))
+
+
+def _inverse_errors(l):
+    """``(the sweep's X, the library's)`` rel. Frobenius error against the
+    float64 inverse of the float32 factor ``l``."""
+    x = sweep_inverse(l)
+    assert bool((torch.triu(x, 1) == 0).all())
+    lib = torch.linalg.solve_triangular(
+        l, torch.eye(l.shape[-1]).expand_as(l), upper=False)
+    xref = torch.linalg.inv(l.double())
+    return tuple((torch.linalg.matrix_norm(y.double() - xref)
+                  / torch.linalg.matrix_norm(xref)).max().item()
+                 for y in (x, lib))
+
+
 def _tri_inv_error(t):
     """``tri_inv.cu``'s inverse of a phase-3 factor (the emulated
-    factorization's), with ``d_j = 1 / L[j][j]``: rel. Frobenius error
-    against the float64 inverse of the same float32 factor."""
+    factorization's): rel. Frobenius error against the float64 inverse of
+    the same float32 factor."""
     l, _ = panel_cholesky(_bank(2 * t, t).float())
-    x = panel_inverse(l, 1.0 / torch.diagonal(l, dim1=-2, dim2=-1))
-    xref = torch.linalg.inv(l.double())
-    assert bool((torch.triu(x, 1) == 0).all())
-    return (torch.linalg.matrix_norm(x.double() - xref)
-            / torch.linalg.matrix_norm(xref)).max().item()
+    return _inverse_errors(l)[0]
+
+
+def _fitc_factors(seed, b=2, z=4, m=64, t=4096):
+    """The factors ``[b z, m, m]`` of FITC's ``K_mm + 1e-4 I`` and ``B = I
+    + V0 V0^T`` as ``sparse_t4096`` builds them (64 inducing points over
+    [0, 4096], lengthscales near its 256, a unit grid of T=4096), in
+    float32 from float64 matrices."""
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64)
+    s = torch.linspace(0.0, float(t), m, **f64)[None].expand(b, -1)
+    times = torch.arange(t, **f64)[None].expand(b, -1)
+    ls = torch.tensor(rng.uniform(128.0, 384.0, z), **f64)
+    k_mm = kernels.cross_gram(s, s, ls) + 1e-4 * torch.eye(m, **f64)
+    k_tm = kernels.cross_gram(times, s, ls)
+    v = torch.linalg.solve_triangular(torch.linalg.cholesky(k_mm), k_tm.mT,
+                                      upper=False)
+    d = torch.clamp(0.999 - (v * v).sum(-2), min=0.0) + 1e-3
+    v0 = v / torch.sqrt(d)[..., None, :]
+    b_mat = torch.eye(m, **f64) + v0 @ v0.mT
+    return [torch.linalg.cholesky(k.float()).reshape(-1, m, m)
+            for k in (k_mm, b_mat)]
 
 
 # (t, o, w, n): a T=256 and the T=1024 middle step at w=128, and a ragged w
@@ -207,6 +252,45 @@ def test_panel_solve_order_is_as_accurate_as_the_library(t, o, w, n):
 @pytest.mark.parametrize("t", [1, 15, 16, 17, 45, 64])
 def test_tri_inv_order_stays_in_its_band(t):
     assert _tri_inv_error(t) <= X_REL_FRO
+
+
+@pytest.mark.parametrize("seed", [10, 11])
+def test_tri_inv_order_on_fitc_factors_is_the_librarys(seed):
+    """FITC's factors (cond(L_B) ~ 1e3): the sweep's error is the
+    library's float32 substitution's, far inside the band."""
+    for l in _fitc_factors(seed):
+        err, err_lib = _inverse_errors(l)
+        assert err <= 1.01 * err_lib and err <= X_REL_FRO / 10, (err,
+                                                                 err_lib)
+
+
+@pytest.mark.parametrize("t", [512, 768])
+def test_panel_tile_order_on_a_near_low_rank_gram(t):
+    """``gram_panel.cu``'s history order (its first 32 columns by fma,
+    added last; the rest 3xTF32 from the last stage back) in the blocked
+    factorization of a gram like ``sparse_t4096``'s evaluate's
+    (lengthscale 256 over the toy grid 0..60, half the steps kept): under
+    the library's float32 error, where the first-column-first order is
+    above it (``ops.split_emulation``; at T=4096 its ``--t4096``)."""
+    from gpvae_tpu_torch.data import generate_toy_data, toy_to_masked_batch
+    from gpvae_tpu_torch.ops import split_emulation as se
+
+    batch = toy_to_masked_batch(generate_toy_data(np.random.default_rng(3),
+                                                  1, t=t))
+    kept = batch["mask"] & (np.random.default_rng(10).random((1, t)) >= 0.5)
+    k64 = (kernels.gram_bank(torch.tensor(batch["times"], dtype=torch.float64),
+                             torch.tensor([256.0], dtype=torch.float64),
+                             mask=torch.tensor(kept))
+           + 1e-5 * torch.eye(t, dtype=torch.float64)).reshape(1, t, t)
+    l64 = torch.linalg.cholesky(k64).numpy()
+    k32 = k64.float().numpy()
+    err_lib = np.abs(torch.linalg.cholesky(torch.from_numpy(k32)).numpy()
+                     - l64).max()
+    errs = {order: np.abs(se.factor(k32, lambda a, b, order=order:
+                                    se.product_3xtf32(a, b, order=order))
+                          - l64).max() / err_lib
+            for order in ("tile", "forward")}
+    assert errs["tile"] < min(1.0, errs["forward"]), errs
 
 
 @pytest.mark.parametrize("t", [45, 64, 100, 127, 128])
@@ -246,3 +330,11 @@ if __name__ == "__main__":
               f"{err / err_lib:.2f}x the library's float32 error")
     for t in (1, 15, 16, 17, 45, 64):
         print(f"tri_inv t={t}: X rel. Frobenius {_tri_inv_error(t):.2e}")
+    for name, l in zip(("K_mm", "B"), _fitc_factors(10)):
+        err, err_lib = _inverse_errors(l)
+        dbl = panel_inverse(l, 1.0 / torch.diagonal(l, dim1=-2, dim2=-1))
+        xref = torch.linalg.inv(l.double())
+        err_dbl = (torch.linalg.matrix_norm(dbl.double() - xref)
+                   / torch.linalg.matrix_norm(xref)).max().item()
+        print(f"tri_inv FITC {name}: sweep {err:.2e}, library {err_lib:.2e}"
+              f", recursive doubling (chol_tile::invert) {err_dbl:.2e}")

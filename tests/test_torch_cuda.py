@@ -12,8 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from gpvae_tpu_torch import configs, kernels, train
-from gpvae_tpu_torch.data import Batcher, generate_toy_data, toy_to_masked_batch
+from gpvae_tpu_torch import configs, kernels, sparse, train
+from gpvae_tpu_torch.data import (
+    Batcher, generate_toy_data, make_healing_batch, toy_to_masked_batch,
+)
 from gpvae_tpu_torch.models import GPVAE
 from gpvae_tpu_torch.ops import (
     _build, blocked, chol, chol_block, gram_chol, logdet, trail, tri_inv,
@@ -601,6 +603,90 @@ def test_bench_t100_step_goes_through_the_large_t_kernels(card):
     assert np.isfinite(log.rows[-1]["loss"])
 
 
+def _launches():
+    return (gram_chol.LAUNCHES, tri_inv.LAUNCHES, chol_block.LAUNCHES,
+            blocked.PANEL_LAUNCHES, blocked.SOLVE_LAUNCHES,
+            blocked.HIST_LAUNCHES, logdet.LAUNCHES)
+
+
+@pytest.mark.parametrize("t", [10, 17, 33])
+def test_gram_chol_cauchy_on_a_shared_grid_matches_plain(card, t):
+    """healing_mnist's bank: one row of times 0 .. T-1, no mask, N = 2Z =
+    128 Cauchy factors (T=10; 17 and 33 end in ragged panels)."""
+    times = torch.arange(t, dtype=torch.float32, device=card)[None]
+    ls = torch.tensor(np.random.default_rng(t).uniform(0.5, 4.0, 128),
+                      dtype=torch.float32, device=card)
+    l = gram_chol.gram_chol_fused(times, ls, kernel="cauchy")
+    ref = gram_chol.gram_chol_plain(times.double(), ls.double(),
+                                    kernel="cauchy")
+    lib = gram_chol.gram_chol_plain(times, ls, kernel="cauchy")
+    err = (l.double() - ref).abs().max().item()
+    err_lib = (lib.double() - ref).abs().max().item()
+    assert err <= max(5e-5, 4.0 * err_lib)
+    assert torch.all(torch.triu(l, 1) == 0)
+
+
+def test_fitc_kl_on_the_card_matches_float64(card):
+    """``fitc_diag_kl`` at sparse_t4096's Z=8, m=64 (T=512, B=2, unit grid)
+    in float32 on the kernels against float64, both at the float32 jitter:
+    the KL within 9.8e-4 of |KL| (BASELINE.md's sparse_t4096 row) or 4x
+    the CPU's float32 error; ``chol_block`` twice and ``tri_inv`` three
+    times forward, and two more ``tri_inv`` in the lengthscales'
+    backward."""
+    rng = np.random.default_rng(0)
+    b, t, z = 2, 512, 8
+    times = np.broadcast_to(np.arange(t, dtype=np.float64), (b, t))
+    mask = rng.random((b, t)) > 0.3
+    mu = rng.standard_normal((b, t, z))
+    log_var = 0.3 * rng.standard_normal((b, t, z))
+    s = np.linspace(0.0, float(t), 64)
+
+    def run(device, dtype):
+        ls = torch.full((z,), 32.0, dtype=dtype, device=device,
+                        requires_grad=True)
+        kl = sparse.fitc_diag_kl(
+            *(torch.tensor(a, dtype=dtype, device=device)
+              for a in (mu, log_var, times, s)), ls,
+            mask=torch.tensor(mask, device=device), jitter=1e-4)
+        kl.sum().backward()
+        return kl.detach().double().cpu(), ls.grad.double().cpu()
+
+    before = _launches()
+    kl, g = run(card, torch.float32)
+    after = _launches()
+    assert [a - b_ for a, b_ in zip(after, before)] == [0, 5, 2, 0, 0, 0, 0]
+    ref, g_ref = run("cpu", torch.float64)
+    lib, _ = run("cpu", torch.float32)
+    err = ((kl - ref).abs() / ref.abs()).max().item()
+    err_lib = ((lib - ref).abs() / ref.abs()).max().item()
+    assert err <= max(9.8e-4, 4.0 * err_lib)
+    assert torch.isfinite(g).all()
+
+
+@pytest.mark.parametrize("name", ["healing_mnist", "sparse_t4096"])
+def test_baseline_preset_steps_launch_their_kernels(card, name):
+    """A training step of healing_mnist (at its widths, B=4, T=10): one
+    Cauchy ``gram_chol``, two ``tri_inv``; of sparse_t4096 (T=512): two
+    ``chol_block``, three ``tri_inv``; nothing else."""
+    cfg = configs.get(name).model
+    if name == "healing_mnist":
+        data = make_healing_batch(8, seed=0)
+        data.pop("x_clean")
+        want = (1, 2, 0, 0, 0, 0, 0)
+    else:
+        cfg = dataclasses.replace(cfg, time_len=512)
+        data = toy_to_masked_batch(generate_toy_data(
+            np.random.default_rng(0), 8, t=512, xmax=511.0))
+        want = (0, 3, 2, 0, 0, 0, 0)
+    model = GPVAE(cfg, generator=torch.Generator().manual_seed(0))
+    before = _launches()
+    state, log = train.fit(model, Batcher(data, 4), train.TrainConfig(
+        num_steps=2, log_every=2), device=card, verbose=False)
+    after = _launches()
+    assert tuple((a - b) // 2 for a, b in zip(after, before)) == want
+    assert np.isfinite(log.rows[-1]["loss"])
+
+
 # -- the imputation path: the Cholesky of a pre-built bank ---------------------
 
 def _prebuilt(card, seed, n, t):
@@ -692,6 +778,35 @@ def test_solve_triangular_takes_tri_inv(card, t, left_side, transpose_a):
     rel = (torch.linalg.norm(x.double() - ref) / torch.linalg.norm(ref))
     # the inverse route amplifies rounding by about cond(L) = sqrt(cond K)
     assert rel.item() <= 1e-3
+
+
+@pytest.mark.parametrize("left_side,transpose_a", [
+    (True, False), (False, True)])
+def test_solve_triangular_above_the_inverse_route_is_float64(
+        card, left_side, transpose_a):
+    """Above ``INV_ROUTE_MAX_T`` a float32 triangle on the card is solved
+    in float64 (one library call, no ``tri_inv``) and the result rounded
+    back to float32: within float32's rounding of the float64 solve of
+    the same float32 inputs, with a gradient for both operands."""
+    t = trsm.INV_ROUTE_MAX_T + 128
+    k, k64 = _prebuilt(card, t, 2, t)
+    a = torch.linalg.cholesky(k64).float().contiguous().requires_grad_()
+    rng = np.random.default_rng(t)
+    b = torch.tensor(rng.standard_normal((2, t, 3) if left_side
+                                         else (2, 3, t)),
+                     dtype=torch.float32, device=card, requires_grad=True)
+    before = tri_inv.LAUNCHES
+    x = trsm.solve_triangular(a, b, left_side=left_side,
+                              transpose_a=transpose_a)
+    assert tri_inv.LAUNCHES == before
+    assert x.dtype == torch.float32
+    ref = torch.linalg.solve_triangular(
+        a.detach().double().mT if transpose_a else a.detach().double(),
+        b.detach().double(), upper=transpose_a, left=left_side)
+    assert ((x.detach().double() - ref).abs().max()
+            <= 1e-6 * ref.abs().max())
+    x.sum().backward()
+    assert torch.isfinite(a.grad).all() and torch.isfinite(b.grad).all()
 
 
 def test_evaluate_path_goes_through_the_kernels(card, tmp_path):

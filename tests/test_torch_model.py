@@ -262,11 +262,21 @@ def test_fit_trains_on_the_cpu_from_a_batcher(tmp_path):
 
 
 def test_fit_refuses_what_is_not_ported():
-    """A plain iterator of batches (checkpoints are ported:
-    tests/test_torch_impute.py)."""
+    """``fit`` takes a Batcher or an iterator of batch dicts (both ported;
+    the iterator path: tests/test_torch_healing.py).  What the JAX
+    package's ``fit`` refuses, the port refuses the same way, before any
+    step: a list, which is no iterator (``TypeError`` from ``next``), and
+    an iterator with no batch (``StopIteration``)."""
+    from gpvae_tpu import train as jtrain
+
     model = GPVAE(configs.get("syn_data").model)
-    with pytest.raises(TypeError, match="Batcher"):
-        train.fit(model, iter([]), train.TrainConfig(), device="cpu")
+    jmodel = JGPVAE(jconfigs.get("syn_data").model)
+    for batches, error in (([], TypeError), (iter([]), StopIteration)):
+        with pytest.raises(error):
+            jtrain.fit(jmodel, batches, jtrain.TrainConfig(), verbose=False)
+        with pytest.raises(error):
+            train.fit(model, batches, train.TrainConfig(), device="cpu",
+                      verbose=False)
 
 
 @pytest.mark.parametrize("overrides,slice_", [
@@ -275,19 +285,20 @@ def test_fit_refuses_what_is_not_ported():
     (dict(encoder="conv", decoder="conv", image_shape=(8, 8, 1),
           obs_dim=64, time_len=6), "slice 4"),
     (dict(shared_time_grid=True), "slice 4"),
-    (dict(prior="sparse_gp", posterior="diag",
-          inducing_time_range=(0.0, 1.0)), "slice 5a"),
+    (dict(prior="sparse_gp", posterior="diag", num_inducing=16,
+          inducing_time_range=(0.0, 60.0)), "slice 5a"),
     (dict(shared_time_grid=True, structured_prior="toeplitz"), "slice 5b"),
 ], ids=["overrides0-slice 4", "overrides1-slice 4", "overrides2-slice 4",
         "overrides3-slice 4", "overrides4-slice 5", "overrides5-slice 5b"])
 def test_unported_configurations_name_their_slice(overrides, slice_):
-    """The FITC prior and the Toeplitz structured prior raise, naming
-    their slices.  The configurations slice 4 brought (a diagonal
-    posterior, the standard prior, conv nets, a shared grid) build, and
+    """The Toeplitz structured prior raises, naming its slice.  The
+    configurations slices 4 and 5a brought (a diagonal posterior, the
+    standard prior, conv nets, a shared grid, the FITC prior) build, and
     their ELBO matches the JAX model's in float64 with its own noise
-    (every pair and gradient: tests/test_torch_zoo.py)."""
+    (every pair and gradient: tests/test_torch_zoo.py; the FITC prior:
+    tests/test_torch_sparse.py)."""
     cfg = GPVAEConfig(learn_prior_lengthscales=True, **overrides)
-    if slice_ != "slice 4":
+    if slice_ == "slice 5b":
         with pytest.raises(NotImplementedError, match=slice_):
             GPVAE(cfg)
         return
@@ -348,6 +359,7 @@ def test_import_leaves_jax_out():
         "gpvae_tpu_torch.models, gpvae_tpu_torch.train, "
         "gpvae_tpu_torch.data, gpvae_tpu_torch.data.moving_mnist, "
         "gpvae_tpu_torch.nets, gpvae_tpu_torch.gp, gpvae_tpu_torch.analysis, "
+        "gpvae_tpu_torch.sparse, gpvae_tpu_torch.data.healing, "
         "gpvae_tpu_torch.utils.plotting; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'gpvae_tpu')]; "
