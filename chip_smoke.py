@@ -7,9 +7,10 @@ Phases, each printing one line (a failed check exits nonzero at once):
 
 1. device: the card, its power limit, and TF32 off for matmuls and for
    cuDNN's convs (the package turns the latter off when imported);
-2. build: the six CUDA sources of ``gpvae_tpu_torch/csrc`` (nine
-   kernels), one ``nvcc`` each, all started together, and each kernel's
-   registers and spills as ptxas reports them;
+2. build: the seven CUDA sources of ``gpvae_tpu_torch/csrc`` (ten
+   kernels, and the Durbin recursion's chain floor), one ``nvcc`` each,
+   all started together, and each kernel's registers and spills as ptxas
+   reports them;
 3. kernels: each kernel against its plain PyTorch version in float64 on
    the card: ``gram_chol`` and ``tri_inv`` at T in ``GRAM_CHOL_TS`` (both
    sides of multiples of the kernel's panel width 16, up to 64), N in {80,
@@ -37,8 +38,12 @@ Phases, each printing one line (a failed check exits nonzero at once):
    ``healing_mnist`` and ``sparse_t4096``, ``gram_chol`` with the Cauchy
    kernel on a shared grid (N=128, T in {10, 17, 33}), ``chol_block`` at
    FITC's K_mm and B (N=64, m=64), ``tri_inv`` of each, and
-   ``ops.chol.cholesky`` of evaluate's T=4096 bank (32 blocks).  Every L
-   and L^-1 has an exactly zero strict upper triangle;
+   ``ops.chol.cholesky`` of evaluate's T=4096 bank (32 blocks); the Durbin
+   kernel against its plain version, both in float64, at T in
+   ``DURBIN_TS`` (Z=1 and 3), on ``t1024_toeplitz``'s prior rows and on
+   two near-singular T=4096 rows, and the Gohberg-Semencul identity ``K
+   (K^-1 X) = X`` through the FFT route in float32.  Every L and L^-1 has
+   an exactly zero strict upper triangle;
 4. main paths, each with every kernel counter set to 0 just before it and
    read just after (and no call of ``torch.linalg.cholesky`` or
    ``solve_triangular`` in between), and the trained model's ELBO and
@@ -86,6 +91,15 @@ Phases, each printing one line (a failed check exits nonzero at once):
       ``--eval-batch 2`` (32 ``hist_panel``, 32 ``chol_block``, 31
       ``panel_solve``, the library's solve at T=4096), metrics and
       posterior mean against the CPU in float64, and its peak memory;
+   i. ``t1024_toeplitz`` (BASELINE config 3) at its widths (B=8, T=1024,
+      Z=2, one uniform grid, the fixed Toeplitz prior) 40 steps on fully
+      observed toy sequences: exactly ``TOEP_LAUNCHES`` a step (the
+      posterior bank's blocked factorization, its ``diag_logdet``, the
+      backward's ``tri_inv``, one ``durbin``), no other kernel; its ELBO
+      against the CPU in float64 under the T=1024 bands; its prior KL
+      against the dense prior's on one batch of B=8; ``evaluate`` of its
+      checkpoint (the T=1024 imputation: 8 ``hist_panel``, 8
+      ``chol_block``, 7 ``panel_solve``, 1 ``tri_inv``);
    f. ``ops.chol.cholesky(method="blocked_fused")`` of a pre-built bank
       at T=1024, N=128, forward and backward: exactly 8 ``chol_block``
       (7 with L^-1), 7 ``trail_panel`` and 7 ``trail_update`` launches,
@@ -112,7 +126,11 @@ Phases, each printing one line (a failed check exits nonzero at once):
    (T, N) in {(256, 512), (512, 256), (1024, 128)}; the two BASELINE
    paths' steps/s and their evaluate calls, ``gram_chol`` (Cauchy, N=128,
    T=10), ``chol_block`` and ``tri_inv`` (N=64, m=64) and the pre-built
-   factorization at T=4096 (N=16).
+   factorization at T=4096 (N=16); ``t1024_toeplitz``'s steps/s, its
+   evaluate call, its prior KL by both routes, the posterior bank's
+   kernels at N=2, T=1024, and the Durbin kernel at T=1024 and 4096
+   beside its plain version, the library's dense Cholesky and logdet, its
+   bound and its chain floor.
 
 Then one JSON line with the kernels' results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -296,14 +314,49 @@ FITC_SEEDS = (11, 12, 13, 14)
 HEAL_LAUNCHES = {"gram_chol": 1, "tri_inv": 2}
 SPARSE_LAUNCHES = {"chol_block": 2, "tri_inv": 3}
 
+# BASELINE config 3, t1024_toeplitz at its widths (phase 4i): T=1024, Z=2,
+# B=8, dense nets, one uniform grid 0 .. 60 shared by the batch, a fixed
+# Toeplitz prior at (9, 3), the posterior's lengthscales learned; fully
+# observed toy sequences (the CLI's toy_full family)
+TOEP_T, TOEP_Z, TOEP_B = 1024, 2, 8
+TOEP_STEPS = 40
+TOEP_SEQS = 256
+TOEP_EVAL_B = 8
+TOEP_WINDOW = 10
+# launches a training step, every other counter 0: the posterior bank
+# [1, 2, T, T] factored blocked (8 column blocks of 128: gram_panel 8,
+# chol_block 8, panel_solve 7), its logdet (diag_logdet 1), the Cholesky
+# backward's flat tri_inv (1), the prior's Durbin recursion (1); no prior
+# factorization and no tri_inv of L_p
+TOEP_LAUNCHES = {"gram_panel": 8, "chol_block": 8, "panel_solve": 7,
+                 "diag_logdet": 1, "tri_inv": 1, "durbin": 1}
+# the Durbin kernel against its float64 plain version on the same float64
+# inputs: logdet and e relative, a and b over max |a|
+DURBIN_REL = 1e-9
+# the Durbin kernel's sides in phase 3: one and two steps, a ragged warp,
+# the preset's T and one past it (8 lags a thread), the kernel's largest
+DURBIN_TS = (2, 3, 33, TOEP_T, TOEP_T + 1, 4096)
+# the Gohberg-Semencul identity K (K^-1 X) = X through the FFT route in
+# float32 (max abs error over max |X|): BASELINE.md's float32 figure at
+# T=4096 for the blocked Schur/Durbin (1.7e-3), or 4x the same route's
+# error on the CPU in float32, whichever is larger
+GS_IDENTITY_REL = 1.7e-3
+# the Toeplitz prior KL against the dense prior's on the same batch, max
+# over [B, Z] of |difference| / |dense|: BASELINE.md's T=1024 figure
+# (4.5e-4), or 4x the same gap on the CPU in float32
+TOEP_KL_VS_DENSE = 4.5e-4
+
 # sequences each evaluate run generates (the CLI scores the last 10%)
 EVAL_SEQS = {"syn_data": 200, "bench_t100": 320,
              "full_gp_dynamic": ZOO_SEQS, "gp_prior_diag": ZOO_SEQS,
-             "healing_mnist": HEAL_SEQS, "sparse_t4096": 20}
+             "healing_mnist": HEAL_SEQS, "sparse_t4096": 20,
+             "t1024_toeplitz": 10 * TOEP_EVAL_B}
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): float32 outside the
 # tensor cores and HBM3 bandwidth; a bound is the larger of the two times
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# float64 outside the tensor cores (the Durbin kernel's arithmetic)
+PEAK_FP64_FLOPS = 34e12
 # DRAM moves whole 32-byte sectors: a strided gather of floats (the
 # diagonal, stride T + 1) moves one sector per element
 SECTOR_BYTES = 32
@@ -318,7 +371,7 @@ GRAM_OPS = 8
 PROFILED_CALLS = 20
 
 SOURCES = ("gram_chol", "tri_inv", "chol_block", "gram_panel",
-           "panel_solve", "diag_logdet")
+           "panel_solve", "diag_logdet", "durbin")
 # the method comparison of phase 5: the JAX package's crossover shapes
 METHOD_SHAPES = ((256, 512), (512, 256), (1024, 128))
 
@@ -469,7 +522,7 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 def counters():
     """``{kernel: (module, attribute)}`` of every launch counter."""
     from gpvae_tpu_torch.ops import (
-        blocked, chol_block, gram_chol, logdet, trail, tri_inv,
+        blocked, chol_block, durbin, gram_chol, logdet, trail, tri_inv,
     )
     return {"gram_chol": (gram_chol, "LAUNCHES"),
             "tri_inv": (tri_inv, "LAUNCHES"),
@@ -479,7 +532,8 @@ def counters():
             "diag_logdet": (logdet, "LAUNCHES"),
             "hist_panel": (blocked, "HIST_LAUNCHES"),
             "trail_panel": (trail, "PANEL_LAUNCHES"),
-            "trail_update": (trail, "UPDATE_LAUNCHES")}
+            "trail_update": (trail, "UPDATE_LAUNCHES"),
+            "durbin": (durbin, "LAUNCHES")}
 
 
 def reset_counts() -> None:
@@ -1342,6 +1396,117 @@ def check_healing_fitc_kernels(dev) -> dict:
 
 # -- phase 4 ------------------------------------------------------------------
 
+def cli_row(t, ls, dtype, dev, step=None):
+    """First rows ``[Z, T]`` of the prior grams on the CLI's grid 0 .. 60
+    (``linspace``, step ``60 / (T-1)``; or ``step``), noise 1e-3, as the
+    model builds them (``kernels.toeplitz_row``)."""
+    import torch
+
+    from gpvae_tpu_torch import kernels as kernels_lib
+
+    step = 60.0 / (t - 1) if step is None else step
+    return kernels_lib.toeplitz_row(
+        t, step, torch.tensor(ls, dtype=dtype, device=dev), dtype=dtype)
+
+
+def check_durbin_case(label, row64) -> dict:
+    """``toeplitz.durbin_gs_factors`` of float64 rows on the card: through
+    the Durbin kernel (exactly one launch) against its plain version on
+    the same inputs (``plain_versions``), both in float64.  logdet over
+    max(|logdet|, 1) (a T=2 row on a coarse grid has logdet ~ 0), e
+    relative, a and b over max |a|; fails past ``DURBIN_REL``."""
+    import torch
+
+    from gpvae_tpu_torch import toeplitz
+    from gpvae_tpu_torch.ops import durbin
+
+    before = durbin.LAUNCHES
+    ld, a, b, e = toeplitz.durbin_gs_factors(row64)
+    torch.cuda.synchronize()
+    if durbin.LAUNCHES - before != 1:
+        fail(f"durbin {label}: {durbin.LAUNCHES - before} launches, not 1")
+    with plain_versions():
+        ld0, a0, b0, e0 = toeplitz.durbin_gs_factors(row64)
+    scale = a0.abs().max()
+    err = {"logdet_rel": ((ld - ld0).abs() / ld0.abs().clamp(min=1.0)
+                          ).max().item(),
+           "e_rel": ((e - e0).abs() / e0.abs()).max().item(),
+           "a_rel_max": ((a - a0).abs().max() / scale).item(),
+           "b_rel_max": ((b - b0).abs().max() / scale).item()}
+    for k, v in err.items():
+        if not (math.isfinite(v) and v <= DURBIN_REL):
+            fail(f"durbin {label} vs its float64 plain version: {k} "
+                 f"{v:.3e} > {DURBIN_REL:.1e}")
+    return err
+
+
+def gs_identity_err(row, k64, x) -> float:
+    """max |K (K^-1 X) - X| / max |X| with ``K^-1 X = (A (A^T X) - B (B^T
+    X)) / e`` through the FFT route in ``row``'s dtype (the Gohberg-Semencul
+    factors of ``toeplitz.durbin_gs_factors``), ``K`` dense in float64;
+    ``x [Z, T, C]``."""
+    from gpvae_tpu_torch import toeplitz
+
+    _, a, b, e = toeplitz.durbin_gs_factors(row)
+    xr = x.to(row)
+    inv_x = (toeplitz.tri_toeplitz_matvec(
+        a, toeplitz.tri_toeplitz_matvec_t(a, xr))
+        - toeplitz.tri_toeplitz_matvec(
+            b, toeplitz.tri_toeplitz_matvec_t(b, xr))) / e[:, None, None]
+    back = k64.to(inv_x.device) @ inv_x.double()
+    x64 = x.double().to(back.device)
+    return ((back - x64).abs().max() / x64.abs().max()).item()
+
+
+def check_toeplitz_kernels(dev) -> dict:
+    """Phase 3, the Durbin kernel (``csrc/durbin.cu``) against its float64
+    plain version on the card (:func:`check_durbin_case`): at T in
+    ``DURBIN_TS`` on Z=1 and Z=3 rows of the CLI's grid, the
+    ``t1024_toeplitz`` prior's own rows (Z=2, lengthscales 9 and 3), and
+    two near-singular T=4096 rows (lengthscale 64 on the unit grid, 9 on
+    the grid 0 .. 60: 614 steps); and the Gohberg-Semencul identity ``K
+    (K^-1 X) = X`` through the FFT route in float32 on the preset's rows
+    and the T=4096 ones, against 4x the same route on the CPU in float32
+    (``GS_IDENTITY_REL`` at least).  Returns the worst errors."""
+    import numpy as np
+    import torch
+
+    from gpvae_tpu_torch import kernels as kernels_lib
+
+    f64 = torch.float64
+    cases = {}
+    for t in DURBIN_TS:
+        for ls in ((9.0,), (9.0, 3.0, 1.0)):
+            cases[f"T={t} Z={len(ls)}"] = check_durbin_case(
+                f"T={t} Z={len(ls)}", cli_row(t, ls, f64, dev))
+    preset = cli_row(TOEP_T, (9.0, 3.0), torch.float32, dev)
+    cases["t1024_toeplitz prior rows"] = check_durbin_case(
+        "t1024_toeplitz prior rows", preset.double())
+    t4096 = {"T=4096 l=64 unit grid": cli_row(4096, (64.0,), torch.float32,
+                                              dev, step=1.0),
+             "T=4096 l=9 grid 0..60": cli_row(4096, (9.0,), torch.float32,
+                                              dev, step=60.0 / 4096)}
+    for label, row in t4096.items():
+        cases[label] = check_durbin_case(label, row.double())
+    gs = {}
+    rng = np.random.default_rng(16)
+    for label, row in {"t1024_toeplitz prior rows": preset, **t4096}.items():
+        x = torch.tensor(rng.standard_normal((row.shape[0], row.shape[1], 4)),
+                         dtype=torch.float32)
+        k64 = kernels_lib.toeplitz_to_dense(row.double().cpu())
+        err = gs_identity_err(row, k64, x.to(dev))
+        err_cpu = gs_identity_err(row.cpu(), k64, x)
+        band = max(GS_IDENTITY_REL, ELBO_VS_LIBRARY * err_cpu)
+        if not (math.isfinite(err) and err <= band):
+            fail(f"GS identity {label}: {err:.3e} > {band:.3e} (CPU float32 "
+                 f"{err_cpu:.3e})")
+        gs[label] = {"rel": err, "cpu_float32_rel": err_cpu, "band": band}
+    return {"durbin": max(max(v.values()) for v in cases.values()),
+            "durbin_cases": cases, "gs_identity_rel": max(
+                v["rel"] for v in gs.values()), "gs_identity": gs,
+            "durbin_band": DURBIN_REL}
+
+
 def toy_batch(seed, b, t):
     import numpy as np
 
@@ -1349,6 +1514,17 @@ def toy_batch(seed, b, t):
 
     return toy_to_masked_batch(generate_toy_data(np.random.default_rng(seed),
                                                  b, t=t))
+
+
+def toy_full_batch(seed, b, t):
+    """``b`` toy sequences from ``seed`` with no step hidden, as the CLI
+    makes the ``toy_full`` family's: one uniform grid 0 .. 60."""
+    import numpy as np
+
+    from gpvae_tpu_torch.data import generate_toy_data, toy_to_masked_batch
+
+    return toy_to_masked_batch(generate_toy_data(
+        np.random.default_rng(seed), b, t=t, hide_fraction=0.0))
 
 
 def image_batch(seed, b, t=ZOO_T):
@@ -1658,8 +1834,9 @@ def main_path(dev, name, t, steps, num_seqs, window, ckpt_dir, *, kl_band,
 def eval_batch(preset_name, t, eval_b):
     """The sequences ``evaluate --seed 0`` scores: the first ``eval_b`` of
     the last 10% of its ``EVAL_SEQS`` sequences (``__main__.py``): toy
-    sequences, synthetic healing sequences, or the test split of synthetic
-    Moving-MNIST videos."""
+    sequences (fully observed for the ``toy_full`` family), synthetic
+    healing sequences, or the test split of synthetic Moving-MNIST
+    videos."""
     from gpvae_tpu_torch import configs
     from gpvae_tpu_torch.data import MovingMNIST, synthetic_moving_mnist
 
@@ -1669,8 +1846,8 @@ def eval_batch(preset_name, t, eval_b):
         test = MovingMNIST(data=synthetic_moving_mnist(
             n, t=t, size=ZOO_SIDE, seed=0)).splits["test"]
         return {k: v[:eval_b] for k, v in test.items()}
-    batch = healing_batch(0, n, t) if family == "healing" else toy_batch(
-        0, n, t)
+    batch = {"healing": healing_batch, "toy_full": toy_full_batch}.get(
+        family, toy_batch)(0, n, t)
     n_train = int(0.9 * n)
     return {k: v[n_train:n_train + eval_b] for k, v in batch.items()}
 
@@ -2184,6 +2361,130 @@ def sparse_path(dev, ck: str) -> tuple[dict, dict, dict]:
             "hist_panel": blocks, "chol_block": blocks,
             "panel_solve": blocks - 1, "tri_inv": int(inverse_route)},
         library=() if inverse_route else ("solve_triangular",))
+    return {name: out, f"evaluate_{name}": ev}, timing, ctx
+
+
+def prior_kl(model, mean, aux, times, route):
+    """The prior KL ``[B, Z]`` of a Toeplitz model's batch, given the
+    posterior's means, factor and logdet, by ``route``: ``"toeplitz"``
+    (its first rows, the Durbin recursion, the FFT trace) or ``"dense"``
+    (``chol_gram_bank`` of the shared grid, ``gp_kl`` on one ``tri_inv``
+    of L_p), each building its prior from the lengthscales."""
+    import torch
+
+    from gpvae_tpu_torch import gp
+    from gpvae_tpu_torch import kernels as kernels_lib
+
+    c = model.config
+    ls = torch.exp(model.prior_log_ls).to(times.dtype)
+    if route == "toeplitz":
+        row = kernels_lib.toeplitz_row(c.time_len, times[0, 1] - times[0, 0],
+                                       ls, kernel=c.kernel, noise=c.noise,
+                                       dtype=times.dtype)
+        return gp.gp_kl_toeplitz_prior(mean, aux["l_q"], row,
+                                       logdet_q=aux["ld_q"])
+    l_p = gp.chol_gram_bank(times[:1], ls, kernel=c.kernel, noise=c.noise)
+    return gp.gp_kl(mean, aux["l_q"], l_p, logdet_q=aux["ld_q"])
+
+
+def toeplitz_kl_inputs(model, device, dtype, seed=15) -> tuple:
+    """The trained model on ``device`` in ``dtype``, and the encoder's
+    means, ``chol_banks`` (with logdets) and times of a batch of B=8 fully
+    observed toy sequences from ``seed``."""
+    import torch
+
+    m = copy.deepcopy(model).to(device=device, dtype=dtype)
+    batch = toy_full_batch(seed, TOEP_B, TOEP_T)
+    x = torch.tensor(batch["x"], dtype=dtype, device=device)
+    times = torch.tensor(batch["times"], dtype=dtype, device=device)
+    with torch.no_grad():
+        mean = m.encode(x)
+        aux = m.chol_banks(times, None, logdets=True)
+    return m, mean, aux, times
+
+
+def toeplitz_vs_dense(model, dev) -> tuple[dict, dict]:
+    """The Toeplitz prior KL against the dense prior's on one batch
+    (:func:`prior_kl`): on the card in float32, max over [B, Z] of
+    |difference| / |dense| within ``TOEP_KL_VS_DENSE`` or 4x the same gap
+    on the CPU in float32; each route against the CPU's dense KL in
+    float64, and beside them the card's Toeplitz route on its float32
+    means and factor cast to float64 (its row and FFTs in float64).
+    Returns the fields and what phase 5 needs to time both routes."""
+    import torch
+
+    def kls(m, mean, aux, times):
+        with torch.no_grad():
+            return [prior_kl(m, mean, aux, times, route).double().cpu()
+                    for route in ("toeplitz", "dense")]
+
+    def gap(toep, dense):
+        return ((toep - dense).abs() / dense.abs()).max().item()
+
+    inputs = toeplitz_kl_inputs(model, dev, torch.float32)
+    card = kls(*inputs)
+    cpu32, cpu64 = (kls(*toeplitz_kl_inputs(model, "cpu", dtype))
+                    for dtype in (torch.float32, torch.float64))
+    # the card's Toeplitz route on its own float32 means and factor, cast
+    # to float64 (the factorization kernels take float32 only): the row
+    # and cuFFT in float64
+    m, mean, aux, times = inputs
+    with torch.no_grad():
+        card64 = prior_kl(m, mean.double(),
+                          {k: v.double() for k, v in aux.items()},
+                          times.double(), "toeplitz").cpu()
+    err, err_cpu = gap(*card), gap(*cpu32)
+    band = max(TOEP_KL_VS_DENSE, ELBO_VS_LIBRARY * err_cpu)
+    if not (math.isfinite(err) and err <= band):
+        fail(f"the Toeplitz prior KL vs the dense one on the card: {err:.3e} "
+             f"> {band:.3e} (CPU float32 {err_cpu:.3e})")
+    ref = cpu64[1]
+    fields = {"toeplitz_vs_dense_rel": err, "band": band,
+              "cpu_float32_toeplitz_vs_dense_rel": err_cpu,
+              "cpu_float64_toeplitz_vs_dense_rel": gap(*cpu64),
+              "card_toeplitz_vs_fp64_dense_rel": gap(card[0], ref),
+              "card_dense_vs_fp64_dense_rel": gap(card[1], ref),
+              "card_toeplitz_fft_float64_vs_fp64_dense_rel": gap(card64,
+                                                                 ref),
+              "kl_fp64": ref.tolist()}
+    return fields, {"inputs": inputs}
+
+
+def toeplitz_path(dev, ck: str) -> tuple[dict, dict, dict]:
+    """Phase 4i: ``t1024_toeplitz`` at its widths (B=8, T=1024, Z=2, one
+    uniform grid shared by the batch, the fixed Toeplitz prior)
+    trained ``TOEP_STEPS`` steps through ``train.fit`` on fully observed
+    toy sequences: its launches exactly ``TOEP_LAUNCHES`` a step and no
+    other kernel (the Durbin kernel once, no prior factorization); its
+    ELBO and gradients against the CPU in float64 on four batches of B=2
+    under the T=1024 bands (``diag_logdet`` once a forward); the Toeplitz
+    prior KL against the dense one (:func:`toeplitz_vs_dense`); then timed
+    and evaluated from its checkpoint (the T=1024 GP-posterior
+    imputation: ``hist_panel`` 8, ``chol_block`` 8, ``panel_solve`` 7,
+    ``tri_inv`` 1, nothing else).  Returns the phase fields, the timing
+    and the context phase 5 times the prior KLs in."""
+    from gpvae_tpu_torch.data import Batcher
+
+    name = "t1024_toeplitz"
+    ckpt_dir = os.path.join(ck, name)
+    model, out, fit_more = train_path(
+        dev, name, TOEP_T, TOEP_STEPS, None, ckpt_dir,
+        data=(Batcher(toy_full_batch(0, TOEP_SEQS, TOEP_T), TOEP_B, seed=0),
+              toy_full_batch(1, 8, TOEP_T)))
+    exact_launches(name, out["launches"], TOEP_LAUNCHES, TOEP_STEPS)
+    out["elbo_vs_cpu_fp64"] = elbo_vs_cpu(
+        model, dev, 2, TOEP_T, kl_band=KL_REL_TERMS_T1024,
+        log_ls_band=LOG_LS_GRAD_REL_T1024, logdet_per_forward=1,
+        batch_fn=toy_full_batch)
+    out["prior_kl_vs_dense"], ctx = toeplitz_vs_dense(model, dev)
+    phase("toeplitz_path", **out)
+    timing = time_path(fit_more, TOEP_WINDOW)
+    blocks = TOEP_T // 128
+    ev, ctx["evaluate"] = evaluate_path(
+        dev, name, TOEP_T, TOEP_EVAL_B, ckpt_dir, needs=(),
+        exact={k: 0 for k in read_counts()} | {
+            "hist_panel": blocks, "chol_block": blocks,
+            "panel_solve": blocks - 1, "tri_inv": 1})
     return {name: out, f"evaluate_{name}": ev}, timing, ctx
 
 
@@ -2811,6 +3112,181 @@ def time_healing_fitc_kernels(dev) -> dict:
     return out
 
 
+def time_durbin(dev) -> dict:
+    """The Durbin kernel at the ``t1024_toeplitz`` prior's rows (Z=2,
+    T=1024) and at T=4096 (Z=2): CUDA-event time and the card's own time
+    per call; its plain version (T - 1 steps of about 14 PyTorch ops, one
+    profiled call); the library's ``torch.linalg.cholesky`` and logdet of
+    the dense ``[Z, T, T]`` Toeplitz matrices (float32, pre-built); the
+    bound, bytes (rho read, y, the logdet and e written, float64) over the
+    memory rate or classical Durbin's 2 T^2 flops a row (Golub and Van
+    Loan, Alg. 4.7.1; the kernel's split form, a, b, s and t each over
+    their lags, does twice that) over the float64 peak; and the chain
+    floor, ``durbin_chain_kernel``'s T - 1 barriers and broadcasts at the
+    same block size, measured."""
+    import torch
+
+    from gpvae_tpu_torch import kernels as kernels_lib
+    from gpvae_tpu_torch.ops import durbin
+
+    out = {}
+    for t in (TOEP_T, 4096):
+        row = cli_row(t, (9.0, 3.0), torch.float32, dev)
+        z = row.shape[0]
+        rho = (row[:, 1:] / row[:, :1]).double().contiguous()
+        k = kernels_lib.toeplitz_to_dense(row)
+
+        def library(k=k):
+            l = torch.linalg.cholesky(k)
+            return 2.0 * torch.diagonal(l, dim1=-2, dim2=-1).log().sum(-1)
+
+        kern = device_profile(lambda rho=rho: durbin.durbin_cuda(rho),
+                              PROFILED_CALLS, "durbin",
+                              label=f"durbin T={t}")
+        chain = device_profile(
+            lambda t=t, z=z: durbin.chain_floor_cuda(z, t, dev),
+            PROFILED_CALLS, label=f"durbin chain T={t}")
+        plain = device_profile(lambda rho=rho: durbin.durbin_plain(rho),
+                               label=f"durbin plain T={t}")
+        lib = device_profile(library, PROFILED_CALLS,
+                             label=f"durbin library T={t}")
+        nbytes = 8.0 * z * (2 * (t - 1) + 2)
+        flops = 2.0 * z * t * t
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = flops / PEAK_FP64_FLOPS * 1e3
+        out[f"T{t}"] = {
+            "name": "durbin", "shape": f"Z={z}, T={t} (lengthscales 9, 3)",
+            "ms": cuda_ms(lambda rho=rho: durbin.durbin_cuda(rho)),
+            "device_ms": kern["device_us"] / 1e3,
+            "kernel_device_ms": kern["kernel_us"] / 1e3,
+            "kernel_launches_seen": kern["kernel_seen"],
+            "kernel_launches_counted": kern["kernel_counted"],
+            "chain_floor_ms": cuda_ms(
+                lambda t=t, z=z: durbin.chain_floor_cuda(z, t, dev)),
+            "chain_floor_device_ms": chain["device_us"] / 1e3,
+            "plain_ms": cuda_ms(lambda rho=rho: durbin.durbin_plain(rho),
+                                budget_ms=1.0, reps=3),
+            "plain_device_ms": plain["device_us"] / 1e3,
+            "plain_kernels_per_call": plain["kernels"],
+            "library_ms": cuda_ms(library), "library_device_ms":
+                lib["device_us"] / 1e3,
+            "library": "torch.linalg.cholesky + logdet of the dense "
+                       "[Z, T, T] Toeplitz (float32, pre-built)",
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return out
+
+
+def time_toeplitz_kl(ctx) -> dict:
+    """The prior KL of the ``t1024_toeplitz`` batch (B=8, T=1024, Z=2; the
+    trained model's means and posterior factor), by the Toeplitz route
+    and by the dense prior's factor (:func:`prior_kl`), forward only:
+    CUDA-event ms and the card's time and kernels per call."""
+    import torch
+
+    m, mean, aux, times = ctx["inputs"]
+    out = {}
+    for route in ("toeplitz", "dense"):
+        def call(route=route):
+            with torch.no_grad():
+                return prior_kl(m, mean, aux, times, route)
+
+        prof = device_profile(call, PROFILED_CALLS,
+                              label=f"the {route} prior KL")
+        out[route] = {"ms": cuda_ms(call),
+                      "device_ms": prof["device_us"] / 1e3,
+                      "kernels_per_call": prof["kernels"],
+                      "top_kernels_us_per_call": prof["top"]}
+    return out
+
+
+def time_toeplitz_kernels(dev) -> dict:
+    """The posterior bank's kernels at ``t1024_toeplitz``'s shape, N=2
+    matrices of T=1024 (one shared grid, Z=2): ``chol_block`` on block 0,
+    ``gram_panel`` and ``panel_solve`` at block 4, ``diag_logdet`` of the
+    ``[1, 2, T, T]`` bank, the flat ``tri_inv`` of the factors (the
+    Cholesky backward's), and the whole factorization."""
+    import numpy as np
+    import torch
+
+    from gpvae_tpu_torch import kernels as kernels_lib
+    from gpvae_tpu_torch.ops import blocked, chol_block, logdet, tri_inv
+
+    rng = np.random.default_rng(17)  # its own draws: later banks unchanged
+    f, n, t, nb = 4, TOEP_Z, TOEP_T, blocked.NB
+    times, mask, ls, var = flat_inputs(rng, n, t, dev, masked=False)
+    times = torch.linspace(0.0, 60.0, t, device=dev)[None].expand(n, t)
+    times = times.contiguous()
+    out = {}
+    l = blocked.cholesky_gram_inplace(times, ls, mask > 0.5, var)
+    k00 = kernels_lib.gram(times[:, :nb], ls[:, None, None],
+                           variance=var[:, None, None], mask=mask[:, :nb])
+    buf = torch.empty_like(k00)
+    out[f"chol_block_toeplitz_N{n}"] = time_kernel(
+        "chol_block", lambda: chol_block.chol_block(k00, out=buf),
+        lambda: chol_block.chol_block_plain(k00, out=buf),
+        lambda: torch.linalg.cholesky(k00),
+        f * n * (nb * (nb + 1) / 2 + nb * nb), n * nb ** 3 / 3,
+        f"N={n}, t={nb}, pre-built (a diagonal block of T={t})",
+        kernel="chol_block")
+    o, w = t // 2, nb
+    scratch = l.clone()
+    kp = blocked.gram_tile(times, mask, ls, var, slice(o, t), slice(o, o + w))
+    rows, cols = scratch[:, o:, :o], scratch[:, o:o + w, :o]
+    out[f"gram_panel_toeplitz_N{n}"] = time_kernel(
+        "gram_panel",
+        lambda: blocked.gram_panel(scratch, times, mask, ls, var, o, o, w),
+        lambda: blocked.gram_panel_plain(scratch, times, mask, ls, var, o, o,
+                                         w),
+        lambda: torch.baddbmm(kp, rows, cols.mT, alpha=-1.0),
+        f * n * ((t - o) * o + (t - o) * w + 2 * t),
+        n * (2.0 * (t - o) * w * o + GRAM_OPS * (t - o) * w),
+        f"N={n}, T={t}, block 4 (rows {o}-{t}, history {o})",
+        kernel="gram_panel", tensor_flops=3 * n * 2.0 * (t - o) * w * o)
+    ld = scratch[:, o:o + w, o:o + w]
+    sub = scratch[:, o + w:, o:o + w]
+    r = t - o - w
+    out[f"panel_solve_toeplitz_N{n}"] = time_kernel(
+        "panel_solve", lambda: blocked.panel_solve(scratch, o, w),
+        lambda: blocked.panel_solve_plain(scratch, o, w),
+        lambda: torch.linalg.solve_triangular(ld.mT, sub, upper=True,
+                                              left=False),
+        f * n * (w * (w + 1) / 2 + 2 * r * w + r * w), n * float(r) * w * w,
+        f"N={n}, T={t}, block 4 ({r} rows of {w})", kernel="panel_solve")
+    bank = l.reshape(1, n, t, t)
+    out[f"diag_logdet_toeplitz_N{n}"] = time_kernel(
+        "diag_logdet", lambda: logdet.diag_logdet_cuda(bank),
+        lambda: logdet.diag_logdet_plain(bank),
+        lambda: torch.diagonal(bank, dim1=-2, dim2=-1).log().sum(-1),
+        SECTOR_BYTES * n * t + f * n, 2.0 * n * t,
+        f"[1, {n}, {t}, {t}] (the posterior bank)", kernel="diag_logdet")
+    eye = torch.eye(t, device=dev).expand_as(l)
+
+    def inv_plain():
+        with plain_versions():
+            return tri_inv.tri_inv(l)
+
+    out[f"tri_inv_toeplitz_N{n}"] = time_kernel(
+        "tri_inv", lambda: tri_inv.tri_inv(l), inv_plain,
+        lambda: torch.linalg.solve_triangular(l, eye, upper=False),
+        f * n * (t * (t + 1) / 2 + t * t), n * t ** 3 / 3,
+        f"N={n}, T={t} (the flat route, one base call)", kernel="tri_inv")
+    kk = kernels_lib.gram(times, ls[:, None, None],
+                          variance=var[:, None, None], mask=mask)
+
+    def factor_plain():
+        with plain_versions():
+            return blocked.cholesky_gram_inplace(times, ls, mask > 0.5, var)
+
+    out[f"factorization_toeplitz_N{n}"] = time_kernel(
+        "factorization",
+        lambda: blocked.cholesky_gram_inplace(times, ls, mask > 0.5, var),
+        factor_plain, lambda: torch.linalg.cholesky(kk),
+        f * n * (t * t + 2 * t + 2), n * (t ** 3 / 3 + GRAM_OPS * t * t),
+        f"N={n}, T={t}, one shared grid", kernel="chol_block")
+    return out
+
+
 def time_call(call, seqs, label) -> dict:
     """Sequences scored per second by the host clock, median of 5 calls of
     ``call`` (each ends in the host reading the metrics), and the card's
@@ -2877,7 +3353,8 @@ def run(dev) -> int:
 
     from gpvae_tpu_torch import analysis
     from gpvae_tpu_torch.ops import (
-        _build, blocked, chol_block, gram_chol, logdet, trail, tri_inv,
+        _build, blocked, chol_block, durbin, gram_chol, logdet, trail,
+        tri_inv,
     )
 
     t_start = time.perf_counter()
@@ -2897,7 +3374,8 @@ def run(dev) -> int:
     # -- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
     _build.build_all(SOURCES)
-    for module in (gram_chol, tri_inv, chol_block, blocked, logdet, trail):
+    for module in (gram_chol, tri_inv, chol_block, blocked, logdet, trail,
+                   durbin):
         module.build()
     phase("build", seconds=time.perf_counter() - t0,
           nvcc_seconds=dict(_build.BUILD_SECONDS),
@@ -2912,8 +3390,10 @@ def run(dev) -> int:
     worst_trail = check_trail_kernels(dev)
     worst_solve = check_panel_solve(dev)
     worst_hf = check_healing_fitc_kernels(dev)
+    worst_toep = check_toeplitz_kernels(dev)
     phase("kernels_vs_plain", **worst, **worst_zoo, **worst_large,
           **worst_pre, **worst_trail, **worst_solve, **worst_hf,
+          **worst_toep,
           l_band=L_MAX_ABS,
           l_vs_library=L_VS_LIBRARY, panel_band=PANEL_ABS,
           cholesky_band_vs_library=CHOL_VS_LIBRARY,
@@ -2930,16 +3410,25 @@ def run(dev) -> int:
         zoo, zoo_timing = zoo_paths(dev, ck)
         heal, timing["healing_mnist"], heal_ctx = healing_path(dev, ck)
         sparse, timing["sparse_t4096"], sparse_ctx = sparse_path(dev, ck)
+        toep, timing["t1024_toeplitz"], toep_ctx = toeplitz_path(dev, ck)
     paths.update(zoo)
     paths.update(heal)
     paths.update(sparse)
+    paths.update(toep)
     timing.update(zoo_timing)
     paths.update(method_paths(dev))
 
     # -- 5. timing -------------------------------------------------------
     per_kernel, whole = time_kernels(dev)
     new_shapes = time_healing_fitc_kernels(dev)
+    new_shapes.update(time_toeplitz_kernels(dev))
+    durbin_times = time_durbin(dev)
+    per_kernel["durbin"] = durbin_times[f"T{TOEP_T}"]
+    new_shapes["durbin_T4096"] = durbin_times["T4096"]
     whole.update(new_shapes)
+    timing["prior_kl_t1024_toeplitz"] = time_toeplitz_kl(toep_ctx)
+    timing["evaluate_t1024_toeplitz"] = time_evaluate(
+        toep_ctx["evaluate"], "the t1024_toeplitz evaluate call")
     timing["evaluate_bench_t100_t1024"] = time_evaluate(
         context, "the T=1024 evaluate call")
     timing["evaluate_sparse_t4096"] = time_evaluate(
@@ -2969,34 +3458,41 @@ def run(dev) -> int:
               "hist_panel": max(worst_pre["hist_panel"],
                                 worst_hf["hist_panel_t4096"]),
               "trail_panel": worst_trail["trail_panel_abs"],
-              "trail_update": worst_trail["trail_update_abs"]}
-    sources = {"gram_chol": ("gram_chol.cu", "pallas_chol.py:673"),
-               "tri_inv": ("tri_inv.cu", "pallas_tri.py:39"),
-               "chol_block": ("chol_block.cu", "pallas_chol.py:198"),
-               "gram_panel": ("gram_panel.cu", "pallas_big.py:556"),
-               "panel_solve": ("panel_solve.cu", "pallas_big.py:1005"),
-               "diag_logdet": ("diag_logdet.cu", "pallas_big.py:237"),
-               "hist_panel": ("gram_panel.cu", "pallas_big.py:105"),
-               "trail_panel": ("gram_panel.cu", "pallas_trail.py:53"),
-               "trail_update": ("gram_panel.cu", "pallas_trail.py:53")}
-    # each kernel's times at the shapes of healing_mnist and sparse_t4096
-    # (hist_panel's: the whole T=4096 pre-built factorization it leads)
+              "trail_update": worst_trail["trail_update_abs"],
+              "durbin": worst_toep["durbin"]}
+    ops = "gpvae_tpu/ops/"
+    sources = {"gram_chol": ("gram_chol.cu", ops + "pallas_chol.py:673"),
+               "tri_inv": ("tri_inv.cu", ops + "pallas_tri.py:39"),
+               "chol_block": ("chol_block.cu", ops + "pallas_chol.py:198"),
+               "gram_panel": ("gram_panel.cu", ops + "pallas_big.py:556"),
+               "panel_solve": ("panel_solve.cu", ops + "pallas_big.py:1005"),
+               "diag_logdet": ("diag_logdet.cu", ops + "pallas_big.py:237"),
+               "hist_panel": ("gram_panel.cu", ops + "pallas_big.py:105"),
+               "trail_panel": ("gram_panel.cu", ops + "pallas_trail.py:53"),
+               "trail_update": ("gram_panel.cu", ops + "pallas_trail.py:53"),
+               "durbin": ("durbin.cu",
+                          "gpvae_tpu/toeplitz.py:88 (lax.scan, no Pallas)")}
+    # each kernel's times at the shapes of healing_mnist, sparse_t4096 and
+    # t1024_toeplitz (hist_panel's: the whole T=4096 pre-built
+    # factorization it leads; gram_panel's: the N=2 training one)
     at_new = {}
+    lead = {"prebuilt factorization": "hist_panel",
+            "factorization": "gram_panel"}
     for r in new_shapes.values():
-        kernel = {"prebuilt factorization": "hist_panel"}.get(r["name"],
-                                                              r["name"])
+        kernel = lead.get(r["name"], r["name"])
         at_new.setdefault(kernel, []).append({
             k: r[k] for k in ("name", "shape", "ms", "device_ms",
                               "kernel_device_ms", "plain_ms",
                               "plain_device_ms", "library_ms",
-                              "library_device_ms", "bound_ms", "bound_by")})
+                              "library_device_ms", "bound_ms", "bound_by",
+                              "chain_floor_ms") if k in r})
     lines = []
     for name, (src, tpu) in sources.items():
         r = per_kernel[name]
         lines.append({
             "name": name, "route": "cuda",
             "source": f"gpvae_tpu_torch/csrc/{src}",
-            "replaces": f"gpvae_tpu/ops/{tpu}",
+            "replaces": tpu,
             "launches": sum(p["launches"][name] for p in paths.values()),
             "max_abs_err": errors[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -3005,6 +3501,8 @@ def run(dev) -> int:
             "kernel_device_ms": r["kernel_device_ms"],
             "plain_device_ms": r["plain_device_ms"],
             "library_device_ms": r["library_device_ms"],
+            **({"chain_floor_ms": r["chain_floor_ms"]}
+               if "chain_floor_ms" in r else {}),
             "at_new_shapes": at_new.get(name, [])})
     print(json.dumps({"kernels": lines}), flush=True)
     print(smi, flush=True)

@@ -109,14 +109,17 @@ def _load_batches(args, preset, model_cfg):
                 size=model_cfg.image_shape[0], seed=args.seed),
                 batch_size=batch_size)
         return ds.batchers["train"], ds.splits["test"]
-    train, test = _toy_split(args, model_cfg)
+    train, test = _toy_split(args, model_cfg, full=family == "toy_full")
     return Batcher(train, batch_size, seed=args.seed), test
 
 
-def _toy_split(args, model_cfg) -> tuple[dict, dict]:
+def _toy_split(args, model_cfg, *, full: bool = False
+               ) -> tuple[dict, dict]:
     """``(train, test)``: the first 90% of the toy sequences generated from
     ``--seed`` (or read from the ``.npz`` of ``--data``) and the rest
-    (``gpvae_tpu/__main__.py:82-100``)."""
+    (``gpvae_tpu/__main__.py:82-100``).  With ``full`` (the ``toy_full``
+    family) no step is hidden: a Toeplitz prior needs a full uniform
+    grid."""
     from gpvae_tpu_torch.data import generate_toy_data, toy_to_masked_batch
 
     if args.data:
@@ -125,7 +128,8 @@ def _toy_split(args, model_cfg) -> tuple[dict, dict]:
     else:
         raw = generate_toy_data(np.random.default_rng(args.seed),
                                 args.num_seqs, t=model_cfg.time_len,
-                                obs_dim=model_cfg.obs_dim)
+                                obs_dim=model_cfg.obs_dim,
+                                hide_fraction=0.0 if full else 0.7)
     batch = toy_to_masked_batch(raw)
     n_train = int(0.9 * batch["x"].shape[0])
     return ({k: v[:n_train] for k, v in batch.items()},

@@ -9,7 +9,7 @@ Counterpart of ``gpvae_tpu/analysis.py:36-400``:
   hand-written kernels, ``ops.chol.cholesky``, and ``ops.trsm``);
 * :func:`impute_vae_prior` -- the N(0, 1)-fill baseline;
 * :func:`latent_traversal`, :func:`traversal_from_gp`, :func:`prior_draws`
-  (dense prior only), :func:`activation_stats`;
+  (circulant embedding under the Toeplitz prior), :func:`activation_stats`;
 * :func:`imputation_metrics` -- the synthetic-imputation evaluation;
 * :func:`pixel_imputation_metrics` -- the missing-pixel evaluation of the
   healing-MNIST regime;
@@ -32,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gpvae_tpu_torch import gp
+from gpvae_tpu_torch import gp, kernels, toeplitz
 from gpvae_tpu_torch.models import GPVAE
 
 
@@ -194,14 +194,22 @@ def traversal_from_gp(model: GPVAE, times: torch.Tensor, dim: int, *,
 @torch.no_grad()
 def prior_draws(model: GPVAE, times: torch.Tensor, *, num_samples: int = 1,
                 eps=None, generator=None) -> torch.Tensor:
-    """Latent trajectories from the model's GP prior over ``times [T]``
-    (``eps [S, 1, Z, T]``) -> ``[S, T, Z]``, through a dense Cholesky."""
+    """Latent trajectories from the model's GP prior over ``times [T]`` ->
+    ``[S, T, Z]`` (``analysis.py:191-222``): through a dense Cholesky
+    (``eps [S, 1, Z, T]``), or with the Toeplitz structured prior by
+    circulant embedding on the uniform grid
+    (``toeplitz.circulant_prior_sample``, ``eps [S, Z, 2(T-1)]``)."""
     cfg = model.config
-    if cfg.toeplitz_prior:
-        raise NotImplementedError(
-            "prior_draws with the Toeplitz structured prior (circulant "
-            "sampling): ROADMAP slice 5b")
     ls = torch.exp(_param_or_const(model, "prior_log_ls")).to(times.dtype)
+    if cfg.toeplitz_prior:
+        row = kernels.toeplitz_row(times.shape[0], times[1] - times[0], ls,
+                                   kernel=cfg.kernel, noise=cfg.noise,
+                                   dtype=times.dtype)
+        t = times.shape[0]
+        eps = _given(eps, (num_samples, cfg.latent_dim, 2 * (t - 1)), row,
+                     generator)
+        return toeplitz.circulant_prior_sample(row, num_samples,
+                                               eps=eps).mT
     l = gp.chol_gram_bank(times[None], ls, kernel=cfg.kernel, noise=cfg.noise)
     eps = _given(eps, (num_samples, 1, cfg.latent_dim, times.shape[0]), l,
                  generator)

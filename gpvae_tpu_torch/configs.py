@@ -7,9 +7,10 @@ Counterpart of ``gpvae_tpu/configs.py:17-151`` and ``:215-227``: the
 presets ``syn_data`` and ``syn_data_vm``, and the BASELINE configs
 ``bench_t100``, which runs the large-T covariance path (T=100; the CLI's
 ``--time-len`` takes it to T=1024), ``healing_mnist`` (missing pixels,
-the Cauchy kernel, short sequences) and ``sparse_t4096`` (T=4096 under
-the FITC prior).  ``t1024_toeplitz`` and ``dp_scale`` arrive with their
-slices (ROADMAP).
+the Cauchy kernel, short sequences), ``sparse_t4096`` (T=4096 under the
+FITC prior) and ``t1024_toeplitz`` (T=1024 under the Toeplitz structured
+prior, on fully observed sequences of one uniform grid).  ``dp_scale``
+arrives with data parallelism (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -28,8 +29,9 @@ class Preset:
     batch_size: int
     description: str = ""
     # which data pipeline the CLI builds: "toy" (masked GP draws),
-    # "mnist" (video frames), or "healing" (missing-pixel regime with
-    # per-feature masks); None infers it from the encoder type
+    # "toy_full" (the same, every step observed), "mnist" (video frames),
+    # or "healing" (missing-pixel regime with per-feature masks); None
+    # infers it from the encoder type
     data_family: str | None = None
 
     @property
@@ -206,6 +208,25 @@ register(Preset(
     batch_size=8,
     description="BASELINE config 4: T=4096 sequences under an m=64 "
     "inducing-point (FITC) GP prior — O(T m^2) KL",
+))
+
+
+register(Preset(
+    "t1024_toeplitz",
+    GPVAEConfig(
+        latent_dim=2, obs_dim=15, time_len=1024,
+        prior="gp", posterior="gp",
+        prior_lengthscales=(9.0, 3.0), learn_prior_lengthscales=False,
+        posterior_lengthscales=(9.0, 3.0), learn_posterior_lengthscales=True,
+        encoder="dense", decoder="dense",
+        shared_time_grid=True, structured_prior="toeplitz",
+    ),
+    TrainConfig(num_steps=100_000, beta=_TOY_BETA),
+    batch_size=8,
+    description="BASELINE config 3: T=1024 uniform grid — Toeplitz "
+    "structured prior (O(T^2) Durbin + Gohberg-Semencul inverse, "
+    "gp.gp_kl_toeplitz_prior) with the blocked-Cholesky posterior bank",
+    data_family="toy_full",
 ))
 
 

@@ -4,15 +4,17 @@ inverse route, correlated latent sampling, and GP-posterior conditioning.
 Counterpart of these pieces of ``gpvae_tpu/gp.py``: ``_tri_tri_frob2``
 (:60-92), ``chol_gram_bank`` with its custom gradient, its two forward
 routes, ``diff_times`` and ``impl`` (:98-232), ``gp_kl`` and
-``gp_prior_diag_kl`` on their inverse routes (:235-365), ``standard_kl``,
-``recog_gp_kl`` and ``_batch_diag`` (:464-520), the samplers
-``gp_sample``, ``diag_sample``, ``recog_sample`` and ``prior_sample``
-(:526-619) and the imputation path, ``GPPosterior``,
-``posterior_conditional`` and ``posterior_sample`` (:626-721).  The
-Toeplitz-prior KLs (:368-461) are ROADMAP slice 5b.  On a CUDA tensor
-the factors come from the hand-written kernels (T <= 64: ``gram_chol``;
-larger T: the blocked ``ops.blocked`` factorization; a pre-built gram:
-``ops.chol.cholesky``) and the inverses from ``ops.tri_inv``, on a CPU
+``gp_prior_diag_kl`` on their inverse routes (:235-365), the
+Toeplitz-prior KLs ``gp_kl_toeplitz_prior`` and
+``gp_prior_diag_kl_toeplitz`` (:368-461, on ``toeplitz.py``),
+``standard_kl``, ``recog_gp_kl`` and ``_batch_diag`` (:464-520), the
+samplers ``gp_sample``, ``diag_sample``, ``recog_sample`` and
+``prior_sample`` (:526-619) and the imputation path, ``GPPosterior``,
+``posterior_conditional`` and ``posterior_sample`` (:626-721).  On a
+CUDA tensor the factors come from the hand-written kernels (T <= 64:
+``gram_chol``; larger T: the blocked ``ops.blocked`` factorization; a
+pre-built gram: ``ops.chol.cholesky``), the inverses from ``ops.tri_inv``
+and the Toeplitz prior's Durbin recursion from ``ops.durbin``, on a CPU
 tensor from their plain versions; ``chol_gram_bank(impl="xla")`` is the
 library baseline.
 """
@@ -23,13 +25,16 @@ from typing import NamedTuple
 import torch
 
 from gpvae_tpu_torch import kernels as kernels_lib
+from gpvae_tpu_torch import toeplitz
 from gpvae_tpu_torch.ops import gram_chol
 from gpvae_tpu_torch.ops.blocked import cholesky_gram_inplace
 from gpvae_tpu_torch.ops.chol import cholesky, cholesky_bwd_from_l
 from gpvae_tpu_torch.ops.gram_chol import flat_bank, gram_chol_fused
 from gpvae_tpu_torch.ops.logdet import diag_logdet, logdet_from_chol
 from gpvae_tpu_torch.ops.tri_inv import tri_inv
-from gpvae_tpu_torch.ops.trsm import solve_triangular
+from gpvae_tpu_torch.ops.trsm import (
+    cho_solve_by_inverse, inverse_route, solve_by_inverse, solve_triangular,
+)
 
 
 def _tri_tri_frob2(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -269,6 +274,74 @@ def gp_prior_diag_kl(
     return 0.5 * (tr + quad - t + ld_p.expand_as(tr) - sum_log_v)
 
 
+def gp_kl_toeplitz_prior(
+    mu: torch.Tensor,
+    l_q: torch.Tensor,
+    prior_row: torch.Tensor,
+    *,
+    logdet_q: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """KL( N(mu, K_q) || N(0, K_p) ) with a Toeplitz prior -> ``[B, Z]``
+    (``gp.py:368-429``), on a uniform grid shared by the batch (no mask).
+
+    One Durbin recursion of the prior's first rows ``prior_row [Z, T]``
+    gives ``logdet K_p`` and ``K_p^{-1} = (A A^T - B B^T) / e``
+    (:func:`toeplitz.durbin_gs_factors`), so
+
+        tr(K_p^{-1} K_q) = (||A^T L_q||_F^2 - ||B^T L_q||_F^2) / e,
+        mu^T K_p^{-1} mu = (||A^T mu||^2 - ||B^T mu||^2) / e,
+
+    each pair from ONE forward FFT of its operand (the difference of two
+    large terms: both come from the same transform).  ``l_q [B or 1, Z,
+    T, T]`` the posterior factors (a leading 1 shared), ``mu [B, T, Z]``;
+    ``logdet_q`` as in :func:`gp_kl`."""
+    t = mu.shape[-2]
+    ld_p, a_col, b_col, e = toeplitz.durbin_gs_factors(prior_row)
+    m = toeplitz._fft_len(t)
+    fa = torch.conj(torch.fft.rfft(a_col, n=m, dim=-1))     # [Z, M/2+1]
+    fb = torch.conj(torch.fft.rfft(b_col, n=m, dim=-1))
+
+    def both_sq(y):
+        """(||A^T y||^2, ||B^T y||^2) over the last two axes of ``y [...,
+        Z, T, C]``, sharing one forward FFT."""
+        fy = torch.fft.rfft(y, n=m, dim=-2)
+        ya = torch.fft.irfft(fa[..., :, None] * fy, n=m, dim=-2)[..., :t, :]
+        yb = torch.fft.irfft(fb[..., :, None] * fy, n=m, dim=-2)[..., :t, :]
+        return (torch.sum(ya * ya, dim=(-2, -1)),
+                torch.sum(yb * yb, dim=(-2, -1)))
+
+    tr_a, tr_b = both_sq(l_q)                               # [B or 1, Z]
+    qa, qb = both_sq(mu.mT[..., None])                      # [B, Z]
+    tr = (tr_a - tr_b) / e
+    quad = (qa - qb) / e
+    ld_q = logdet_q if logdet_q is not None else logdet_from_chol(l_q)
+    return 0.5 * (tr.expand_as(quad) + quad - t
+                  + (ld_p[None] - ld_q).expand_as(quad))
+
+
+def gp_prior_diag_kl_toeplitz(
+    mu: torch.Tensor,
+    log_var: torch.Tensor,
+    prior_row: torch.Tensor,
+) -> torch.Tensor:
+    """KL( N(mu, diag v) || N(0, K_p) ) with a Toeplitz prior -> ``[B,
+    Z]`` (``gp.py:432-461``), all O(T^2): ``diag(K_p^{-1})_i =
+    (cumsum(a^2)_i - cumsum(b^2)_i) / e`` since A and B are
+    lower-triangular Toeplitz, and the quadratic term two FFT matvecs."""
+    t = mu.shape[-2]
+    ld_p, a_col, b_col, e = toeplitz.durbin_gs_factors(prior_row)
+    dinv = (torch.cumsum(a_col * a_col, dim=-1)
+            - torch.cumsum(b_col * b_col, dim=-1)) / e[..., None]  # [Z, T]
+    tr = torch.sum(dinv[None] * torch.exp(log_var).mT, dim=-1)    # [B, Z]
+    mu_c = mu.mT[..., None]                                 # [B, Z, T, 1]
+    ya = toeplitz.tri_toeplitz_matvec_t(a_col, mu_c)
+    yb = toeplitz.tri_toeplitz_matvec_t(b_col, mu_c)
+    quad = (torch.sum(ya * ya, dim=(-2, -1))
+            - torch.sum(yb * yb, dim=(-2, -1))) / e
+    sum_log_v = torch.sum(log_var, dim=-2)
+    return 0.5 * (tr + quad - t + ld_p[None] - sum_log_v)
+
+
 def standard_kl(
     mu: torch.Tensor,
     log_var: torch.Tensor,
@@ -457,16 +530,25 @@ def posterior_conditional(
     ``z_obs [B, To, Z]``, ``times_query [B, Tq]``.  ``with_cov=False``
     skips ``K_qq`` and ``S*`` and returns ``cov=None``.
 
-    ``A`` and ``L^{-1} z`` come from ONE solve against the columns of
-    ``[K_oq, z]`` (one inverse of ``L`` on CUDA, where the JAX package
-    solves twice and leaves XLA to merge the two).
+    By substitution ``A`` and ``L^{-1} z`` come from ONE solve against the
+    columns of ``[K_oq, z]`` (the JAX package solves twice and leaves XLA
+    to merge the two).  Where the solve would take ``L``'s explicit
+    inverse (``ops.trsm.inverse_route``: CUDA, To <= 2048) the mean is
+    ``K_qo (L L^T)^{-1} z`` instead, from the single column ``z``
+    (``ops.trsm.cho_solve_by_inverse``: one ``tri_inv``, each product
+    refined by its residual), and ``A`` is taken only for ``S*``, by the
+    same inverse: the inverse's float32 rounding in ``A`` cost
+    ``t1024_toeplitz``'s T=1024 mean 7x the library's substitution error
+    on an H100.  (By substitution
+    the mean keeps ``A^T L^{-1} z``: at T=4096, cond(K) ~ 1e6, the float32
+    rounding of ``(L L^T)^{-1} z`` would cost more than the solve.)
     """
     if jitter is None:
         jitter = _jitter(times_obs.dtype)
     k_oo = kernels_lib.gram_bank(times_obs, lengthscales, kernel=kernel,
                                  noise=noise, variance=variance,
                                  mask=mask_obs)
-    t_o, t_q = times_obs.shape[-1], times_query.shape[-1]
+    t_o = times_obs.shape[-1]
     k_oo = k_oo + jitter * torch.eye(t_o, dtype=k_oo.dtype,
                                      device=k_oo.device)
     k_oq = kernels_lib.cross_gram(times_obs, times_query, lengthscales,
@@ -476,11 +558,20 @@ def posterior_conditional(
     z_bz = z_obs.mT[..., None]                          # [B, Z, To, 1]
     if mask_obs is not None:
         z_bz = z_bz * mask_obs.to(z_bz.dtype)[:, None, :, None]
-    solved = solve_triangular(l, torch.cat([k_oq, z_bz], dim=-1))
-    a, alpha = solved[..., :t_q], solved[..., t_q:]     # L^{-1} K_oq, L^{-1} z
-    mean = (a.mT @ alpha)[..., 0].mT                    # [B, Tq, Z]
-    if not with_cov:
-        return GPPosterior(mean=mean, cov=None)
+    if inverse_route(l):
+        x_inv = tri_inv(l)
+        w = cho_solve_by_inverse(l, z_bz, x_inv)        # K_oo^{-1} z
+        mean = (k_oq.mT @ w)[..., 0].mT                 # [B, Tq, Z]
+        if not with_cov:
+            return GPPosterior(mean=mean, cov=None)
+        a = solve_by_inverse(l, k_oq, x_inv)            # L^{-1} K_oq
+    else:
+        t_q = times_query.shape[-1]
+        solved = solve_triangular(l, torch.cat([k_oq, z_bz], dim=-1))
+        a, alpha = solved[..., :t_q], solved[..., t_q:]  # L^-1 K_oq, L^-1 z
+        mean = (a.mT @ alpha)[..., 0].mT                 # [B, Tq, Z]
+        if not with_cov:
+            return GPPosterior(mean=mean, cov=None)
     k_qq = kernels_lib.gram_bank(times_query, lengthscales, kernel=kernel,
                                  noise=noise, variance=variance)
     return GPPosterior(mean=mean, cov=k_qq - a.mT @ a)

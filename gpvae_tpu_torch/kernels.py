@@ -1,10 +1,12 @@
 """Stationary GP kernel functions and batched gram construction.
 
-Counterpart of ``gpvae_tpu/kernels.py:42-222``.  The gram keeps the JAX
+Counterpart of ``gpvae_tpu/kernels.py:42-258``.  The gram keeps the JAX
 package's semantics exactly: ``K = (1 - noise) * variance * k(dt) +
 noise * I``, and with a mask (True = observed) masked rows and columns
 become identity, ``K = M K M + (I - diag m)``, so the factorization stays
-well-posed and masked steps contribute nothing to a logdet or a KL.
+well-posed and masked steps contribute nothing to a logdet or a KL.  On a
+uniform grid the gram is Toeplitz: ``toeplitz_row`` gives its first row
+(the Toeplitz prior's O(T) form), ``toeplitz_to_dense`` the matrix.
 """
 from __future__ import annotations
 
@@ -175,3 +177,39 @@ def cross_gram(
     if mask_b is not None:
         k = k * mask_b.to(k.dtype)[:, None, None, :]
     return k
+
+
+def toeplitz_row(
+    t: int,
+    step: torch.Tensor | float,
+    lengthscales: torch.Tensor,
+    *,
+    kernel: str | KernelFn = "rbf",
+    noise: float = DEFAULT_NOISE,
+    variance: torch.Tensor | float = 1.0,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """First rows ``[Z, T]`` of the per-latent Toeplitz grams of a
+    *uniform* grid with spacing ``step`` (``kernels.py:225-250``): lag
+    ``k`` holds ``(1 - noise) * variance * k(k * step) + noise * [k ==
+    0]``.  The lags are built in ``dtype`` (float32 by default, as the
+    JAX package's), on the device of ``lengthscales``."""
+    kfn = get_kernel(kernel) if isinstance(kernel, str) else kernel
+    dev = lengthscales.device
+    lags = torch.arange(t, dtype=dtype, device=dev) * torch.as_tensor(
+        step, dtype=dtype, device=dev)
+    variance = torch.as_tensor(variance, dtype=dtype, device=dev)
+    if variance.dim() == 1:
+        variance = variance[:, None]
+    row = variance * kfn(lags[None, :], lengthscales[:, None])
+    unit = torch.zeros(t, dtype=dtype, device=dev)
+    unit[0] = 1.0
+    return (1.0 - noise) * row + noise * unit[None, :]
+
+
+def toeplitz_to_dense(row: torch.Tensor) -> torch.Tensor:
+    """The symmetric Toeplitz matrices ``[..., T, T]`` of first rows
+    ``row [..., T]`` (``kernels.py:253-258``)."""
+    t = row.shape[-1]
+    idx = torch.arange(t, device=row.device)
+    return row[..., (idx[:, None] - idx[None, :]).abs()]

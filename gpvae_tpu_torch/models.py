@@ -13,18 +13,24 @@ both packages.  ``GPVAE`` covers the zoo's capability matrix:
 |          |               | with ``reference_recog_kl``)          |
 | standard | gp            | ``gp.gp_kl`` against an identity      |
 | sparse_gp| diag          | ``sparse.fitc_diag_kl`` (FITC)        |
+| gp, Toeplitz | gp        | ``gp.gp_kl_toeplitz_prior``           |
+| gp, Toeplitz | diag      | ``gp.gp_prior_diag_kl_toeplitz``      |
 
 on dense or conv nets, Bernoulli or Gaussian likelihoods, irregular
 masked time grids or one grid shared by the batch (``shared_time_grid``),
-with ``feature_mask``.  The Toeplitz structured prior raises
-``NotImplementedError`` naming its ROADMAP slice.
+with ``feature_mask``.  The Toeplitz structured prior (a uniform shared
+grid, ``structured_prior="toeplitz"``) takes the prior's first rows in
+place of its factors; a learnable Toeplitz prior raises
+``NotImplementedError`` naming its ROADMAP item.
 
 One step: factor the gram banks the pair needs in ONE call (the
 posterior's and the prior's lengthscales side by side in one stacked
 2Z-wide bank when both are GPs) with the fused ``gram_chol`` kernel
 (T <= 64) or the blocked large-T factorization, each factor's logdet
 from the same autograd node; encode; draw ``z``; take the KL (the GP
-priors' from one ``tri_inv`` of ``L_p``); decode and take the NLL.
+priors' from one ``tri_inv`` of ``L_p``, the Toeplitz prior's from one
+Durbin recursion of its first rows, ``csrc/durbin.cu``); decode and take
+the NLL.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from torch import nn
 
 from gpvae_tpu_torch import elbo as elbo_lib
 from gpvae_tpu_torch import gp, nets, sparse
+from gpvae_tpu_torch import kernels as kernels_lib
 from gpvae_tpu_torch.ops.logdet import logdet_from_chol
 
 PRIORS = ("standard", "gp", "sparse_gp")
@@ -143,10 +150,14 @@ class GPVAEConfig:
 
 def check_ported(config: GPVAEConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration the port does not
-    have yet, naming the ROADMAP slice that brings it."""
-    if config.structured_prior == "toeplitz":
+    have yet, naming the ROADMAP item that brings it: a Toeplitz prior
+    with learnable lengthscales, whose gradient would run through the
+    Durbin recursion, which the card runs forward only."""
+    if config.structured_prior == "toeplitz" and \
+            config.learn_prior_lengthscales:
         raise NotImplementedError(
-            "toeplitz structured prior: ROADMAP slice 5b"
+            "a Toeplitz structured prior with learnable lengthscales (the "
+            "Durbin kernel's backward): ROADMAP A7c"
         )
 
 
@@ -316,17 +327,28 @@ class GPVAE(nn.Module):
         a GP prior: on the fused routes from the factorization's own
         autograd node (one ``diag_logdet`` over the whole bank, its
         gradient folded into the Cholesky backward); with
-        ``cov_impl="xla"`` from ``logdet_from_chol``, on plain autograd."""
+        ``cov_impl="xla"`` from ``logdet_from_chol``, on plain autograd.
+
+        A Toeplitz prior is no factor but ``"prior_row"``, the first rows
+        ``[Z, T]`` of its grams on the batch's uniform grid
+        (``kernels.toeplitz_row`` at ``config.time_len``, in the dtype of
+        ``times``): no ``[Z, T, T]`` prior gram is built."""
         c = self.config
         times, mask = self._grid(times, mask)
+        out = {}
+        if c.toeplitz_prior:
+            out["prior_row"] = kernels_lib.toeplitz_row(
+                c.time_len, times[0, 1] - times[0, 0],
+                torch.exp(self.prior_log_ls), kernel=c.kernel,
+                noise=c.noise, dtype=times.dtype)
         sides = []
         if self._gp_posterior:
             sides.append(("q", self.posterior_log_ls,
                           logdets and c.posterior == "gp"))
-        if self._gp_prior:
+        if self._gp_prior and not c.toeplitz_prior:
             sides.append(("p", self.prior_log_ls, logdets))
         if not sides:
-            return {}
+            return out
         ls = torch.cat([torch.exp(log_ls) for _, log_ls, _ in sides]
                        ).to(times.dtype)
         bank = dict(mask=mask, kernel=c.kernel, noise=c.noise)
@@ -335,7 +357,6 @@ class GPVAE(nn.Module):
             l_all, ld = gp._chol_gram_bank_logdet(times, ls, **bank)
         else:
             l_all = gp.chol_gram_bank(times, ls, impl=c.cov_impl, **bank)
-        out = {}
         z = c.latent_dim
         for i, (side, _, with_ld) in enumerate(sides):
             out[f"l_{side}"] = l_all[:, i * z:(i + 1) * z]
@@ -384,9 +405,9 @@ class GPVAE(nn.Module):
            times: torch.Tensor, mask: torch.Tensor | None,
            aux: dict[str, torch.Tensor]) -> torch.Tensor:
         """Per-sequence KL ``[B]`` of the configured pair
-        (``models.py:420-468``), from the factors and logdets in ``aux``
-        (:meth:`chol_banks`); the FITC prior's from ``times`` and the
-        inducing grid."""
+        (``models.py:420-468``), from the factors, logdets and Toeplitz
+        rows in ``aux`` (:meth:`chol_banks`); the FITC prior's from
+        ``times`` and the inducing grid."""
         c = self.config
         if c.prior == "sparse_gp":
             kl_bz = sparse.fitc_diag_kl(
@@ -394,6 +415,16 @@ class GPVAE(nn.Module):
                 self.inducing_times(dtype=times.dtype, device=times.device),
                 torch.exp(self.prior_log_ls), mask=mask, kernel=c.kernel,
                 noise=c.noise)
+            return torch.sum(kl_bz, dim=-1)
+        if c.prior == "gp" and "prior_row" in aux:
+            # the Toeplitz structured prior: a full shared grid, no mask
+            if c.posterior == "gp":
+                kl_bz = gp.gp_kl_toeplitz_prior(mean, aux["l_q"],
+                                                aux["prior_row"],
+                                                logdet_q=aux.get("ld_q"))
+            else:
+                kl_bz = gp.gp_prior_diag_kl_toeplitz(mean, log_var,
+                                                     aux["prior_row"])
             return torch.sum(kl_bz, dim=-1)
         if c.prior == "gp":
             if c.posterior == "gp":

@@ -21,7 +21,10 @@
 * :mod:`.logdet` -- ``logdet_from_chol``: logdet from the factor's
   diagonal (``csrc/diag_logdet.cu`` for large factors); ``diag_logdet``,
   the same without autograd (the training step's one launch over its
-  stacked bank); ``chol_logdet``, ``slogdet_psd``.
+  stacked bank); ``chol_logdet``, ``slogdet_psd``,
+* :mod:`.durbin` -- the Durbin recursion of Toeplitz matrices in float64,
+  one block a matrix (``csrc/durbin.cu``), under ``toeplitz.py``'s logdet
+  and Gohberg-Semencul inverse.
 
 A CUDA tensor goes to the kernel, a CPU tensor to the plain PyTorch
 version beside it (:mod:`.dispatch`).  The submodules keep their names
@@ -29,9 +32,9 @@ here: ``ops.tri_inv`` is the module, whose ``LAUNCHES`` counter a run
 reads.
 """
 from gpvae_tpu_torch.ops import (
-    blocked, chol, chol_block, dispatch, gram_chol, logdet, trail, tri_inv,
-    trsm,
+    blocked, chol, chol_block, dispatch, durbin, gram_chol, logdet, trail,
+    tri_inv, trsm,
 )
 
-__all__ = ["blocked", "chol", "chol_block", "dispatch", "gram_chol",
-           "logdet", "trail", "tri_inv", "trsm"]
+__all__ = ["blocked", "chol", "chol_block", "dispatch", "durbin",
+           "gram_chol", "logdet", "trail", "tri_inv", "trsm"]

@@ -12,14 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from gpvae_tpu_torch import configs, kernels, sparse, train
+from gpvae_tpu_torch import configs, gp, kernels, sparse, toeplitz, train
 from gpvae_tpu_torch.data import (
     Batcher, generate_toy_data, make_healing_batch, toy_to_masked_batch,
 )
 from gpvae_tpu_torch.models import GPVAE
 from gpvae_tpu_torch.ops import (
-    _build, blocked, chol, chol_block, gram_chol, logdet, trail, tri_inv,
-    trsm,
+    _build, blocked, chol, chol_block, dispatch, durbin, gram_chol, logdet,
+    trail, tri_inv, trsm,
 )
 
 pytestmark = pytest.mark.cuda
@@ -1040,3 +1040,169 @@ def test_trail_kernels_refuse_what_they_do_not_take(card):
         blocked.cholesky_blocked_fused(l, block_size=32)
     with pytest.raises(ValueError, match="T=100 > 64"):
         chol.cholesky(torch.eye(100, device=card)[None], method="pallas")
+
+
+# -- the Toeplitz prior: the Durbin recursion ---------------------------------
+
+def _toeplitz_rows(card, t, z, dtype=torch.float64):
+    """``z`` first rows on the grid 0 .. 60 (step 60 / (T-1)), lengthscales
+    from 9 down, noise 1e-3."""
+    ls = torch.tensor([9.0, 3.0, 1.0][:z], dtype=dtype, device=card)
+    return kernels.toeplitz_row(t, 60.0 / max(t - 1, 1), ls, dtype=dtype)
+
+
+@pytest.mark.parametrize("z", [1, 3])
+@pytest.mark.parametrize("t", [2, 3, 33, 1024, 1025, 4096])
+def test_durbin_kernel_matches_plain(card, t, z):
+    """``durbin_gs_factors`` through the kernel (one launch) against its
+    plain version on the same float64 rows: logdet over max(|logdet|, 1)
+    and e relative, a and b over max |a|, to 1e-9."""
+    row = _toeplitz_rows(card, t, z)
+    before = durbin.LAUNCHES
+    got = toeplitz.durbin_gs_factors(row)
+    assert durbin.LAUNCHES == before + 1
+    real = dispatch.on_cuda
+    dispatch.on_cuda = lambda x: False
+    try:
+        ref = toeplitz.durbin_gs_factors(row)
+    finally:
+        dispatch.on_cuda = real
+    torch.cuda.synchronize()
+    ld, a, b, e = got
+    ld0, a0, b0, e0 = ref
+    scale = a0.abs().max()
+    assert ((ld - ld0).abs() / ld0.abs().clamp(min=1.0)).max() <= 1e-9
+    assert ((e - e0).abs() / e0.abs()).max() <= 1e-9
+    assert (a - a0).abs().max() <= 1e-9 * scale
+    assert (b - b0).abs().max() <= 1e-9 * scale
+    if t <= 1025:  # the logdet against the dense matrix's
+        k = kernels.toeplitz_to_dense(row)
+        dense = torch.linalg.slogdet(k)[1]
+        assert ((ld - dense).abs() / dense.abs().clamp(min=1.0)).max() <= 1e-9
+
+
+def test_durbin_kernel_keeps_the_input_dtype_and_refuses_what_it_cannot(
+        card):
+    row = _toeplitz_rows(card, 64, 2, torch.float32)
+    ld, a, b, e = toeplitz.durbin_gs_factors(row)
+    assert all(v.dtype == torch.float32 and v.is_cuda for v in (ld, a, b, e))
+    # recurred in float64 on the float32 row's values
+    ref = toeplitz.durbin_gs_factors(row.double())
+    for v, r in zip((ld, a, b, e), ref):
+        assert torch.equal(v, r.float())
+    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
+        toeplitz.durbin_logdet(row.clone().requires_grad_(True))
+    with torch.no_grad():
+        toeplitz.durbin_logdet(row.clone().requires_grad_(True))
+    with pytest.raises(ValueError, match="T <= 4096"):
+        durbin.durbin_cuda(torch.zeros(1, 4096, dtype=torch.float64,
+                                       device=card))
+    with pytest.raises(TypeError, match="float64"):
+        durbin.durbin_cuda(torch.zeros(1, 8, device=card))
+
+
+def test_durbin_chain_floor_runs(card):
+    out = durbin.chain_floor_cuda(2, 1024, card)
+    torch.cuda.synchronize()
+    assert out.tolist() == [1.0, 1.0]
+
+
+def test_toeplitz_prior_kl_on_the_card_matches_dense(card):
+    """``gp_kl_toeplitz_prior`` in float32 on the card (the Durbin kernel,
+    cuFFT) against the dense prior's ``gp_kl`` in float64 on the CPU,
+    T=1024, B=4, Z=2, a shared posterior factor: within 4.5e-4 relative
+    (BASELINE.md's T=1024 figure) or 4x the CPU's float32 error."""
+    rng = np.random.default_rng(3)
+    t = 1024
+    times = torch.linspace(0.0, 60.0, t, dtype=torch.float64)[None]
+    mu = torch.tensor(0.5 * rng.standard_normal((4, t, 2)))
+    l_q = gp.chol_gram_bank(times, torch.tensor([5.0, 2.0],
+                                                dtype=torch.float64))
+    row = kernels.toeplitz_row(t, 60.0 / (t - 1), torch.tensor(
+        [9.0, 3.0], dtype=torch.float64), dtype=torch.float64)
+    l_p = torch.linalg.cholesky(kernels.toeplitz_to_dense(row))[None]
+    ref = gp.gp_kl(mu, l_q, l_p)
+    lib = gp.gp_kl_toeplitz_prior(mu.float(), l_q.float(), row.float())
+    before = durbin.LAUNCHES
+    got = gp.gp_kl_toeplitz_prior(mu.float().to(card), l_q.float().to(card),
+                                  row.float().to(card))
+    assert durbin.LAUNCHES == before + 1
+    err = ((got.double().cpu() - ref).abs() / ref.abs()).max().item()
+    err_lib = ((lib.double() - ref).abs() / ref.abs()).max().item()
+    assert err <= max(4.5e-4, 4.0 * err_lib)
+
+
+def test_t1024_toeplitz_steps_launch_their_kernels(card):
+    """A training step of t1024_toeplitz at its widths (B=8, T=1024, Z=2):
+    the posterior bank's blocked factorization (gram_panel 8, chol_block
+    8, panel_solve 7), one diag_logdet, the backward's tri_inv, one Durbin
+    launch; no prior factorization, no gram_chol, no hist_panel."""
+    cfg = configs.get("t1024_toeplitz").model
+    data = toy_to_masked_batch(generate_toy_data(
+        np.random.default_rng(0), 16, t=1024, hide_fraction=0.0))
+    model = GPVAE(cfg, generator=torch.Generator().manual_seed(0))
+    before = _launches() + (durbin.LAUNCHES,)
+    state, log = train.fit(model, Batcher(data, 8), train.TrainConfig(
+        num_steps=2, log_every=2), device=card, verbose=False)
+    after = _launches() + (durbin.LAUNCHES,)
+    assert tuple((a - b) // 2 for a, b in zip(after, before)) == (
+        0, 1, 8, 8, 7, 0, 1, 1)
+    assert np.isfinite(log.rows[-1]["loss"])
+
+
+def test_posterior_conditional_with_cov_inverts_once_on_the_card(card):
+    """``gp.posterior_conditional`` with the covariance at T=256 on the
+    card: one ``tri_inv`` launch serves the refined mean and ``A``, and
+    the covariance is ``K_qq - A^T A`` with ``A`` from
+    ``trsm.solve_triangular``'s own inverse."""
+    rng = np.random.default_rng(19)
+    t = 256
+    times = torch.linspace(0.0, 15.0, t)[None].expand(2, t).to(card)
+    kept = torch.tensor(rng.random((2, t)) < 0.5).to(card)
+    z_obs = torch.tensor(rng.standard_normal((2, t, 2)),
+                         dtype=torch.float32).to(card)
+    ls = torch.tensor([9.0, 3.0]).to(card)
+    before = tri_inv.LAUNCHES
+    got = gp.posterior_conditional(times, z_obs, times, ls, mask_obs=kept)
+    assert tri_inv.LAUNCHES == before + 1
+    k_oo = kernels.gram_bank(times, ls, mask=kept) + gp._jitter(
+        torch.float32) * torch.eye(t, device=card)
+    k_oq = kernels.cross_gram(times, times, ls, mask_a=kept)
+    a = trsm.solve_triangular(chol.cholesky(k_oo), k_oq)
+    want = kernels.gram_bank(times, ls) - a.mT @ a
+    assert torch.allclose(got.cov, want, rtol=0.0,
+                          atol=1e-6 * want.abs().max().item())
+
+
+def test_cho_solve_by_inverse_on_the_card_is_refined(card):
+    """``trsm.cho_solve_by_inverse`` at T=1024 (one ``tri_inv``
+    of L for both solves, each product refined by its residual) on a
+    dense uniform grid with half the steps kept (cond(K) ~ 1e5): the
+    posterior mean ``K_qo K_oo^{-1} z`` within 1e-4 of its largest entry
+    of float64, or 4x the CPU library's float32 substitution."""
+    rng = np.random.default_rng(18)
+    t = 1024
+    times = torch.linspace(0.0, 60.0, t, dtype=torch.float64)[None].expand(
+        2, t)
+    kept = torch.tensor(rng.random((2, t)) < 0.5)
+    ls = torch.tensor([9.0, 3.0], dtype=torch.float64)
+    k = kernels.gram_bank(times, ls, mask=kept) + 1e-5 * torch.eye(
+        t, dtype=torch.float64)
+    k_oq = kernels.cross_gram(times, times, ls, mask_a=kept)
+    z = torch.tensor(rng.standard_normal((2, 2, t, 1))) * kept[:, None, :,
+                                                               None]
+
+    def mean(w):
+        return (k_oq.mT @ w.double().cpu())[..., 0]
+
+    ref = mean(torch.cholesky_solve(z, torch.linalg.cholesky(k)))
+    l = chol.cholesky(k.float().to(card))
+    before = tri_inv.LAUNCHES
+    got = mean(trsm.cho_solve_by_inverse(l, z.float().to(card)))
+    assert tri_inv.LAUNCHES == before + 1
+    lib = mean(torch.cholesky_solve(z.float(),
+                                    torch.linalg.cholesky(k.float())))
+    scale = ref.abs().max()
+    err = ((got - ref).abs().max() / scale).item()
+    err_lib = ((lib - ref).abs().max() / scale).item()
+    assert err <= max(1e-4, 4.0 * err_lib)

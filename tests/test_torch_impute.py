@@ -43,6 +43,7 @@ from gpvae_tpu_torch.__main__ import main
 from gpvae_tpu_torch.data import Batcher, generate_toy_data
 from gpvae_tpu_torch.models import GPVAE, GPVAEConfig
 from gpvae_tpu_torch.ops import blocked, chol, logdet, trsm
+from gpvae_tpu_torch.ops.tri_inv import tri_inv_plain
 
 FP64_REL = 1e-9
 # a JAX float64 function whose products are pinned to float32
@@ -271,6 +272,27 @@ def test_solve_triangular_matches_jax(left_side, transpose_a):
                                else got.numpy() @ op, b, atol=1e-9)
 
 
+def test_cho_solve_by_inverse_matches_float64():
+    """``(L L^T)^{-1} B`` from one inverse of L, each product refined by
+    its residual: in float64 against numpy; in float32 on a dense uniform
+    grid (cond(K) ~ 1e5) within 2x the library's substitution error of
+    float64."""
+    k = _bank(14, 2, 60)
+    b = np.random.default_rng(15).standard_normal((2, 2, 60, 3))
+    got = trsm.cho_solve_by_inverse(_t(np.linalg.cholesky(k)), _t(b))
+    assert _rel(got.numpy(), np.linalg.solve(k, b)) <= FP64_REL
+    times = np.linspace(0.0, 60.0, 300)[None]
+    k = np.asarray(jkernels.gram_bank(jnp.asarray(times), jnp.asarray(
+        [9.0, 3.0]))) + 1e-5 * np.eye(300)
+    l32 = torch.linalg.cholesky(_t(k, torch.float32))
+    z = _t(np.random.default_rng(16).standard_normal((1, 2, 300, 1)),
+           torch.float32)
+    want = np.linalg.solve(k, z.numpy())
+    sub = torch.cholesky_solve(z, l32)
+    assert _rel(trsm.cho_solve_by_inverse(l32, z).numpy(), want) <= (
+        2.0 * _rel(sub.numpy(), want))
+
+
 # ---------------------------------------------------------------------------
 # the GP posterior
 # ---------------------------------------------------------------------------
@@ -303,6 +325,43 @@ def test_posterior_conditional_matches_jax(with_cov):
         assert err <= FP32_PINNED_REL
     else:
         assert got.cov is None and want.cov is None
+
+
+@pytest.mark.parametrize("with_cov", [True, False])
+def test_posterior_conditional_inverse_route_matches_substitution(
+        with_cov, monkeypatch):
+    """The card's inverse route (the mean ``K_qo (L L^T)^{-1} z`` from the
+    single column, ``A`` for the covariance alone), forced on the CPU,
+    against the substitution route's ``A^T L^{-1} z`` in float64."""
+    times, kept, z_obs, ls = _posterior_inputs(13)
+    args = (_t(times), _t(z_obs), _t(times[:, ::3] + 0.1), _t(ls))
+    want = gp.posterior_conditional(*args, mask_obs=_t(kept, torch.bool),
+                                    with_cov=with_cov)
+    monkeypatch.setattr(gp, "inverse_route", lambda a: True)
+    got = gp.posterior_conditional(*args, mask_obs=_t(kept, torch.bool),
+                                   with_cov=with_cov)
+    assert _rel(got.mean.numpy(), want.mean.numpy()) <= FP64_REL
+    if with_cov:
+        assert _rel(got.cov.numpy(), want.cov.numpy()) <= FP64_REL
+
+
+def test_posterior_conditional_inverse_route_inverts_once(monkeypatch):
+    """With the covariance, the inverse route inverts ``L`` once: the
+    refined mean and ``A = L^{-1} K_oq`` share one ``tri_inv``."""
+    times, kept, z_obs, ls = _posterior_inputs(13)
+    calls = []
+
+    def counted(l):
+        calls.append(l.shape)
+        return tri_inv_plain(l)
+
+    monkeypatch.setattr(gp, "inverse_route", lambda a: True)
+    monkeypatch.setattr(gp, "tri_inv", counted)
+    monkeypatch.setattr(trsm, "tri_inv", counted)
+    got = gp.posterior_conditional(_t(times), _t(z_obs),
+                                   _t(times[:, ::3] + 0.1), _t(ls),
+                                   mask_obs=_t(kept, torch.bool))
+    assert len(calls) == 1 and torch.isfinite(got.cov).all()
 
 
 def test_posterior_and_prior_samples_match_jax_with_the_same_noise():

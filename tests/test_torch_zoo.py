@@ -286,14 +286,17 @@ def zoo_cases(net):
     return cases, ids
 
 
-def check_elbo_matches_jax(pair, net, shared, monkeypatch):
+def check_elbo_matches_jax(pair, net, shared, monkeypatch, *, extra=None,
+                           band=None):
     """Loss, nll, kl, the latent draw and every gradient of the ELBO, the
     JAX model's noise fed to the port as ``eps``, with a ``feature_mask``
     and ``beta`` 0.7 (the Gaussian likelihood on the dense standard-prior
-    pairs).  Also run by tests/test_torch_conv.py for the conv nets."""
+    pairs).  Also run by tests/test_torch_conv.py for the conv nets and by
+    tests/test_torch_toeplitz.py, which sets more config fields
+    (``extra``) and its own ``band``."""
     monkeypatch.setattr(jgp, "cholesky",
                         lambda k, method="auto": jnp.linalg.cholesky(k))
-    fields = _zoo_config(pair, net, shared)
+    fields = {**_zoo_config(pair, net, shared), **(extra or {})}
     cfg = GPVAEConfig(**fields)
     from gpvae_tpu.models import GPVAEConfig as JConfig
     jcfg = JConfig(**fields)
@@ -320,7 +323,8 @@ def check_elbo_matches_jax(pair, net, shared, monkeypatch):
                 beta=0.7, feature_mask=torch.tensor(fmask),
                 eps=torch.tensor(eps))
     out.loss.backward()
-    band = FP64_REL if cfg.posterior == "diag" else SAMPLED_REL
+    if band is None:
+        band = FP64_REL if cfg.posterior == "diag" else SAMPLED_REL
     assert _rel(out.latent_sample.detach().numpy(), ref.latent_sample) <= band
     for name in ("loss", "nll", "kl"):
         assert _rel(getattr(out, name).detach().numpy(),
