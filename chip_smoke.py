@@ -7,8 +7,9 @@ Phases, each printing one line (a failed check exits nonzero at once):
 
 1. device: the card, its power limit, and TF32 off for matmuls and for
    cuDNN's convs (the package turns the latter off when imported);
-2. build: the seven CUDA sources of ``gpvae_tpu_torch/csrc`` (ten
-   kernels, and the Durbin recursion's chain floor), one ``nvcc`` each,
+2. build: the seven CUDA sources of ``gpvae_tpu_torch/csrc`` (eleven
+   kernels, the Durbin recursion's reverse among them, and the Durbin
+   kernels' two chain floors), one ``nvcc`` each,
    all started together, and each kernel's registers and spills as ptxas
    reports them;
 3. kernels: each kernel against its plain PyTorch version in float64 on
@@ -42,8 +43,13 @@ Phases, each printing one line (a failed check exits nonzero at once):
    kernel against its plain version, both in float64, at T in
    ``DURBIN_TS`` (Z=1 and 3), on ``t1024_toeplitz``'s prior rows and on
    two near-singular T=4096 rows, and the Gohberg-Semencul identity ``K
-   (K^-1 X) = X`` through the FFT route in float32.  Every L and L^-1 has
-   an exactly zero strict upper triangle;
+   (K^-1 X) = X`` through the FFT route in float32; the Durbin kernel's
+   reverse on the forward kernel's kept steps of the same rows and of two
+   rows whose last coefficient clamps, against its plain version and
+   against autograd of the plain forward, all in float64 (random
+   cotangents on all three outputs, and on each alone at the preset's and
+   the clamped rows).  Every L and L^-1 has an exactly zero strict upper
+   triangle;
 4. main paths, each with every kernel counter set to 0 just before it and
    read just after (and no call of ``torch.linalg.cholesky`` or
    ``solve_triangular`` in between), and the trained model's ELBO and
@@ -100,6 +106,12 @@ Phases, each printing one line (a failed check exits nonzero at once):
       against the dense prior's on one batch of B=8; ``evaluate`` of its
       checkpoint (the T=1024 imputation: 8 ``hist_panel``, 8
       ``chol_block``, 7 ``panel_solve``, 1 ``tri_inv``);
+   j. ``t1024_toeplitz``'s model with ``learn_prior_lengthscales`` at its
+      widths, 40 steps: exactly ``TOEP_LEARN_LAUNCHES`` a step (i.'s and
+      one ``durbin_bwd``), no other kernel; ``prior_log_ls`` moves and
+      stays finite; its ELBO and every gradient, ``prior_log_ls``'s
+      included, against the CPU in float64 under the T=1024 bands;
+      ``evaluate`` of its checkpoint as in i.;
    f. ``ops.chol.cholesky(method="blocked_fused")`` of a pre-built bank
       at T=1024, N=128, forward and backward: exactly 8 ``chol_block``
       (7 with L^-1), 7 ``trail_panel`` and 7 ``trail_update`` launches,
@@ -130,7 +142,10 @@ Phases, each printing one line (a failed check exits nonzero at once):
    evaluate call, its prior KL by both routes, the posterior bank's
    kernels at N=2, T=1024, and the Durbin kernel at T=1024 and 4096
    beside its plain version, the library's dense Cholesky and logdet, its
-   bound and its chain floor.
+   bound and its chain floor; its reverse beside ``durbin_bwd_plain``,
+   autograd of the plain forward, the library's autograd of the dense
+   Cholesky and logdet, its bound and its chain floor; the learned
+   prior's steps/s and device µs a step.
 
 Then one JSON line with the kernels' results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -336,6 +351,15 @@ DURBIN_REL = 1e-9
 # the Durbin kernel's sides in phase 3: one and two steps, a ragged warp,
 # the preset's T and one past it (8 lags a thread), the kernel's largest
 DURBIN_TS = (2, 3, 33, TOEP_T, TOEP_T + 1, 4096)
+# the reverse kernel against durbin_bwd_plain on the same kept steps and
+# against autograd of durbin_plain, all float64, max error over max
+# |reference|, stated before its first card run: the plain reverse's own
+# distance to float64 autograd on the CPU was at most 2e-12 (the
+# near-singular T=4096 rows), the kernel's logic run on the CPU 2e-11
+DURBIN_BWD_REL = 1e-9
+# the learnable Toeplitz prior (phase 4j): t1024_toeplitz's model with
+# learn_prior_lengthscales; a step adds the reverse kernel's one launch
+TOEP_LEARN_LAUNCHES = {**TOEP_LAUNCHES, "durbin_bwd": 1}
 # the Gohberg-Semencul identity K (K^-1 X) = X through the FFT route in
 # float32 (max abs error over max |X|): BASELINE.md's float32 figure at
 # T=4096 for the blocked Schur/Durbin (1.7e-3), or 4x the same route's
@@ -442,6 +466,22 @@ def cuda_ms(fn, budget_ms: float = 60.0, reps: int = 7) -> float:
     return times[len(times) // 2]
 
 
+def once_ms(fn) -> float:
+    """One call of ``fn`` after one warm-up, by CUDA events: for the plain
+    versions of the Durbin kernels, whose hundreds of milliseconds a call
+    are the host's."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop)
+
+
 def device_profile(fn, calls: int = 1, kernel: str | None = None,
                    label: str = "") -> dict:
     """``calls`` back-to-back calls of ``fn`` under ``torch.profiler``,
@@ -533,7 +573,8 @@ def counters():
             "hist_panel": (blocked, "HIST_LAUNCHES"),
             "trail_panel": (trail, "PANEL_LAUNCHES"),
             "trail_update": (trail, "UPDATE_LAUNCHES"),
-            "durbin": (durbin, "LAUNCHES")}
+            "durbin": (durbin, "LAUNCHES"),
+            "durbin_bwd": (durbin, "BWD_LAUNCHES")}
 
 
 def reset_counts() -> None:
@@ -1440,6 +1481,75 @@ def check_durbin_case(label, row64) -> dict:
     return err
 
 
+def clamped_rows(t, dev, target=1.5):
+    """One row ``rho [1, T-1]`` (float64) whose last reflection
+    coefficient comes out as ``target`` before its clamp (|target| > 1:
+    clamped): the CLI's grid at lengthscale 9, its last lag moved
+    (``s[T-1]`` is linear in it, with slope 1)."""
+    import torch
+
+    from gpvae_tpu_torch.ops import durbin
+
+    row = cli_row(t, (9.0,), torch.float64, "cpu")
+    rho = (row[:, 1:] / row[:, :1]).clone()
+    _, _, _, (steps, _) = durbin.durbin_plain(rho, save=True)
+    num, den = steps[0, 1, -1], steps[0, 2, -1]
+    rho[0, -1] = -target * den - (num - rho[0, -1])
+    return rho.to(dev)
+
+
+def check_durbin_bwd_case(label, rho, alone=False) -> dict:
+    """The reverse kernel (``durbin_bwd_kernel``, one launch a call) on the
+    forward kernel's kept steps of ``rho [N, T-1]`` (float64, on the card)
+    against ``durbin_bwd_plain`` on the same steps and against autograd of
+    ``durbin_plain`` on the card, with random cotangents on all three
+    outputs (with ``alone`` also on each output alone, the others
+    ``None``); max error over max |reference| within ``DURBIN_BWD_REL``.
+    The forward that keeps its steps gives the same outputs as the one
+    that does not."""
+    import torch
+
+    from gpvae_tpu_torch.ops import durbin
+
+    n, t1 = rho.shape
+    gen = torch.Generator(device=rho.device).manual_seed(t1)
+    opts = dict(dtype=torch.float64, device=rho.device, generator=gen)
+    full = (torch.randn(n, **opts), torch.randn(n, t1, **opts),
+            torch.randn(n, **opts))
+    sets = {"all": full}
+    if alone:
+        for j, name in enumerate(("sum_log_e", "y", "e")):
+            sets[name] = tuple(c if i == j else None
+                               for i, c in enumerate(full))
+    *kept, (steps, last) = durbin.durbin_cuda(rho, save=True)
+    if not all(torch.equal(a, b) for a, b in zip(kept,
+                                                 durbin.durbin_cuda(rho))):
+        fail(f"durbin_bwd {label}: the forward that keeps its steps "
+             f"differs from the one that does not")
+    r = rho.clone().requires_grad_(True)
+    outs = durbin.durbin_plain(r)
+    err = {}
+    for name, cot in sets.items():
+        before = durbin.BWD_LAUNCHES
+        got = durbin.durbin_bwd_cuda(steps, last, *cot)
+        torch.cuda.synchronize()
+        if durbin.BWD_LAUNCHES - before != 1:
+            fail(f"durbin_bwd {label}: {durbin.BWD_LAUNCHES - before} "
+                 f"launches, not 1")
+        plain = durbin.durbin_bwd_plain(steps, last, *cot)
+        auto, = torch.autograd.grad(
+            sum((o * c).sum() for o, c in zip(outs, cot) if c is not None),
+            r, retain_graph=True)
+        for ref_name, ref in (("plain", plain), ("autograd", auto)):
+            v = ((got - ref).abs().max()
+                 / ref.abs().max().clamp(min=1e-300)).item()
+            err[f"{name}_vs_{ref_name}"] = v
+            if not (math.isfinite(v) and v <= DURBIN_BWD_REL):
+                fail(f"durbin_bwd {label} ({name}) vs {ref_name}: {v:.3e} "
+                     f"> {DURBIN_BWD_REL:.1e}")
+    return err
+
+
 def gs_identity_err(row, k64, x) -> float:
     """max |K (K^-1 X) - X| / max |X| with ``K^-1 X = (A (A^T X) - B (B^T
     X)) / e`` through the FFT route in ``row``'s dtype (the Gohberg-Semencul
@@ -1467,27 +1577,37 @@ def check_toeplitz_kernels(dev) -> dict:
     the grid 0 .. 60: 614 steps); and the Gohberg-Semencul identity ``K
     (K^-1 X) = X`` through the FFT route in float32 on the preset's rows
     and the T=4096 ones, against 4x the same route on the CPU in float32
-    (``GS_IDENTITY_REL`` at least).  Returns the worst errors."""
+    (``GS_IDENTITY_REL`` at least); the reverse kernel on every one of
+    those rows and on a row whose last coefficient clamps
+    (:func:`check_durbin_bwd_case`; each output's cotangent alone too on
+    the preset's rows and the clamped one).  Returns the worst errors."""
     import numpy as np
     import torch
 
     from gpvae_tpu_torch import kernels as kernels_lib
 
     f64 = torch.float64
-    cases = {}
+    cases, bwd = {}, {}
+
+    def both(label, row64, alone=False):
+        cases[label] = check_durbin_case(label, row64)
+        bwd[label] = check_durbin_bwd_case(
+            label, (row64[:, 1:] / row64[:, :1]).contiguous(), alone)
+
     for t in DURBIN_TS:
         for ls in ((9.0,), (9.0, 3.0, 1.0)):
-            cases[f"T={t} Z={len(ls)}"] = check_durbin_case(
-                f"T={t} Z={len(ls)}", cli_row(t, ls, f64, dev))
+            both(f"T={t} Z={len(ls)}", cli_row(t, ls, f64, dev))
     preset = cli_row(TOEP_T, (9.0, 3.0), torch.float32, dev)
-    cases["t1024_toeplitz prior rows"] = check_durbin_case(
-        "t1024_toeplitz prior rows", preset.double())
+    both("t1024_toeplitz prior rows", preset.double(), alone=True)
     t4096 = {"T=4096 l=64 unit grid": cli_row(4096, (64.0,), torch.float32,
                                               dev, step=1.0),
              "T=4096 l=9 grid 0..60": cli_row(4096, (9.0,), torch.float32,
                                               dev, step=60.0 / 4096)}
     for label, row in t4096.items():
-        cases[label] = check_durbin_case(label, row.double())
+        both(label, row.double())
+    for t in (17, TOEP_T):
+        bwd[f"T={t} clamped"] = check_durbin_bwd_case(
+            f"T={t} clamped", clamped_rows(t, dev), alone=True)
     gs = {}
     rng = np.random.default_rng(16)
     for label, row in {"t1024_toeplitz prior rows": preset, **t4096}.items():
@@ -1504,7 +1624,9 @@ def check_toeplitz_kernels(dev) -> dict:
     return {"durbin": max(max(v.values()) for v in cases.values()),
             "durbin_cases": cases, "gs_identity_rel": max(
                 v["rel"] for v in gs.values()), "gs_identity": gs,
-            "durbin_band": DURBIN_REL}
+            "durbin_band": DURBIN_REL,
+            "durbin_bwd": max(max(v.values()) for v in bwd.values()),
+            "durbin_bwd_cases": bwd, "durbin_bwd_band": DURBIN_BWD_REL}
 
 
 def toy_batch(seed, b, t):
@@ -1638,6 +1760,11 @@ def elbo_vs_cpu_seed(model, cpu, dev, b, t, seed, *, kl_band,
                 torch.linalg.norm(grads["posterior_log_ls"]
                                   - ref_grads["posterior_log_ls"])
                 / torch.linalg.norm(ref_grads["posterior_log_ls"])).item()
+        if "prior_log_ls" in ref_grads:  # a learned prior
+            out_err["prior_log_ls_grad_rel"] = (
+                torch.linalg.norm(grads["prior_log_ls"]
+                                  - ref_grads["prior_log_ls"])
+                / torch.linalg.norm(ref_grads["prior_log_ls"])).item()
         return out_err
 
     from gpvae_tpu_torch.ops import logdet
@@ -1681,6 +1808,7 @@ def elbo_vs_cpu_seed(model, cpu, dev, b, t, seed, *, kl_band,
         err_lib = errors(lib, lib_grads, ref, ref_grads)
     stated = {"loss_rel": ELBO_LOSS_REL, "kl_rel_terms": kl_band,
               "grad_rel": GRAD_REL, "log_ls_grad_rel": log_ls_band,
+              "prior_log_ls_grad_rel": log_ls_band,
               "preact_rel": PREACT_REL}
     bands = {k: max(stated[k], ELBO_VS_LIBRARY * err_lib[k]) for k in err}
     for k, v in err.items():
@@ -1707,14 +1835,16 @@ def probe_loss(model, probe, eps, beta) -> float:
                      eps=eps).loss.item()
 
 
-def train_path(dev, preset_name, t, steps, num_seqs, ckpt_dir, data=None):
+def train_path(dev, preset_name, t, steps, num_seqs, ckpt_dir, data=None,
+               overrides=None):
     """Train ``preset_name`` at sequence length ``t`` for ``steps`` steps
     through ``train.fit`` with every counter set to 0 just before and read
     just after, saving a checkpoint into ``ckpt_dir`` at the end, and check
     the loss.  ``data`` is ``(Batcher, probe batch)``, by default toy
-    sequences (``num_seqs`` of them) and a toy probe.  Returns the model,
-    the phase fields and a function that trains it further (for timing;
-    it saves no checkpoint)."""
+    sequences (``num_seqs`` of them) and a toy probe; ``overrides``, model
+    config fields set over the preset's.  Returns the model, the phase
+    fields and a function that trains it further (for timing; it saves no
+    checkpoint)."""
     import torch
 
     from gpvae_tpu_torch import configs, train as train_lib
@@ -1722,7 +1852,7 @@ def train_path(dev, preset_name, t, steps, num_seqs, ckpt_dir, data=None):
     from gpvae_tpu_torch.models import GPVAE
 
     preset = configs.get(preset_name)
-    cfg = dataclasses.replace(preset.model, time_len=t)
+    cfg = dataclasses.replace(preset.model, time_len=t, **(overrides or {}))
     b = preset.batch_size
     if data is None:
         data = Batcher(toy_batch(0, num_seqs, t), b, seed=0), toy_batch(1, 8,
@@ -1854,8 +1984,9 @@ def eval_batch(preset_name, t, eval_b):
 
 def restored_model(preset_name, t, ckpt_dir, dev):
     """The model ``evaluate`` scores: the preset at ``t``, the newest
-    checkpoint of ``ckpt_dir`` loaded, on ``dev`` (the card: the
-    checkpoint holds the state of a CUDA noise generator)."""
+    checkpoint of ``ckpt_dir`` loaded (its model, as ``evaluate`` loads
+    it), on ``dev`` (the card: the checkpoint holds the state of a CUDA
+    noise generator)."""
     import torch
 
     from gpvae_tpu_torch import configs, train as train_lib
@@ -1864,7 +1995,8 @@ def restored_model(preset_name, t, ckpt_dir, dev):
     cfg = dataclasses.replace(configs.get(preset_name).model, time_len=t)
     model = GPVAE(cfg, generator=torch.Generator().manual_seed(0))
     state = train_lib.create_train_state(model, train_lib.TrainConfig(), dev)
-    if train_lib.CheckpointManager(ckpt_dir).restore_latest(state) is None:
+    if train_lib.CheckpointManager(ckpt_dir).restore_latest(
+            state, optimizer=False) is None:
         fail(f"no checkpoint in {ckpt_dir}")
     return model
 
@@ -2488,6 +2620,64 @@ def toeplitz_path(dev, ck: str) -> tuple[dict, dict, dict]:
     return {name: out, f"evaluate_{name}": ev}, timing, ctx
 
 
+def learnable_toeplitz_path(dev, ck: str) -> tuple[dict, dict]:
+    """Phase 4j: ``t1024_toeplitz``'s model with ``learn_prior_lengthscales``
+    at its widths (B=8, T=1024, Z=2, one uniform grid) trained
+    ``TOEP_STEPS`` steps through ``train.fit`` on fully observed toy
+    sequences: its launches exactly ``TOEP_LEARN_LAUNCHES`` a step (4i's
+    and the Durbin kernel's reverse once) and no other kernel, no library
+    factorization or solve; the loss falls on the probe batch;
+    ``prior_log_ls`` moves and stays finite; its ELBO and every gradient,
+    ``prior_log_ls``'s included, against the CPU in float64 on four
+    batches of B=2 under the T=1024 bands (``durbin`` and ``durbin_bwd``
+    once each an ELBO forward and backward); then timed, and its
+    checkpoint evaluated as 4i's (``evaluate`` restores the learned prior
+    into the preset's fixed one).  Returns the phase fields and the
+    timing."""
+    import torch
+
+    from gpvae_tpu_torch.data import Batcher
+    from gpvae_tpu_torch.ops import durbin
+
+    name = "t1024_toeplitz"
+    label = f"{name} (learned prior)"
+    ckpt_dir = os.path.join(ck, f"{name}_learned_prior")
+    model, out, fit_more = train_path(
+        dev, name, TOEP_T, TOEP_STEPS, None, ckpt_dir,
+        data=(Batcher(toy_full_batch(0, TOEP_SEQS, TOEP_T), TOEP_B, seed=0),
+              toy_full_batch(1, 8, TOEP_T)),
+        overrides={"learn_prior_lengthscales": True})
+    exact_launches(label, out["launches"], TOEP_LEARN_LAUNCHES, TOEP_STEPS)
+    log_ls = model.prior_log_ls.detach().cpu()
+    start = torch.log(torch.tensor([9.0, 3.0]))
+    if not (torch.isfinite(log_ls).all()
+            and (log_ls - start).abs().max() > 0):
+        fail(f"{label}: prior_log_ls {log_ls.tolist()} did not move or is "
+             f"not finite")
+    out["lengthscale_prior"] = torch.exp(log_ls).tolist()
+    before = (durbin.LAUNCHES, durbin.BWD_LAUNCHES)
+    out["elbo_vs_cpu_fp64"] = elbo_vs_cpu(
+        model, dev, 2, TOEP_T, kl_band=KL_REL_TERMS_T1024,
+        log_ls_band=LOG_LS_GRAD_REL_T1024, logdet_per_forward=1,
+        batch_fn=toy_full_batch)
+    n = len(ELBO_SEEDS)
+    if (durbin.LAUNCHES - before[0], durbin.BWD_LAUNCHES - before[1]) != (
+            n, n):
+        fail(f"{label}: the ELBO held against the CPU launched durbin "
+             f"{durbin.LAUNCHES - before[0]} and durbin_bwd "
+             f"{durbin.BWD_LAUNCHES - before[1]} times, not {n} each")
+    phase("learnable_toeplitz_path", **out)
+    timing = time_path(fit_more, TOEP_WINDOW)
+    blocks = TOEP_T // 128
+    ev, _ = evaluate_path(
+        dev, name, TOEP_T, TOEP_EVAL_B, ckpt_dir, needs=(),
+        exact={k: 0 for k in read_counts()} | {
+            "hist_panel": blocks, "chol_block": blocks,
+            "panel_solve": blocks - 1, "tri_inv": 1})
+    return {f"{name}_learned_prior": out,
+            f"evaluate_{name}_learned_prior": ev}, timing
+
+
 @contextlib.contextmanager
 def inverse_calls():
     """Counts the calls of ``chol_block.chol_block`` with ``inverse=True``
@@ -2733,9 +2923,19 @@ def time_kernels(dev) -> dict:
         f * SYN_B * t + SYN_B * t + f * 2 * SYN_Z + f * n * t * t,
         n * (t ** 3 / 3 + GRAM_OPS * t * t), f"N={n}, T={t}",
         kernel="gram_chol")
-    if res["gram_chol"]["kernels_per_call"] != 1:
-        fail(f"gram_chol_fused ran {res['gram_chol']['kernels_per_call']} "
-             f"kernels a call on the card, not 1")
+    # one kernel a call: its wrapper launched one a call, every kernel the
+    # profiler saw in the window was that one, and it saw no more of them
+    # than were counted (the profiler may drop a launch's record: it saw
+    # 19 of 20 once on an H100)
+    g = res["gram_chol"]
+    seen_all = round(g["kernels_per_call"] * PROFILED_CALLS)
+    seen = g["kernel_launches_seen"]
+    if not (0 < seen == seen_all
+            and seen <= g["kernel_launches_counted"] == PROFILED_CALLS):
+        fail(f"gram_chol_fused: {g['kernel_launches_counted']} launches "
+             f"counted in {PROFILED_CALLS} calls, the profiler saw "
+             f"{seen_all} kernels, {g['kernel_launches_seen']} of them "
+             f"gram_chol's: not one kernel a call")
     lb = gram_chol.gram_chol_fused(times, ls, mask=mask).reshape(
         -1, t, t).contiguous()
     eye = torch.eye(t, device=dev).expand_as(lb)
@@ -3115,19 +3315,41 @@ def time_healing_fitc_kernels(dev) -> dict:
 def time_durbin(dev) -> dict:
     """The Durbin kernel at the ``t1024_toeplitz`` prior's rows (Z=2,
     T=1024) and at T=4096 (Z=2): CUDA-event time and the card's own time
-    per call; its plain version (T - 1 steps of about 14 PyTorch ops, one
-    profiled call); the library's ``torch.linalg.cholesky`` and logdet of
-    the dense ``[Z, T, T]`` Toeplitz matrices (float32, pre-built); the
-    bound, bytes (rho read, y, the logdet and e written, float64) over the
-    memory rate or classical Durbin's 2 T^2 flops a row (Golub and Van
-    Loan, Alg. 4.7.1; the kernel's split form, a, b, s and t each over
-    their lags, does twice that) over the float64 peak; and the chain
-    floor, ``durbin_chain_kernel``'s T - 1 barriers and broadcasts at the
-    same block size, measured."""
+    per call, without and with its kept steps (a learned prior's); its
+    plain version (T - 1 steps of about 14 PyTorch ops, one timed call,
+    one profiled); the library's ``torch.linalg.cholesky`` and logdet of the
+    dense ``[Z, T, T]`` Toeplitz matrices (float32, pre-built); the bound,
+    bytes (rho read, y, the logdet and e written, float64) over the memory
+    rate or classical Durbin's 2 T^2 flops a row (Golub and Van Loan, Alg.
+    4.7.1) over the float64 peak; and the chain floor,
+    ``durbin_chain_kernel``'s T - 1 barriers and broadcasts at the same
+    block size, measured.
+
+    Its reverse (``bwd_T*``) on the same rows, random cotangents on all
+    three outputs: the kernel; ``durbin_bwd_plain`` and autograd of
+    ``durbin_plain`` (forward and backward), one timed call each, profiled
+    at T=1024 only (at T=4096 a profiled window of their ~10^5 launches
+    costs minutes of host time); the library's autograd of
+    the dense ``cholesky`` and logdet (float32, forward and backward);
+    the bound, the kept steps and last inputs read and the gradient and
+    cotangents moved over the memory rate, or the least flops of the
+    function over the float64 peak: the reverse of classical Durbin,
+    whose step k does a length-k inner product and a length-k update (4 k
+    flops, 2 T^2 a row); reverse mode turns each of its FMAs into two, so
+    4 T^2 a row, the states taken as given (recovering them, by
+    recomputation or by the inverse step this kernel runs, is not billed);
+    and its chain floor, ``durbin_bwd_chain_kernel``'s T - 1 warp
+    reductions, barriers and sums of the warps' parts."""
     import torch
 
     from gpvae_tpu_torch import kernels as kernels_lib
     from gpvae_tpu_torch.ops import durbin
+
+    def bound(nbytes, flops):
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = flops / PEAK_FP64_FLOPS * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
     out = {}
     for t in (TOEP_T, 4096):
@@ -3150,13 +3372,11 @@ def time_durbin(dev) -> dict:
                                label=f"durbin plain T={t}")
         lib = device_profile(library, PROFILED_CALLS,
                              label=f"durbin library T={t}")
-        nbytes = 8.0 * z * (2 * (t - 1) + 2)
-        flops = 2.0 * z * t * t
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = flops / PEAK_FP64_FLOPS * 1e3
         out[f"T{t}"] = {
             "name": "durbin", "shape": f"Z={z}, T={t} (lengthscales 9, 3)",
             "ms": cuda_ms(lambda rho=rho: durbin.durbin_cuda(rho)),
+            "ms_keeping_steps": cuda_ms(
+                lambda rho=rho: durbin.durbin_cuda(rho, save=True)),
             "device_ms": kern["device_us"] / 1e3,
             "kernel_device_ms": kern["kernel_us"] / 1e3,
             "kernel_launches_seen": kern["kernel_seen"],
@@ -3164,16 +3384,77 @@ def time_durbin(dev) -> dict:
             "chain_floor_ms": cuda_ms(
                 lambda t=t, z=z: durbin.chain_floor_cuda(z, t, dev)),
             "chain_floor_device_ms": chain["device_us"] / 1e3,
-            "plain_ms": cuda_ms(lambda rho=rho: durbin.durbin_plain(rho),
-                                budget_ms=1.0, reps=3),
+            "plain_ms": once_ms(lambda rho=rho: durbin.durbin_plain(rho)),
             "plain_device_ms": plain["device_us"] / 1e3,
             "plain_kernels_per_call": plain["kernels"],
             "library_ms": cuda_ms(library), "library_device_ms":
                 lib["device_us"] / 1e3,
             "library": "torch.linalg.cholesky + logdet of the dense "
                        "[Z, T, T] Toeplitz (float32, pre-built)",
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            **bound(8.0 * z * (2 * (t - 1) + 2), 2.0 * z * t * t)}
+
+        # the reverse
+        gen = torch.Generator(device=dev).manual_seed(t)
+        opts = dict(dtype=torch.float64, device=dev, generator=gen)
+        cot = (torch.randn(z, **opts), torch.randn(z, t - 1, **opts),
+               torch.randn(z, **opts))
+        *_, (steps, last) = durbin.durbin_cuda(rho, save=True)
+        r = rho.clone().requires_grad_(True)
+        k_grad = k.clone().requires_grad_(True)
+
+        def bwd(steps=steps, last=last, cot=cot):
+            return durbin.durbin_bwd_cuda(steps, last, *cot)
+
+        def bwd_plain(steps=steps, last=last, cot=cot):
+            return durbin.durbin_bwd_plain(steps, last, *cot)
+
+        def autograd_plain(r=r, cot=cot):
+            outs = durbin.durbin_plain(r)
+            return torch.autograd.grad(
+                sum((o * c).sum() for o, c in zip(outs, cot)), r)
+
+        def library_bwd(k=k_grad):
+            l = torch.linalg.cholesky(k)
+            ld = 2.0 * torch.diagonal(l, dim1=-2, dim2=-1).log().sum()
+            return torch.autograd.grad(ld, k)
+
+        kern = device_profile(bwd, PROFILED_CALLS, "durbin_bwd",
+                              label=f"durbin_bwd T={t}")
+        chain = device_profile(
+            lambda t=t, z=z: durbin.bwd_chain_floor_cuda(z, t, dev),
+            PROFILED_CALLS, label=f"durbin_bwd chain T={t}")
+        profiled = t == TOEP_T
+        plain = (device_profile(bwd_plain, label=f"durbin_bwd plain T={t}")
+                 if profiled else None)
+        auto = (device_profile(autograd_plain,
+                               label=f"durbin autograd plain T={t}")
+                if profiled else None)
+        lib = device_profile(library_bwd, PROFILED_CALLS,
+                             label=f"durbin_bwd library T={t}")
+        out[f"bwd_T{t}"] = {
+            "name": "durbin_bwd",
+            "shape": f"Z={z}, T={t} (lengthscales 9, 3), all three "
+                     f"cotangents",
+            "ms": cuda_ms(bwd), "device_ms": kern["device_us"] / 1e3,
+            "kernel_device_ms": kern["kernel_us"] / 1e3,
+            "kernel_launches_seen": kern["kernel_seen"],
+            "kernel_launches_counted": kern["kernel_counted"],
+            "chain_floor_ms": cuda_ms(
+                lambda t=t, z=z: durbin.bwd_chain_floor_cuda(z, t, dev)),
+            "chain_floor_device_ms": chain["device_us"] / 1e3,
+            "plain_ms": once_ms(bwd_plain),
+            "plain_device_ms": plain["device_us"] / 1e3 if plain else None,
+            "plain_kernels_per_call": plain["kernels"] if plain else None,
+            "autograd_plain_ms": once_ms(autograd_plain),
+            "autograd_plain_device_ms": (auto["device_us"] / 1e3 if auto
+                                         else None),
+            "library_ms": cuda_ms(library_bwd),
+            "library_device_ms": lib["device_us"] / 1e3,
+            "library": "autograd of torch.linalg.cholesky + logdet of the "
+                       "dense [Z, T, T] Toeplitz (float32, forward and "
+                       "backward)",
+            **bound(8.0 * z * (4 * (t - 1) + 2 * t + 2 * (t - 1) + 2),
+                    4.0 * z * t * t)}
     return out
 
 
@@ -3411,10 +3692,13 @@ def run(dev) -> int:
         heal, timing["healing_mnist"], heal_ctx = healing_path(dev, ck)
         sparse, timing["sparse_t4096"], sparse_ctx = sparse_path(dev, ck)
         toep, timing["t1024_toeplitz"], toep_ctx = toeplitz_path(dev, ck)
+        learned, timing["t1024_toeplitz_learned_prior"] = (
+            learnable_toeplitz_path(dev, ck))
     paths.update(zoo)
     paths.update(heal)
     paths.update(sparse)
     paths.update(toep)
+    paths.update(learned)
     timing.update(zoo_timing)
     paths.update(method_paths(dev))
 
@@ -3425,6 +3709,8 @@ def run(dev) -> int:
     durbin_times = time_durbin(dev)
     per_kernel["durbin"] = durbin_times[f"T{TOEP_T}"]
     new_shapes["durbin_T4096"] = durbin_times["T4096"]
+    per_kernel["durbin_bwd"] = durbin_times[f"bwd_T{TOEP_T}"]
+    new_shapes["durbin_bwd_T4096"] = durbin_times["bwd_T4096"]
     whole.update(new_shapes)
     timing["prior_kl_t1024_toeplitz"] = time_toeplitz_kl(toep_ctx)
     timing["evaluate_t1024_toeplitz"] = time_evaluate(
@@ -3459,7 +3745,8 @@ def run(dev) -> int:
                                 worst_hf["hist_panel_t4096"]),
               "trail_panel": worst_trail["trail_panel_abs"],
               "trail_update": worst_trail["trail_update_abs"],
-              "durbin": worst_toep["durbin"]}
+              "durbin": worst_toep["durbin"],
+              "durbin_bwd": worst_toep["durbin_bwd"]}
     ops = "gpvae_tpu/ops/"
     sources = {"gram_chol": ("gram_chol.cu", ops + "pallas_chol.py:673"),
                "tri_inv": ("tri_inv.cu", ops + "pallas_tri.py:39"),
@@ -3471,7 +3758,10 @@ def run(dev) -> int:
                "trail_panel": ("gram_panel.cu", ops + "pallas_trail.py:53"),
                "trail_update": ("gram_panel.cu", ops + "pallas_trail.py:53"),
                "durbin": ("durbin.cu",
-                          "gpvae_tpu/toeplitz.py:88 (lax.scan, no Pallas)")}
+                          "gpvae_tpu/toeplitz.py:88 (lax.scan, no Pallas)"),
+               "durbin_bwd": ("durbin.cu",
+                              "gpvae_tpu/toeplitz.py:88 (autodiff of the "
+                              "lax.scan, no Pallas)")}
     # each kernel's times at the shapes of healing_mnist, sparse_t4096 and
     # t1024_toeplitz (hist_panel's: the whole T=4096 pre-built
     # factorization it leads; gram_panel's: the N=2 training one)

@@ -176,10 +176,11 @@ def cmd_train(args):
 
 
 def cmd_evaluate(args):
-    """Restore the newest checkpoint of ``--ckpt-dir`` (without one, the
-    model's seeded initial weights) and print the imputation metrics of
-    the held-out sequences as one JSON line (``gpvae_tpu/__main__.py:
-    152-272``; for the healing family the missing-pixel metrics of
+    """Restore the newest checkpoint of ``--ckpt-dir`` (its model only;
+    without one, the model's seeded initial weights) and print the
+    imputation metrics of the held-out sequences as one JSON line
+    (``gpvae_tpu/__main__.py:152-272``; for the healing family the
+    missing-pixel metrics of
     ``analysis.pixel_imputation_metrics``), with ``--stats`` the sorted
     activation variances, and
     with ``--plots DIR`` PNGs of the imputation and latents (and with
@@ -205,7 +206,7 @@ def cmd_evaluate(args):
         model, train_lib.TrainConfig(seed=args.seed), device)
     if args.ckpt_dir:
         mgr = train_lib.CheckpointManager(args.ckpt_dir)
-        if mgr.restore_latest(state) is None:
+        if mgr.restore_latest(state, optimizer=False) is None:
             raise SystemExit(f"no checkpoint found in {args.ckpt_dir}")
         print(f"restored step {state.step}")
     x, times, mask = batch["x"], batch["times"], batch["mask"]

@@ -20,8 +20,8 @@ on dense or conv nets, Bernoulli or Gaussian likelihoods, irregular
 masked time grids or one grid shared by the batch (``shared_time_grid``),
 with ``feature_mask``.  The Toeplitz structured prior (a uniform shared
 grid, ``structured_prior="toeplitz"``) takes the prior's first rows in
-place of its factors; a learnable Toeplitz prior raises
-``NotImplementedError`` naming its ROADMAP item.
+place of its factors; with ``learn_prior_lengthscales`` its gradient runs
+through the Durbin recursion's reverse (``csrc/durbin.cu`` on the card).
 
 One step: factor the gram banks the pair needs in ONE call (the
 posterior's and the prior's lengthscales side by side in one stacked
@@ -148,19 +148,6 @@ class GPVAEConfig:
                 and self.structured_prior == "toeplitz")
 
 
-def check_ported(config: GPVAEConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration the port does not
-    have yet, naming the ROADMAP item that brings it: a Toeplitz prior
-    with learnable lengthscales, whose gradient would run through the
-    Durbin recursion, which the card runs forward only."""
-    if config.structured_prior == "toeplitz" and \
-            config.learn_prior_lengthscales:
-        raise NotImplementedError(
-            "a Toeplitz structured prior with learnable lengthscales (the "
-            "Durbin kernel's backward): ROADMAP A7c"
-        )
-
-
 def check_structured_grid(config: GPVAEConfig, times, mask=None) -> None:
     """Host-side validation of the grid a Toeplitz structured prior
     assumes (``models.py:174-213``): ``times [B, T]`` at T =
@@ -231,7 +218,6 @@ class GPVAE(nn.Module):
     def __init__(self, config: GPVAEConfig, *,
                  generator: torch.Generator | None = None):
         super().__init__()
-        check_ported(config)
         self.config = c = config
         if c.encoder == "dense":
             self.encoder_net = nets.DenseEncoder(

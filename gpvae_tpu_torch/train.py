@@ -148,17 +148,22 @@ class CheckpointManager:
             os.remove(self._path(step))
         return path
 
-    def restore_latest(self, state: TrainState) -> TrainState | None:
+    def restore_latest(self, state: TrainState, *,
+                       optimizer: bool = True) -> TrainState | None:
         """Load the newest checkpoint into ``state``'s model, optimizer and
         generator (on their devices) and return it; None if there is
-        none."""
+        none.  ``optimizer=False`` leaves the optimizer as it is: a model
+        scored but not trained restores from a run whose optimizer held
+        other parameters (a prior's lengthscales learned there, held fixed
+        here)."""
         steps = self.steps()
         if not steps:
             return None
         payload = torch.load(self._path(steps[-1]), map_location="cpu",
                              weights_only=True)
         state.model.load_state_dict(payload["model"])
-        state.optimizer.load_state_dict(payload["optimizer"])
+        if optimizer:
+            state.optimizer.load_state_dict(payload["optimizer"])
         if payload["generator_device"] == state.generator.device.type:
             state.generator.set_state(payload["generator"])
         state.step = int(payload["step"])

@@ -22,6 +22,8 @@ from gpvae_tpu_torch.ops import (
     trail, tri_inv, trsm,
 )
 
+from durbin_rows import clamped_rows
+
 pytestmark = pytest.mark.cuda
 
 
@@ -1083,6 +1085,11 @@ def test_durbin_kernel_matches_plain(card, t, z):
 
 def test_durbin_kernel_keeps_the_input_dtype_and_refuses_what_it_cannot(
         card):
+    """A float32 row recurs in float64 and comes back in float32; a row
+    that requires a gradient goes through the forward kernel (keeping its
+    steps) and, at ``backward``, one launch of the reverse kernel, its
+    gradient that of the plain version's autograd; the wrappers refuse
+    T > 4096 and float32."""
     row = _toeplitz_rows(card, 64, 2, torch.float32)
     ld, a, b, e = toeplitz.durbin_gs_factors(row)
     assert all(v.dtype == torch.float32 and v.is_cuda for v in (ld, a, b, e))
@@ -1090,8 +1097,19 @@ def test_durbin_kernel_keeps_the_input_dtype_and_refuses_what_it_cannot(
     ref = toeplitz.durbin_gs_factors(row.double())
     for v, r in zip((ld, a, b, e), ref):
         assert torch.equal(v, r.float())
-    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-        toeplitz.durbin_logdet(row.clone().requires_grad_(True))
+    r64 = row.double().requires_grad_(True)
+    before = (durbin.LAUNCHES, durbin.BWD_LAUNCHES)
+    toeplitz.durbin_logdet(r64).sum().backward()
+    assert (durbin.LAUNCHES, durbin.BWD_LAUNCHES) == (before[0] + 1,
+                                                      before[1] + 1)
+    rp = row.double().requires_grad_(True)
+    real = dispatch.on_cuda
+    dispatch.on_cuda = lambda x: False
+    try:
+        toeplitz.durbin_logdet(rp).sum().backward()
+    finally:
+        dispatch.on_cuda = real
+    assert (r64.grad - rp.grad).abs().max() <= 1e-9 * rp.grad.abs().max()
     with torch.no_grad():
         toeplitz.durbin_logdet(row.clone().requires_grad_(True))
     with pytest.raises(ValueError, match="T <= 4096"):
@@ -1103,8 +1121,98 @@ def test_durbin_kernel_keeps_the_input_dtype_and_refuses_what_it_cannot(
 
 def test_durbin_chain_floor_runs(card):
     out = durbin.chain_floor_cuda(2, 1024, card)
+    bwd = durbin.bwd_chain_floor_cuda(2, 1024, card)
     torch.cuda.synchronize()
     assert out.tolist() == [1.0, 1.0]
+    assert bwd.tolist() == [1.0, 1.0]
+
+
+def _bwd_cases(card, t, z):
+    rows = _toeplitz_rows(card, t, z)
+    return (rows[:, 1:] / rows[:, :1]).contiguous()
+
+
+def _check_bwd(rho, cotangents, band=1e-9):
+    """The reverse kernel on the forward kernel's steps against
+    ``durbin_bwd_plain`` on the same steps and against the plain
+    version's autograd, float64, max error over max |reference|."""
+    n, t1 = rho.shape
+    _, _, _, (steps, last) = durbin.durbin_cuda(rho, save=True)
+    before = durbin.BWD_LAUNCHES
+    got = durbin.durbin_bwd_cuda(steps, last, *cotangents)
+    assert durbin.BWD_LAUNCHES == before + 1
+    plain = durbin.durbin_bwd_plain(steps, last, *cotangents)
+    r = rho.clone().requires_grad_(True)
+    outs = durbin.durbin_plain(r)
+    loss = sum((o * c).sum() for o, c in zip(outs, cotangents)
+               if c is not None)
+    auto, = torch.autograd.grad(loss, r)
+    torch.cuda.synchronize()
+    for ref in (plain, auto):
+        scale = ref.abs().max().clamp(min=1e-300)
+        assert torch.isfinite(got).all()
+        assert (got - ref).abs().max() <= band * scale
+
+
+@pytest.mark.parametrize("z", [1, 3])
+@pytest.mark.parametrize("t", [2, 3, 33, 1024, 1025, 4096])
+def test_durbin_bwd_kernel_matches_plain(card, t, z):
+    """Random cotangents on all three outputs, at the forward's sides."""
+    rho = _bwd_cases(card, t, z)
+    g = torch.Generator(device=card).manual_seed(t)
+    n, t1 = rho.shape
+    _check_bwd(rho, (
+        torch.randn(n, dtype=torch.float64, device=card, generator=g),
+        torch.randn(n, t1, dtype=torch.float64, device=card, generator=g),
+        torch.randn(n, dtype=torch.float64, device=card, generator=g)))
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_durbin_bwd_kernel_takes_each_output_alone(card, which):
+    """A cotangent on one output (the others ``None``: not read)."""
+    rho = _bwd_cases(card, 1024, 2)
+    n, t1 = rho.shape
+    shapes = ((n,), (n, t1), (n,))
+    cot = [None, None, None]
+    cot[which] = torch.randn(shapes[which], dtype=torch.float64,
+                             device=card)
+    _check_bwd(rho, tuple(cot))
+
+
+@pytest.mark.parametrize("t", [17, 1024])
+def test_durbin_bwd_kernel_where_alpha_clamps(card, t):
+    """The last reflection coefficient clamped: no gradient through it,
+    as ``torch.clamp``'s autograd."""
+    rho = clamped_rows(t, device=card)
+    _check_bwd(rho, (torch.ones(1, dtype=torch.float64, device=card),
+                     torch.ones(1, t - 1, dtype=torch.float64, device=card),
+                     torch.ones(1, dtype=torch.float64, device=card)))
+
+
+@pytest.mark.parametrize("t", [2, 9, 40])
+def test_durbin_function_gradcheck(card, t):
+    """``torch.autograd.gradcheck`` of the kernels' Function in float64,
+    on well-conditioned rows (unit grid, lengthscales 2 and 0.7, noise
+    0.1): central differences at eps 1e-6 stay far inside the tolerance
+    there, not on the preset's cond ~1e5 rows, where the Jacobian reaches
+    1e4 (those are held against autograd above)."""
+    row = kernels.toeplitz_row(t, 1.0, torch.tensor(
+        [2.0, 0.7], dtype=torch.float64, device=card), noise=0.1,
+        dtype=torch.float64)
+    rho = (row[:, 1:] / row[:, :1]).contiguous().requires_grad_(True)
+    assert torch.autograd.gradcheck(durbin.DurbinFunction.apply, (rho,),
+                                    eps=1e-6, atol=1e-7, rtol=1e-5)
+
+
+def test_durbin_bwd_refuses_what_it_cannot(card):
+    rho = _bwd_cases(card, 64, 2)
+    _, _, _, (steps, last) = durbin.durbin_cuda(rho, save=True)
+    with pytest.raises(TypeError, match="float64"):
+        durbin.durbin_bwd_cuda(steps.float(), last, None, None, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        durbin.durbin_bwd_cuda(steps, last[:, :, :-1], None, None, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        durbin.durbin_bwd_cuda(steps.cpu(), last.cpu(), None, None, None)
 
 
 def test_toeplitz_prior_kl_on_the_card_matches_dense(card):
@@ -1148,6 +1256,26 @@ def test_t1024_toeplitz_steps_launch_their_kernels(card):
     assert tuple((a - b) // 2 for a, b in zip(after, before)) == (
         0, 1, 8, 8, 7, 0, 1, 1)
     assert np.isfinite(log.rows[-1]["loss"])
+
+
+def test_learnable_toeplitz_prior_steps_launch_the_reverse(card):
+    """t1024_toeplitz with ``learn_prior_lengthscales``: each step also
+    launches the Durbin kernel's reverse once, and the prior's
+    lengthscales move."""
+    cfg = dataclasses.replace(configs.get("t1024_toeplitz").model,
+                              learn_prior_lengthscales=True)
+    data = toy_to_masked_batch(generate_toy_data(
+        np.random.default_rng(0), 16, t=1024, hide_fraction=0.0))
+    model = GPVAE(cfg, generator=torch.Generator().manual_seed(0))
+    ls0 = model.prior_log_ls.detach().clone()
+    before = _launches() + (durbin.LAUNCHES, durbin.BWD_LAUNCHES)
+    state, log = train.fit(model, Batcher(data, 8), train.TrainConfig(
+        num_steps=2, log_every=2), device=card, verbose=False)
+    after = _launches() + (durbin.LAUNCHES, durbin.BWD_LAUNCHES)
+    assert tuple((a - b) // 2 for a, b in zip(after, before)) == (
+        0, 1, 8, 8, 7, 0, 1, 1, 1)
+    assert np.isfinite(log.rows[-1]["loss"])
+    assert (model.prior_log_ls.detach().cpu() - ls0).abs().max() > 0
 
 
 def test_posterior_conditional_with_cov_inverts_once_on_the_card(card):

@@ -8,6 +8,7 @@ hands ``gp_sample``, drawn as ``normal(key, (S, B, Z, T))`` and fed to the
 port as ``eps``.
 """
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -288,23 +289,25 @@ def test_fit_refuses_what_is_not_ported():
     (dict(prior="sparse_gp", posterior="diag", num_inducing=16,
           inducing_time_range=(0.0, 60.0)), "slice 5a"),
     (dict(shared_time_grid=True, structured_prior="toeplitz"),
-     "ROADMAP A7c"),
+     "slice 12"),
 ], ids=["overrides0-slice 4", "overrides1-slice 4", "overrides2-slice 4",
         "overrides3-slice 4", "overrides4-slice 5", "overrides5-slice 5b"])
-def test_unported_configurations_name_their_slice(overrides, slice_):
-    """The Toeplitz structured prior with learnable lengthscales (these
-    cases learn the prior's) raises, naming its ROADMAP item: the card's
-    Durbin kernel has no backward yet.  The configurations slices 4 and
-    5a brought (a diagonal posterior, the standard prior, conv nets, a
-    shared grid, the FITC prior) build, and their ELBO matches the JAX
-    model's in float64 with its own noise (every pair and gradient:
-    tests/test_torch_zoo.py; the FITC prior: tests/test_torch_sparse.py;
-    a fixed Toeplitz prior: tests/test_torch_toeplitz.py)."""
+def test_unported_configurations_name_their_slice(overrides, slice_,
+                                                  monkeypatch):
+    """Each configuration a later slice brought, with the prior's
+    lengthscales learned, builds and its ELBO matches the JAX model's in
+    float64 with its own noise: a diagonal posterior, the standard prior,
+    conv nets, a shared grid, the FITC prior, and the Toeplitz structured
+    prior with learnable lengthscales (slice 12: the Durbin kernel's
+    reverse; JAX's Toeplitz row built in float64, as
+    tests/test_torch_toeplitz.py builds it).  Every pair's gradients:
+    tests/test_torch_zoo.py, tests/test_torch_sparse.py and
+    tests/test_torch_toeplitz.py."""
     cfg = GPVAEConfig(learn_prior_lengthscales=True, **overrides)
-    if slice_ == "ROADMAP A7c":
-        with pytest.raises(NotImplementedError, match=slice_):
-            GPVAE(cfg)
-        return
+    if cfg.toeplitz_prior:
+        from gpvae_tpu import kernels as jkernels
+        monkeypatch.setattr(jkernels, "toeplitz_row", functools.partial(
+            jkernels.toeplitz_row, dtype=jnp.float64))
     from gpvae_tpu.models import GPVAEConfig as JConfig
     jcfg = JConfig(**dataclasses.asdict(cfg))
     t, b = cfg.time_len, 2

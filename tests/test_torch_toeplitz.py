@@ -14,8 +14,15 @@
   port's own dense KLs;
 * the Toeplitz model's ELBO and every gradient through
   ``tests/test_torch_zoo.py``'s helper; ``prior_draws``; the
-  ``t1024_toeplitz`` preset; ``check_ported``; ``train`` and ``evaluate``
-  of the preset through ``__main__.main`` at T=16.
+  ``t1024_toeplitz`` preset; ``train`` and ``evaluate`` of the preset
+  through ``__main__.main`` at T=16;
+* the Durbin kernel's reverse: its plain version (``durbin_bwd_plain``,
+  the kernel's arithmetic step for step) against the plain forward's
+  autograd and against ``jax.grad`` through both of JAX's routes, a
+  clamped coefficient included; the autograd Function on the card's
+  route (kernels stubbed by their plain versions); the learnable Toeplitz
+  prior's ELBO and every gradient against the JAX model, and its
+  training, checkpoint, ``evaluate`` and ``prior_draws``.
 
 JAX's Toeplitz row defaults to float32 (``gpvae_tpu/kernels.py:225``):
 the JAX side builds it in float64 here (``jax_rows_fp64``).
@@ -39,9 +46,10 @@ from gpvae_tpu.models import GPVAE as JGPVAE
 from gpvae_tpu.models import GPVAEConfig as JConfig
 from gpvae_tpu_torch import analysis, configs, convert, gp, kernels, toeplitz
 from gpvae_tpu_torch.__main__ import main
-from gpvae_tpu_torch.models import GPVAE, GPVAEConfig, check_ported
+from gpvae_tpu_torch.models import GPVAE, GPVAEConfig
 from gpvae_tpu_torch.ops import dispatch, durbin
 
+from durbin_rows import clamped_rows
 from test_torch_healing import _gp_sample_fp64
 from test_torch_zoo import _random_params, check_elbo_matches_jax
 
@@ -204,21 +212,136 @@ def test_durbin_plain_gradient_matches_jax(t):
 
 
 def test_durbin_on_a_cuda_tensor_needs_no_gradient(monkeypatch):
-    """On the card's route a row that requires a gradient raises, naming
-    the ROADMAP item of the backward kernel; without one (or under
-    no_grad) it goes to the kernel, here stubbed."""
+    """On the card's route a row goes through ``DurbinFunction``: the
+    forward kernel keeps its steps only where a gradient is needed, and
+    ``backward`` launches the reverse kernel once, with ``None`` for an
+    output no loss reaches (here both kernels stubbed by their plain
+    versions); the gradient is the plain version's autograd."""
     monkeypatch.setattr(dispatch, "on_cuda", lambda t: True)
-    calls = []
-    monkeypatch.setattr(durbin, "durbin_cuda",
-                        lambda rho: calls.append(rho) or durbin.durbin_plain(
-                            rho))
+    fwd, bwd = [], []
+
+    def fake_fwd(rho, save=False):
+        fwd.append((rho.dtype, save))
+        with torch.no_grad():
+            return durbin.durbin_plain(rho, save=save)
+
+    def fake_bwd(steps, last, *cot):
+        bwd.append(tuple(c is None for c in cot))
+        return durbin.durbin_bwd_plain(steps, last, *cot)
+
+    monkeypatch.setattr(durbin, "durbin_cuda", fake_fwd)
+    monkeypatch.setattr(durbin, "durbin_bwd_cuda", fake_bwd)
     row = _rows(9).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-        toeplitz.durbin_logdet(row)
+    toeplitz.durbin_logdet(row).sum().backward()
     with torch.no_grad():
         toeplitz.durbin_logdet(row)
     toeplitz.durbin_logdet(row.detach().float())
-    assert [c.dtype for c in calls] == [torch.float64, torch.float64]
+    assert fwd == [(torch.float64, True), (torch.float64, False),
+                   (torch.float64, False)]
+    assert bwd == [(False, True, True)]   # only sum_log_e reached the loss
+    ref = _rows(9).requires_grad_(True)
+    monkeypatch.setattr(dispatch, "on_cuda", lambda t: False)
+    toeplitz.durbin_logdet(ref).sum().backward()
+    assert _rel(row.grad.numpy(), ref.grad.numpy()) <= 1e-13
+
+
+def _cotangents(n, t1, which, seed=0):
+    """Random cotangents of (sum_log_e, y, e); those not in ``which``
+    None."""
+    rng = np.random.default_rng(seed)
+    full = (rng.standard_normal(n), rng.standard_normal((n, t1)),
+            rng.standard_normal(n))
+    return tuple(torch.tensor(c) if i in which else None
+                 for i, c in enumerate(full))
+
+
+def _jax_rho_grad_fn():
+    """JAX's gradient with respect to ``rho`` of the same loss, through
+    ``durbin_gs_factors`` of the rows ``(1, rho)`` (at r_0 = 1 its logdet
+    is ``sum_log_e``, its ``a[1:]`` is ``y`` and its ``e`` is ``e``),
+    jitted once with the cotangents as arguments.  Build it after the
+    route's variables are set: they are read when it is traced."""
+    def loss(r, w_sum, w_y, w_e):
+        row = jnp.concatenate([jnp.ones((r.shape[0], 1), r.dtype), r], -1)
+        ld, a, _, e = jtoeplitz.durbin_gs_factors(row)
+        return (jnp.sum(ld * w_sum) + jnp.sum(a[:, 1:] * w_y)
+                + jnp.sum(e * w_e))
+
+    grad = jax.jit(jax.grad(loss))
+
+    def call(rho, cot):
+        zero = (np.zeros(rho.shape[0]), np.zeros(rho.shape),
+                np.zeros(rho.shape[0]))
+        w = [z if c is None else c.numpy() for z, c in zip(zero, cot)]
+        return np.asarray(grad(rho.numpy(), *w))
+
+    return call
+
+
+@pytest.mark.parametrize("route", ["scan", "blocked"])
+@pytest.mark.parametrize("t", [2, 17, 45])
+def test_durbin_bwd_plain_matches_autograd_and_jax(route, t, monkeypatch):
+    """``durbin_bwd_plain`` on the plain forward's steps, against the plain
+    forward's autograd and JAX's gradient (its scan, or its blocked route
+    with ``GPVAE_DURBIN_MIN_T``/``GPVAE_DURBIN_BLOCK`` lowered), for a
+    cotangent on each output alone and on all three, to ``FP64_REL``."""
+    for k, v in ROUTES[route].items():
+        monkeypatch.setenv(k, v)
+    jax_grad = _jax_rho_grad_fn()
+    row = _rows(t, ls=(9.0, 3.0, 1.0))
+    rho = row[:, 1:] / row[:, :1]
+    n, t1 = rho.shape
+    for which in ((0,), (1,), (2,), (0, 1, 2)):
+        cot = _cotangents(n, t1, which, seed=t)
+        r = rho.clone().requires_grad_(True)
+        *outs, (steps, last) = durbin.durbin_plain(r, save=True)
+        loss = sum((o * c).sum() for o, c in zip(outs, cot) if c is not None)
+        auto, = torch.autograd.grad(loss, r)
+        got = durbin.durbin_bwd_plain(steps, last, *cot)
+        assert got.shape == (n, t1) and got.dtype == torch.float64
+        assert _rel(got.numpy(), auto.numpy()) <= FP64_REL, which
+        assert _rel(got.numpy(), jax_grad(rho, cot)) <= FP64_REL, which
+
+
+@pytest.mark.parametrize("t", [3, 17])
+def test_durbin_bwd_plain_where_alpha_clamps(t):
+    """The last reflection coefficient past 1 before its clamp: no
+    gradient through it (``torch.clamp``'s autograd, JAX's ``clip``); the
+    earlier ones pass theirs."""
+    rho = clamped_rows(t)
+    *_, (steps, last) = durbin.durbin_plain(rho, save=True)
+    raw = -steps[0, 1, -1] / steps[0, 2, -1]
+    assert raw > 1.0 and steps[0, 0, -1] < 1.0
+    cot = _cotangents(1, t - 1, (0, 1, 2), seed=t)
+    r = rho.clone().requires_grad_(True)
+    outs = durbin.durbin_plain(r)
+    auto, = torch.autograd.grad(
+        sum((o * c).sum() for o, c in zip(outs, cot)), r)
+    got = durbin.durbin_bwd_plain(steps, last, *cot)
+    assert _rel(got.numpy(), auto.numpy()) <= FP64_REL
+    assert _rel(got.numpy(), _jax_rho_grad_fn()(rho, cot)) <= FP64_REL
+
+
+def test_durbin_bwd_plain_starts_from_the_kept_last_step():
+    """The reverse starts from the last step's kept inputs ``last [N, 2,
+    T]`` (``(a, Z b)`` at every lag) and undoes the 98 steps before it by
+    their inverse (T=100), within ``FP64_REL`` of autograd; the kept state
+    is what it starts from: spoiling it changes the gradient."""
+    row = _rows(100, ls=(9.0,))
+    rho = row[:, 1:] / row[:, :1]
+    cot = _cotangents(1, 99, (0, 1, 2))
+    r = rho.clone().requires_grad_(True)
+    *outs, (steps, last) = durbin.durbin_plain(r, save=True)
+    assert steps.shape == (1, 4, 99) and last.shape == (1, 2, 100)
+    assert last[0, 0, 99] == 0.0  # a[T-1] before the last step
+    auto, = torch.autograd.grad(
+        sum((o * c).sum() for o, c in zip(outs, cot)), r)
+    got = durbin.durbin_bwd_plain(steps, last, *cot)
+    assert _rel(got.numpy(), auto.numpy()) <= FP64_REL
+    spoiled = last.clone()
+    spoiled[:, 1] *= 1.5
+    assert _rel(durbin.durbin_bwd_plain(steps, spoiled, *cot).numpy(),
+                auto.numpy()) > 1e-3
 
 
 def _kl_inputs(seed, b, t, z, shared):
@@ -352,16 +475,72 @@ def test_t1024_toeplitz_preset_matches_jax():
 
 
 def test_check_ported_refuses_only_a_learnable_toeplitz_prior():
+    """Nothing is refused any more: every preset builds (on the meta
+    device: no weights drawn), and so does ``t1024_toeplitz`` with
+    ``learn_prior_lengthscales``, its prior's log-lengthscales a parameter
+    (a buffer in the preset)."""
     for name in configs.PRESETS:
-        check_ported(configs.get(name).model)
+        with torch.device("meta"):
+            GPVAE(configs.get(name).model)
+    preset = configs.get("t1024_toeplitz").model
+    cfg = dataclasses.replace(preset, learn_prior_lengthscales=True)
+    params = dict(GPVAE(cfg).named_parameters())
+    assert "prior_log_ls" in params and params["prior_log_ls"].shape == (2,)
+    assert "prior_log_ls" not in dict(GPVAE(preset).named_parameters())
+    assert "prior_log_ls" in dict(GPVAE(preset).named_buffers())
+
+
+@pytest.mark.parametrize("posterior", ["gp", "diag"])
+def test_learnable_toeplitz_prior_elbo_and_grads_match_jax_fp64(
+        posterior, monkeypatch, jax_rows_fp64):
+    """A learnable Toeplitz prior: loss, nll, kl, the draw and every
+    gradient, ``prior_log_ls``'s through the Durbin recursion included, to
+    ``FP64_REL`` against the JAX model's autodiff."""
+    monkeypatch.setattr(jgp, "gp_sample", _gp_sample_fp64)
+    check_elbo_matches_jax(("gp", posterior), "dense", True, monkeypatch,
+                           extra={"structured_prior": "toeplitz",
+                                  "learn_prior_lengthscales": True},
+                           band=FP64_REL)
+
+
+def test_learnable_toeplitz_prior_trains_saves_and_evaluates(tmp_path,
+                                                             capsys):
+    """``t1024_toeplitz``'s model with ``learn_prior_lengthscales`` at
+    T=16: ``train.fit`` moves the prior's lengthscales and saves a
+    checkpoint; ``evaluate`` (the preset, its prior fixed) restores the
+    model from it (not Adam's state: its parameters differ) and prints
+    finite metrics; ``prior_draws`` samples the learned prior."""
+    from gpvae_tpu_torch import train
+    from gpvae_tpu_torch.data import (
+        Batcher, generate_toy_data, toy_to_masked_batch,
+    )
+
+    t = 16
     cfg = dataclasses.replace(configs.get("t1024_toeplitz").model,
-                              learn_prior_lengthscales=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-        check_ported(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-        GPVAE(cfg)
-    # a learnable dense prior is ported
-    check_ported(dataclasses.replace(cfg, structured_prior="dense"))
+                              time_len=t, learn_prior_lengthscales=True)
+    data = toy_to_masked_batch(generate_toy_data(
+        np.random.default_rng(0), 20, t=t, hide_fraction=0.0))
+    model = GPVAE(cfg, generator=torch.Generator().manual_seed(0))
+    ls0 = model.prior_log_ls.detach().clone()
+    state, log = train.fit(model, Batcher(data, 4, seed=0), train.TrainConfig(
+        num_steps=3, log_every=1, learning_rate=0.05,
+        checkpoint_dir=str(tmp_path / "ck")), device="cpu", verbose=False)
+    assert all(np.isfinite(r["loss"]) for r in log.rows)
+    moved = model.prior_log_ls.detach()
+    assert (moved - ls0).abs().min() > 0 and torch.isfinite(moved).all()
+    main(["evaluate", "--preset", "t1024_toeplitz", "--device", "cpu",
+          "--time-len", str(t), "--num-seqs", "20", "--batch-size", "4",
+          "--seed", "0", "--ckpt-dir", str(tmp_path / "ck")])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "restored step 3"
+    assert all(np.isfinite(v) for v in json.loads(lines[1]).values())
+    restored = GPVAE(configs.get("t1024_toeplitz").model)
+    restored.load_state_dict(model.state_dict())
+    assert torch.equal(restored.prior_log_ls, moved)
+    draws = analysis.prior_draws(model, torch.linspace(0.0, 60.0, t),
+                                 num_samples=2,
+                                 generator=torch.Generator().manual_seed(1))
+    assert draws.shape == (2, t, 2) and torch.isfinite(draws).all()
 
 
 def test_cli_trains_and_evaluates_t1024_toeplitz(tmp_path, capsys):
