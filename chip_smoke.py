@@ -112,6 +112,21 @@ Phases, each printing one line (a failed check exits nonzero at once):
       stays finite; its ELBO and every gradient, ``prior_log_ls``'s
       included, against the CPU in float64 under the T=1024 bands;
       ``evaluate`` of its checkpoint as in i.;
+   k. ``steps_per_call``: ``syn_data`` at its widths 100 steps at k=25
+      and ``t1024_toeplitz`` at its widths 20 steps at k=10, each over
+      the Batcher's device-resident data and over a plain iterator of its
+      batches, held bit for bit (every logged loss and parameter) against
+      a k=1 run from the same seed and data; every run's launches exactly
+      its path's a step (``gram_chol`` 1 and ``tri_inv`` 2;
+      ``TOEP_LAUNCHES``);
+   l. data parallelism: ``dp_scale`` (BASELINE config 5,
+      ``t1024_toeplitz``'s model) through ``parallel.fit_data_parallel``
+      on a world of one rank (NCCL, a file store), the global batch cut
+      from 4096 to 128 on 512 toy sequences (its ``reduced`` field): one
+      ``make_parallel_train_step`` bit for bit against ``train_step`` on
+      the same global batch and noise, then 10 steps at k=1 and 10 at k=5
+      (equal bit for bit), ``TOEP_LAUNCHES`` exactly a step, and the peak
+      of ``utils.device_memory_stats``;
    f. ``ops.chol.cholesky(method="blocked_fused")`` of a pre-built bank
       at T=1024, N=128, forward and backward: exactly 8 ``chol_block``
       (7 with L^-1), 7 ``trail_panel`` and 7 ``trail_update`` launches,
@@ -145,7 +160,8 @@ Phases, each printing one line (a failed check exits nonzero at once):
    bound and its chain floor; its reverse beside ``durbin_bwd_plain``,
    autograd of the plain forward, the library's autograd of the dense
    Cholesky and logdet, its bound and its chain floor; the learned
-   prior's steps/s and device µs a step.
+   prior's steps/s and device µs a step; ``syn_data``'s steps/s at k=1
+   and at k=25, in turns.
 
 Then one JSON line with the kernels' results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -360,6 +376,21 @@ DURBIN_BWD_REL = 1e-9
 # the learnable Toeplitz prior (phase 4j): t1024_toeplitz's model with
 # learn_prior_lengthscales; a step adds the reverse kernel's one launch
 TOEP_LEARN_LAUNCHES = {**TOEP_LAUNCHES, "durbin_bwd": 1}
+# multi-step training (phase 4k): steps a run and the steps a call of
+# the k-step runs, each held bit for bit against a k=1 run from the same
+# seed and data, on syn_data's widths and on t1024_toeplitz's; launches
+# a step of syn_data's path (one factorization, the KL's and the
+# backward's inverse)
+KSTEP_PATHS = (("syn_data", 100, 25), ("t1024_toeplitz", 20, 10))
+SYN_LAUNCHES = {"gram_chol": 1, "tri_inv": 2}
+# phase 5's steps/s of syn_data at k=1 and k=25, in turns: steps a timed
+# run, rows (windows) a run
+KSTEP_TIME_STEPS, KSTEP_TIME_WINDOWS = 250, 5
+# data parallelism (phase 4l): dp_scale (t1024_toeplitz's model, BASELINE
+# config 5) through fit_data_parallel on a world of one rank (NCCL), the
+# global batch of 4096 cut to DP_B on DP_SEQS toy_full sequences; steps
+# at k=1 and at k=DP_K, each with TOEP_LAUNCHES exact a step
+DP_B, DP_SEQS, DP_STEPS, DP_K = 128, 512, 10, 5
 # the Gohberg-Semencul identity K (K^-1 X) = X through the FFT route in
 # float32 (max abs error over max |X|): BASELINE.md's float32 figure at
 # T=4096 for the blocked Schur/Durbin (1.7e-3), or 4x the same route's
@@ -2678,6 +2709,235 @@ def learnable_toeplitz_path(dev, ck: str) -> tuple[dict, dict]:
             f"evaluate_{name}_learned_prior": ev}, timing
 
 
+def drain(batcher):
+    """A plain generator over a Batcher: hides its type, so ``fit`` takes
+    the stacked iterator path (``k`` batches a call, one copy)."""
+    while True:
+        yield next(batcher)
+
+
+def params_flat(model):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def kstep_fit(dev, preset_name, t, arrays, steps, k, path, log_every,
+              run=None):
+    """``train.fit`` of ``preset_name`` at sequence length ``t`` from the
+    seed-0 weights on a seed-0 Batcher of ``arrays`` (``path`` "batcher",
+    or "iterator" through :func:`drain`) to step ``steps``, ``k`` steps a
+    call, with the counters set to 0 just before and read just after; no
+    library factorization or solve.  ``run``, an earlier record, is
+    continued (its model, state and Batcher).  Returns the run's
+    record."""
+    import torch
+
+    from gpvae_tpu_torch import configs, train as train_lib
+    from gpvae_tpu_torch.data import Batcher
+    from gpvae_tpu_torch.models import GPVAE
+
+    preset = configs.get(preset_name)
+    if run is None:
+        model = GPVAE(dataclasses.replace(preset.model, time_len=t),
+                      generator=torch.Generator().manual_seed(0))
+        state, batcher = None, Batcher(arrays, preset.batch_size, seed=0)
+    else:
+        model, state, batcher = run["model"], run["state"], run["batcher"]
+    config = train_lib.TrainConfig(
+        learning_rate=preset.train.learning_rate, num_steps=steps,
+        beta=preset.train.beta, log_every=log_every, steps_per_call=k)
+    reset_counts()
+    with library_calls() as lib_calls:
+        state, log = train_lib.fit(
+            model, batcher if path == "batcher" else drain(batcher), config,
+            device=dev, state=state, verbose=False)
+        torch.cuda.synchronize()
+    launches = read_counts()
+    if any(lib_calls.values()):
+        fail(f"{preset_name} k={k} ({path}) called the library's "
+             f"factorization or solve: {lib_calls}")
+    return {"model": model, "state": state, "batcher": batcher,
+            "params": params_flat(model), "launches": launches,
+            "rows": [(r["step"], r["loss"]) for r in log.rows],
+            "steps_per_sec": [r["steps_per_sec"] for r in log.rows]}
+
+
+def multistep_paths(dev) -> dict:
+    """Phase 4k: ``steps_per_call`` on the card.  For each of
+    ``KSTEP_PATHS`` (``syn_data`` at its widths, B=20, T=45, Z=2;
+    ``t1024_toeplitz`` at its, B=8, T=1024, the blocked factorization and
+    ``durbin``): ``train.fit`` with ``k`` steps a call over the Batcher's
+    device-resident data and over a plain iterator of its batches, each
+    held against a ``k = 1`` run from the same seed and data: the same
+    kernels in the same order with the same generator, so every logged
+    loss and every parameter bit for bit; each run's launches exactly its
+    path's a step.  Returns each path's phase fields (launches summed over
+    its three runs)."""
+    out = {}
+    for name, steps, k in KSTEP_PATHS:
+        if name == "syn_data":
+            t, per_step = SYN_T, SYN_LAUNCHES
+            arrays = toy_batch(0, 2000, SYN_T)
+        else:
+            t, per_step = TOEP_T, TOEP_LAUNCHES
+            arrays = toy_full_batch(0, TOEP_SEQS, TOEP_T)
+        ref = kstep_fit(dev, name, t, arrays, steps, 1, "batcher", k)
+        exact_launches(f"{name} k=1", ref["launches"], per_step, steps)
+        if ref["state"].step != steps or not all(
+                math.isfinite(v) for _, v in ref["rows"]):
+            fail(f"{name} k=1: step {ref['state'].step}, losses "
+                 f"{ref['rows']}")
+        launches = dict(ref["launches"])
+        fields = {"preset": name, "time_len": t, "steps": steps,
+                  "steps_per_call": k, "loss_logged_k1": ref["rows"]}
+        for path in ("batcher", "iterator"):
+            got = kstep_fit(dev, name, t, arrays, steps, k, path, k)
+            label = f"{name} k={k} ({path})"
+            exact_launches(label, got["launches"], per_step, steps)
+            diff = (got["params"] - ref["params"]).abs().max().item()
+            if got["state"].step != steps or got["rows"] != ref["rows"] \
+                    or diff != 0.0:
+                fail(f"{label}: step {got['state'].step}, losses "
+                     f"{got['rows']} against k=1's {ref['rows']}, "
+                     f"parameters {diff} from k=1's")
+            fields[path] = {"launches": got["launches"],
+                            "param_max_abs_vs_k1": diff,
+                            "losses_equal_k1": True}
+            for kernel, n in got["launches"].items():
+                launches[kernel] += n
+        fields["launches"] = launches
+        phase("kstep_path", **fields)
+        out[f"kstep_{name}"] = fields
+    return out
+
+
+def dp_path(dev, ck: str) -> dict:
+    """Phase 4l: data parallelism on the card.  ``dp_scale``
+    (``t1024_toeplitz``'s model, BASELINE config 5) through
+    ``parallel.fit_data_parallel`` on a world of one rank (NCCL, a file
+    store in ``ck``), the global batch cut from 4096 to ``DP_B`` on
+    ``DP_SEQS`` fully observed toy sequences: first one
+    ``make_parallel_train_step`` against ``train_step`` on the same global
+    batch and noise (the all-reduce over one rank is the identity: loss
+    and parameters bit for bit), then ``DP_STEPS`` steps at ``k = 1`` and
+    as many at ``k = DP_K`` (equal bit for bit), each with exactly
+    ``TOEP_LAUNCHES`` a step; the peak of ``utils.device_memory_stats``.
+    A card cannot show scaling: this proves the program on NCCL.  Returns
+    the phase fields."""
+    import torch
+    import torch.distributed as dist
+
+    from gpvae_tpu_torch import configs, train as train_lib, utils
+    from gpvae_tpu_torch.data import Batcher
+    from gpvae_tpu_torch.models import GPVAE
+    from gpvae_tpu_torch.parallel import fit_data_parallel
+    from gpvae_tpu_torch.parallel import mesh as mesh_lib
+
+    preset = configs.get("dp_scale")
+    arrays = toy_full_batch(0, DP_SEQS, preset.model.time_len)
+    mesh_lib.init_process_group(os.path.join(ck, "dp_store"), 0, 1, "cuda")
+    try:
+        mesh = mesh_lib.make_mesh(devices=[dev])
+        torch.cuda.reset_peak_memory_stats(dev)
+        states = []
+        for _ in range(2):
+            model = GPVAE(preset.model,
+                          generator=torch.Generator().manual_seed(0))
+            states.append(train_lib.create_train_state(
+                model, train_lib.TrainConfig(
+                    learning_rate=preset.train.learning_rate), dev))
+        first = {k: v[:DP_B] for k, v in arrays.items()}
+        beta = preset.train.beta(0)
+        want = train_lib.train_step(states[0],
+                                    train_lib.device_arrays(first, dev), beta)
+        mesh_lib.replicate(states[1], mesh)
+        _, got = mesh_lib.make_parallel_train_step(preset.train.beta, mesh)(
+            states[1], mesh_lib.shard_batch(first, mesh))
+        diff = (params_flat(states[1].model)
+                - params_flat(states[0].model)).abs().max().item()
+        if got["loss"].item() != want["loss"].item() or diff != 0.0:
+            fail(f"dp_scale: the world-of-one step's loss {got['loss'].item()}"
+                 f" against train_step's {want['loss'].item()}, parameters "
+                 f"{diff} apart")
+        del states, want, got
+        runs, launches = {}, {k: 0 for k in read_counts()}
+        for k in (1, DP_K):
+            model = GPVAE(preset.model,
+                          generator=torch.Generator().manual_seed(0))
+            config = train_lib.TrainConfig(
+                learning_rate=preset.train.learning_rate,
+                num_steps=DP_STEPS, beta=preset.train.beta,
+                log_every=DP_STEPS, steps_per_call=k)
+            reset_counts()
+            t0 = time.perf_counter()
+            with library_calls() as lib_calls:
+                state, log = fit_data_parallel(
+                    model, drain(Batcher(arrays, DP_B, seed=0)), config,
+                    mesh, verbose=False)
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+            label = f"dp_scale k={k}"
+            if any(lib_calls.values()):
+                fail(f"{label} called the library's factorization or "
+                     f"solve: {lib_calls}")
+            exact_launches(label, counts, TOEP_LAUNCHES, DP_STEPS)
+            loss = log.rows[-1]["loss"]
+            if state.step != DP_STEPS or not math.isfinite(loss):
+                fail(f"{label}: step {state.step}, loss {loss}")
+            runs[k] = {"params": params_flat(model), "loss": loss,
+                       "steps_per_s": DP_STEPS / seconds}
+            for kernel, n in counts.items():
+                launches[kernel] += n
+        diff_k = (runs[DP_K]["params"] - runs[1]["params"]).abs().max().item()
+        if diff_k != 0.0 or runs[DP_K]["loss"] != runs[1]["loss"]:
+            fail(f"dp_scale: k={DP_K} ended {diff_k} from k=1's parameters, "
+                 f"loss {runs[DP_K]['loss']} against {runs[1]['loss']}")
+        memory = utils.device_memory_stats(dev)
+    finally:
+        dist.destroy_process_group()
+    fields = {
+        "preset": "dp_scale", "world_size": 1, "backend": "nccl",
+        "global_batch": DP_B, "time_len": preset.model.time_len,
+        "reduced": {"batch_size": [preset.batch_size, DP_B],
+                    "num_seqs": DP_SEQS,
+                    "num_steps": [preset.train.num_steps, DP_STEPS],
+                    "devices": 1},
+        "steps": DP_STEPS, "steps_per_call": [1, DP_K],
+        "first_step_vs_train_step": {"loss_equal": True,
+                                     "param_max_abs": diff},
+        "k_vs_k1_param_max_abs": diff_k,
+        "loss_last": runs[1]["loss"],
+        "steps_per_s": {f"k{k}": r["steps_per_s"] for k, r in runs.items()},
+        "memory": memory, "launches": launches}
+    phase("dp_path", **fields)
+    return {"dp_scale": fields}
+
+
+def time_kstep(dev) -> dict:
+    """Phase 5: ``syn_data``'s steps/s at ``k = 1`` and at ``KSTEP_PATHS``'
+    ``k``, in turns (1, k, k, 1): each run warms a fresh model for ``2 k``
+    steps, then continues it ``KSTEP_TIME_STEPS`` steps in
+    ``KSTEP_TIME_WINDOWS`` log windows (host clock, each window ended by
+    its read of the loss); the median window of each run.  Records, not a
+    claim: ``k`` steps a call are a Python loop of the same steps."""
+    k = dict((name, k) for name, _, k in KSTEP_PATHS)["syn_data"]
+    arrays = toy_batch(0, 2000, SYN_T)
+    window = KSTEP_TIME_STEPS // KSTEP_TIME_WINDOWS
+    runs = {1: [], k: []}
+    for kk in (1, k, k, 1):
+        warm = kstep_fit(dev, "syn_data", SYN_T, arrays, 2 * k, kk,
+                         "batcher", k)
+        timed = kstep_fit(dev, "syn_data", SYN_T, None,
+                          2 * k + KSTEP_TIME_STEPS, kk, "batcher", window,
+                          run=warm)
+        sps = sorted(timed["steps_per_sec"])
+        runs[kk].append(sps[len(sps) // 2])
+    return {"window_steps": window,
+            **{f"k{kk}_train_steps_per_s": v for kk, v in runs.items()}}
+
+
 @contextlib.contextmanager
 def inverse_calls():
     """Counts the calls of ``chol_block.chol_block`` with ``inverse=True``
@@ -3694,11 +3954,15 @@ def run(dev) -> int:
         toep, timing["t1024_toeplitz"], toep_ctx = toeplitz_path(dev, ck)
         learned, timing["t1024_toeplitz_learned_prior"] = (
             learnable_toeplitz_path(dev, ck))
+        kstep = multistep_paths(dev)
+        dp = dp_path(dev, ck)
     paths.update(zoo)
     paths.update(heal)
     paths.update(sparse)
     paths.update(toep)
     paths.update(learned)
+    paths.update(kstep)
+    paths.update(dp)
     timing.update(zoo_timing)
     paths.update(method_paths(dev))
 
@@ -3719,6 +3983,7 @@ def run(dev) -> int:
         context, "the T=1024 evaluate call")
     timing["evaluate_sparse_t4096"] = time_evaluate(
         sparse_ctx, "the T=4096 evaluate call")
+    timing["syn_data_steps_per_call"] = time_kstep(dev)
     heal_model = heal_ctx["model"]
     timing["evaluate_healing_mnist"] = time_call(
         lambda: analysis.pixel_imputation_metrics(heal_model,

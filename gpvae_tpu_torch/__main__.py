@@ -5,6 +5,8 @@
     python -m gpvae_tpu_torch train --preset syn_data --steps 5000 \
         --data toy.npz --ckpt-dir D
     python -m gpvae_tpu_torch train --preset syn_data --steps 5 --device cpu
+    python -m gpvae_tpu_torch train --preset syn_data --num-seqs 10000 \
+        --steps 100000 --steps-per-call 100 --data toy_data_v3.pkl
     python -m gpvae_tpu_torch train --preset bench_t100 --time-len 1024
     python -m gpvae_tpu_torch evaluate --preset syn_data --ckpt-dir D
     python -m gpvae_tpu_torch evaluate --preset bench_t100 --time-len 1024 \
@@ -29,7 +31,10 @@ last 10%) ``evaluate`` scores; healing sequences with missing pixels for
 ``healing_mnist``, whose last 10% ``evaluate`` scores on the missing
 pixels (``analysis.pixel_imputation_metrics``).  All are generated from
 ``--seed``; ``--data`` reads a ``.npz`` of toy fields (``generate-data``)
-or a Moving-MNIST ``.npy`` instead.
+or the reference's pickle ``toy_data_v3.pkl`` (``data.load_toy_file``),
+or a Moving-MNIST ``.npy`` instead.  ``train --steps-per-call k`` runs
+``k`` optimizer steps a call of the training loop (``TrainConfig.
+steps_per_call``).
 """
 from __future__ import annotations
 
@@ -116,15 +121,17 @@ def _load_batches(args, preset, model_cfg):
 def _toy_split(args, model_cfg, *, full: bool = False
                ) -> tuple[dict, dict]:
     """``(train, test)``: the first 90% of the toy sequences generated from
-    ``--seed`` (or read from the ``.npz`` of ``--data``) and the rest
+    ``--seed`` (or read from ``--data``: an ``.npz`` or the reference's
+    pickle, ``data.load_toy_file``) and the rest
     (``gpvae_tpu/__main__.py:82-100``).  With ``full`` (the ``toy_full``
     family) no step is hidden: a Toeplitz prior needs a full uniform
     grid."""
-    from gpvae_tpu_torch.data import generate_toy_data, toy_to_masked_batch
+    from gpvae_tpu_torch.data import (
+        generate_toy_data, load_toy_file, toy_to_masked_batch,
+    )
 
     if args.data:
-        with np.load(args.data) as f:
-            raw = dict(f)
+        raw = load_toy_file(args.data)
     else:
         raw = generate_toy_data(np.random.default_rng(args.seed),
                                 args.num_seqs, t=model_cfg.time_len,
@@ -153,6 +160,8 @@ def cmd_train(args):
         overrides["log_every"] = args.log_every
     if args.ckpt_dir:
         overrides["checkpoint_dir"] = args.ckpt_dir
+    if args.steps_per_call:
+        overrides["steps_per_call"] = args.steps_per_call
     train_cfg = dataclasses.replace(train_cfg, **overrides)
 
     batches, _ = _load_batches(args, preset, model_cfg)
@@ -294,13 +303,17 @@ def main(argv=None):
 
     t = sub.add_parser("train")
     t.add_argument("--preset", required=True)
-    t.add_argument("--data", help=".npz toy data or a Moving-MNIST .npy in "
-                   "place of generated sequences")
+    t.add_argument("--data", help=".npz toy data, the reference's toy "
+                   "pickle, or a Moving-MNIST .npy in place of generated "
+                   "sequences")
     t.add_argument("--num-seqs", type=int, default=512,
                    help="sequences to generate (toy, healing: 90%% train; "
                    "Moving-MNIST: 80%%)")
     t.add_argument("--steps", type=int)
     t.add_argument("--log-every", type=int)
+    t.add_argument("--steps-per-call", type=int,
+                   help="optimizer steps a call of the training loop (the "
+                   "run may end up to k-1 steps past --steps)")
     t.add_argument("--ckpt-dir", help="resume from and save checkpoints "
                    "in this directory")
     t.add_argument("--csv")
@@ -323,8 +336,8 @@ def main(argv=None):
     e.add_argument("--preset", required=True)
     e.add_argument("--ckpt-dir")
     e.add_argument("--data", help=".npz of toy data (the fields of "
-                   "generate_toy_data) or a Moving-MNIST .npy in place of "
-                   "generated sequences")
+                   "generate_toy_data), the reference's toy pickle, or a "
+                   "Moving-MNIST .npy in place of generated sequences")
     e.add_argument("--num-seqs", type=int, default=128,
                    help="sequences to generate (the last 10%% scored)")
     e.add_argument("--time-len", type=int)

@@ -9,8 +9,9 @@ presets ``syn_data`` and ``syn_data_vm``, and the BASELINE configs
 ``--time-len`` takes it to T=1024), ``healing_mnist`` (missing pixels,
 the Cauchy kernel, short sequences), ``sparse_t4096`` (T=4096 under the
 FITC prior) and ``t1024_toeplitz`` (T=1024 under the Toeplitz structured
-prior, on fully observed sequences of one uniform grid).  ``dp_scale``
-arrives with data parallelism (ROADMAP A8).
+prior, on fully observed sequences of one uniform grid), and
+``dp_scale`` (``:204-213``: ``t1024_toeplitz``'s model at a global batch
+of 4096 under data parallelism, ``parallel.fit_data_parallel``).
 """
 from __future__ import annotations
 
@@ -226,6 +227,17 @@ register(Preset(
     description="BASELINE config 3: T=1024 uniform grid — Toeplitz "
     "structured prior (O(T^2) Durbin + Gohberg-Semencul inverse, "
     "gp.gp_kl_toeplitz_prior) with the blocked-Cholesky posterior bank",
+    data_family="toy_full",
+))
+register(Preset(
+    "dp_scale",
+    dataclasses.replace(PRESETS["t1024_toeplitz"].model),
+    TrainConfig(num_steps=100_000, beta=_TOY_BETA),
+    batch_size=4096,
+    description="BASELINE config 5: 4096 sequences x T=1024 under data "
+    "parallelism — the global batch shards over a device mesh "
+    "(parallel.make_parallel_train_step / __graft_entry__.dryrun_multichip);"
+    " shrink --num-seqs and the batch for single-chip smoke runs",
     data_family="toy_full",
 ))
 

@@ -1,7 +1,8 @@
 """Synthetic GP-draw toy data in numpy.
 
 Counterpart of ``gpvae_tpu/data/synthetic.py:37-171``, the reference
-generator ``gen_toy_data`` (src/gen_data/simulate_toy_data.py:7-65):
+generator ``gen_toy_data`` (src/gen_data/simulate_toy_data.py:7-65), and
+of its file loader ``load_toy_file``:
 
 * two latent trajectories on ``linspace(0, xmax, 45)``, drawn from
   GP(RBF, l=9, var=1) and GP(Cosine, l=3, var=0.75);
@@ -89,6 +90,33 @@ def generate_toy_data(
         "time": times.astype(np.float32),
         "mask": mask,
     }
+
+
+def load_toy_file(path: str) -> dict:
+    """A toy dataset file as a dict of numpy arrays
+    (``gpvae_tpu/data/synthetic.py:114-143``): an ``.npz`` of
+    ``generate-data`` (read with ``allow_pickle=False``), or else the
+    reference's joblib pickle ``toy_data_v3.pkl``, a dict with ``x`` a
+    list of per-sequence ``[obs_dim, T]`` sentinel arrays and ``f``,
+    ``time``, ``p``; read with ``joblib`` where it is installed, else with
+    the standard library's ``pickle``.  Unpickling runs code: read only
+    files you trust.  List values are stacked along a leading axis, ready
+    for :func:`toy_to_masked_batch`."""
+    if path.endswith(".npz"):
+        with np.load(path, allow_pickle=False) as z:
+            return {k: z[k] for k in z.files}
+    try:
+        import joblib
+    except ImportError:
+        import pickle
+
+        with open(path, "rb") as f:
+            data = pickle.load(f)
+    else:
+        data = joblib.load(path)
+    return {k: np.stack([np.asarray(s) for s in v])
+            if isinstance(v, (list, tuple)) else np.asarray(v)
+            for k, v in dict(data).items()}
 
 
 def toy_to_masked_batch(data: dict) -> dict:

@@ -1,17 +1,18 @@
 """Training: the Adam step on the ELBO, metrics, checkpoints, and the
 training loop.
 
-Counterpart of ``gpvae_tpu/train.py:55-243`` (config, step, the
-device-resident sampled loop, ``eval_step``), ``:250-300``
-(``CheckpointManager``), ``:307-372`` (``MetricsLog``) and ``:375-519``
-(``fit``).  PyTorch runs eagerly, so the JAX package's jitted
-``lax.scan`` over ``k`` steps becomes a Python loop of steps whose work
-is all queued on the device: from a ``Batcher`` the dataset lives on the
-device, each step gathers its batch there from a row of a ``[k, B]``
-index tensor, and the host waits for the device only at a log point, a
-checkpoint or a callback; from any other iterator each batch is moved to
-the device as it comes.  Checkpoints are ``torch.save`` files,
-not the JAX package's orbax directories (weights cross from JAX through
+Counterpart of ``gpvae_tpu/train.py:55-243`` (config, the step and its
+k-step forms, ``eval_step``), ``:250-300`` (``CheckpointManager``),
+``:307-372`` (``MetricsLog``) and ``:375-519`` (``fit``).  PyTorch runs
+eagerly, so the JAX package's jitted ``lax.scan`` over ``k`` steps
+becomes a Python loop of ``k`` steps whose work is all queued on the
+device (:func:`make_multi_step`, :func:`make_sampled_multi_step`): from a
+``Batcher`` the dataset lives on the device and each step gathers its
+batch there from a row of a ``[k, B]`` index tensor; from any other
+iterator ``k`` batches are stacked and moved to the device in one copy.
+The host waits for the device only at a log point, a checkpoint or a
+callback.  Checkpoints are ``torch.save`` files, not the JAX package's
+orbax directories (weights cross from JAX through
 ``convert.load_flax_params``).
 """
 from __future__ import annotations
@@ -43,6 +44,26 @@ class TrainConfig:
     checkpoint_dir: str | None = None
     keep_checkpoints: int = 3
     seed: int = 0
+    # optimizer steps a call of the k-step functions; fit's loop may
+    # overshoot num_steps by up to k - 1 steps.  None resolves to 1 (see
+    # resolved_steps_per_call).
+    steps_per_call: int | None = None
+
+    def resolved_steps_per_call(self, device_resident: bool = False) -> int:
+        """``k``: an explicit ``steps_per_call`` as given (at least 1), and
+        for ``None`` 1 on every device (the JAX package's automatic value
+        off the TPU; its cap at the run and the log cadence,
+        ``train.py:75-83``, leaves 1 as it is).  A deliberate divergence:
+        the JAX package picks 256 on a TPU for a device-resident dataset
+        and 16 for staged batches, which buy it one dispatch for ``k``
+        steps; the port's ``k`` steps are a Python loop that buys none, so
+        a larger default would only overshoot ``num_steps``.  A CUDA
+        default comes with the ``k`` steps captured in one CUDA graph,
+        from that change's measurements.  ``device_resident`` is kept for
+        the JAX package's signature."""
+        if self.steps_per_call is not None:
+            return max(1, self.steps_per_call)
+        return 1
 
 
 @dataclasses.dataclass
@@ -66,11 +87,14 @@ def create_train_state(model: GPVAE, config: TrainConfig,
 
 
 def train_step(state: TrainState, batch: dict, beta: float, *,
-               eps: torch.Tensor | None = None) -> dict:
+               eps: torch.Tensor | None = None,
+               before_update: Callable[[], None] | None = None) -> dict:
     """One Adam step on the ELBO of ``batch`` (``x``, ``times``, ``mask``
     and, where the data has one, ``feature_mask``); returns the step's
     metrics as device tensors (reading them is the caller's choice of
-    sync)."""
+    sync).  The noise is ``eps`` when given, else drawn from the state's
+    generator; ``before_update`` runs between the backward and Adam (the
+    data-parallel step's gradient all-reduce)."""
     model = state.model
     # lengthscale trajectories are a first-class observable (the
     # reference prints them every 500 steps); values before the update
@@ -83,6 +107,8 @@ def train_step(state: TrainState, batch: dict, beta: float, *,
                 generator=state.generator)
     state.optimizer.zero_grad(set_to_none=True)
     out.loss.backward()
+    if before_update is not None:
+        before_update()
     state.optimizer.step()
     state.step += 1
     return {
@@ -92,6 +118,61 @@ def train_step(state: TrainState, batch: dict, beta: float, *,
         "beta": beta,
         **metrics,
     }
+
+
+def make_train_step(beta_schedule: elbo_lib.BetaSchedule
+                    ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
+    """One step as a callable ``(state, batch) -> (state, metrics)``
+    (``train.py:155-165``): :func:`train_step` with β from
+    ``beta_schedule`` at the state's step, read on the host.  The state is
+    updated in place and returned; ``batch`` holds device tensors
+    (:func:`device_arrays`)."""
+    def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        return state, train_step(state, batch, beta_schedule(state.step))
+
+    return step
+
+
+def make_multi_step(beta_schedule: elbo_lib.BetaSchedule, num_steps: int
+                    ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
+    """``num_steps`` steps a call over a super-batch whose tensors carry a
+    leading ``[num_steps]`` axis (``train.py:168-187``: the JAX package's
+    ``lax.scan``, here a loop whose work is all queued on the device);
+    returns the state and the last step's metrics."""
+    step = make_train_step(beta_schedule)
+
+    def run(state: TrainState, batches: dict) -> tuple[TrainState, dict]:
+        for key, v in batches.items():
+            if v.shape[0] != num_steps:
+                raise ValueError(f"{key!r} holds {v.shape[0]} batches, not "
+                                 f"{num_steps}")
+        for i in range(num_steps):
+            state, metrics = step(state, {key: v[i]
+                                          for key, v in batches.items()})
+        return state, metrics
+
+    return run
+
+
+def make_sampled_multi_step(beta_schedule: elbo_lib.BetaSchedule,
+                            arrays: dict, device: torch.device | str
+                            ) -> Callable[[TrainState, torch.Tensor],
+                                          tuple[TrainState, dict]]:
+    """Steps over a device-resident dataset (``train.py:190-231``).  The
+    batch arrays of ``arrays`` are staged on ``device`` once; each call
+    takes only an ``idx [k, B]`` index tensor on the device, gathers each
+    step's batch there and runs ``k`` steps, so the host copies nothing
+    but the indices.  Returns the state and the last step's metrics."""
+    dev = device_arrays(arrays, torch.device(device))
+    step = make_train_step(beta_schedule)
+
+    def run(state: TrainState, idx: torch.Tensor) -> tuple[TrainState, dict]:
+        for row in idx:
+            state, metrics = step(state, {key: v.index_select(0, row)
+                                          for key, v in dev.items()})
+        return state, metrics
+
+    return run
 
 
 @torch.no_grad()
@@ -242,6 +323,16 @@ def device_arrays(arrays: dict, device: torch.device) -> dict:
     }
 
 
+def stack_batches(chunk: list[dict], device: torch.device) -> dict:
+    """``k`` batch dicts (numpy arrays or tensors) as ``[k, B, ...]``
+    tensors on ``device``, one copy a key: the operand of
+    :func:`make_multi_step`."""
+    keys = [key for key in _BATCH_KEYS if chunk[0].get(key) is not None]
+    return device_arrays({key: torch.stack([torch.as_tensor(c[key])
+                                            for c in chunk])
+                          for key in keys}, device)
+
+
 def _stage_indices(idx: np.ndarray, device: torch.device) -> torch.Tensor:
     t = torch.from_numpy(idx)
     if device.type == "cuda":
@@ -251,39 +342,17 @@ def _stage_indices(idx: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def _train_loop(state: TrainState, batches, config: TrainConfig,
-                ckpt, log: MetricsLog, callbacks, verbose: bool) -> None:
-    """Steps ``state`` to ``config.num_steps`` on the device batches that
-    ``batches(n)`` yields (``n`` steps' worth, one log window at a time),
-    with the checkpoints, log rows and callbacks of :func:`fit`."""
-    step = state.step
-    t_last = time.perf_counter()
-    while step < config.num_steps:
-        # one window runs up to the next log point, which is its only sync
-        # (a checkpoint or a callback reads the device too)
-        stop = min((step // config.log_every + 1) * config.log_every,
-                   config.num_steps)
-        n = stop - step
-        for batch in batches(n):
-            metrics = train_step(state, batch, config.beta(step))
-            step += 1
-            if ckpt is not None and step % config.checkpoint_every == 0:
-                ckpt.save(state)
-            for every, fn in callbacks or ():
-                if step % every == 0:
-                    fn(state, step)
-        host = {name: MetricsLog._host(v) for name, v in metrics.items()}
-        now = time.perf_counter()
-        sps = n / max(now - t_last, 1e-9)
-        t_last = now
-        log.append(step, {**host, "steps_per_sec": sps})
-        if verbose:
-            print(
-                f"step {step}: loss={float(host['loss']):.4f} "
-                f"nll={float(host['nll']):.4f} "
-                f"kl={float(host['kl']):.4f} "
-                f"beta={float(host['beta']):.2e} ({sps:.1f} steps/s)"
-            )
+def _index_window(sampler: Batcher, k: int, step: int, config: TrainConfig,
+                  device: torch.device):
+    """The ``[k, B]`` index tensors of the calls from ``step`` to the next
+    log point (the first call that crosses a ``log_every`` boundary or
+    ends the run), drawn from ``sampler``'s stream in order and copied to
+    the device at once."""
+    stop = min((step // config.log_every + 1) * config.log_every,
+               config.num_steps)
+    calls = -(-(stop - step) // k)
+    idx = np.stack([sampler.next_indices() for _ in range(calls * k)])
+    return iter(_stage_indices(idx, device).view(calls, k, -1))
 
 
 def fit(
@@ -300,25 +369,33 @@ def fit(
 ) -> tuple[TrainState, MetricsLog]:
     """Train ``model`` for ``config.num_steps`` on a :class:`Batcher` or
     any iterator of batch dicts (numpy arrays or tensors: ``x``,
-    ``times``, ``mask`` and, where the data has one, ``feature_mask``).
+    ``times``, ``mask`` and, where the data has one, ``feature_mask``), in
+    calls of ``k = config.resolved_steps_per_call()`` steps, with the JAX
+    package's semantics (``train.py:375-505``).
 
-    A Batcher's arrays are staged on ``device`` once; each step gathers
-    its batch on the device from the Batcher's index stream (same wrap and
-    reshuffle semantics as iterating it).  Another iterator's batches are
-    moved to ``device`` one a step, and no batch is taken past the last
-    step.  The host reads the device only at each log point (every
-    ``config.log_every`` steps and at the end), checkpoint and callback.
-    Pass ``state`` to continue a run.  With ``config.checkpoint_dir`` the
-    run resumes from the newest checkpoint there, saves one every
-    ``config.checkpoint_every`` steps and one at the end.  ``callbacks``
-    are ``(every, fn(state, step))`` pairs, each called after every
-    ``every``-th step (``train.py:375-392``: the home of periodic artifact
-    dumps, ``analysis.make_artifact_callback``).  The model's
-    ``structured_prior`` is first resolved against the first batch
-    (``models.resolve_structured_prior``, ``train.py:412-415``).
+    A Batcher's arrays are staged on ``device`` once and each call takes
+    ``k`` rows of its index stream (:func:`make_sampled_multi_step`; the
+    stream is consumed exactly as at ``k = 1``, the indices of a log
+    window copied at once).  Another iterator's batches are stacked ``k``
+    a call and moved to ``device`` in one copy (:func:`make_multi_step`);
+    no batch is taken past the last call.  Steps count in calls of ``k``,
+    so the run may end up to ``k - 1`` steps past ``num_steps``.  A row
+    of the last step's metrics is logged when a call crosses a
+    ``config.log_every`` boundary or ends the run: the host reads the
+    device only there and at checkpoints and callbacks.  Pass ``state``
+    to continue a run.  With ``config.checkpoint_dir`` the run resumes
+    from the newest checkpoint there, saves one after each call that
+    reaches a multiple of ``config.checkpoint_every`` (``step % every <
+    k``) and one after the loop.  ``callbacks`` are ``(every, fn(state,
+    step))`` pairs, called on the same rule (``train.py:375-392``: the
+    home of periodic artifact dumps, ``analysis.make_artifact_callback``).
+    The model's ``structured_prior`` is first resolved against the first
+    batch (``models.resolve_structured_prior``, ``train.py:412-415``).
     """
     sampler = batches if isinstance(batches, Batcher) else None
+    k = config.resolved_steps_per_call(device_resident=sampler is not None)
     if sampler is not None:
+        # init from the arrays without consuming the index stream
         first = {key: v[:sampler.batch_size]
                  for key, v in sampler.arrays.items()}
     else:
@@ -334,27 +411,49 @@ def fit(
             and verbose:
         print(f"resumed from step {state.step}")
     if sampler is not None:
-        dev = device_arrays(sampler.arrays, device)
-
-        def window(n):
-            # the window's indices cross to the device in one copy
-            idx = _stage_indices(
-                np.stack([sampler.next_indices() for _ in range(n)]), device)
-            for row in idx:
-                yield {key: v.index_select(0, row) for key, v in dev.items()}
+        multi = make_sampled_multi_step(config.beta, sampler.arrays, device)
     else:
-        pending = [first]
-
-        def window(n):
-            for i in range(n):
-                # the first batch was read above; the rest are taken as
-                # they are needed, so a finite iterator may end at the
-                # last step
-                batch = pending.pop() if pending else next(batches)
-                yield device_arrays(batch, device)
-
+        multi = make_multi_step(config.beta, k)
     log = MetricsLog(csv_path)
-    _train_loop(state, window, config, ckpt, log, callbacks, verbose)
+    every = config.log_every
+    last_logged = state.step
+    t_last = time.perf_counter()
+    window = iter(())
+    batch = first
+    while state.step < config.num_steps:
+        if sampler is not None:
+            idx = next(window, None)
+            if idx is None:
+                window = _index_window(sampler, k, state.step, config, device)
+                idx = next(window)
+            state, metrics = multi(state, idx)
+        else:
+            chunk = [batch] + [next(batches) for _ in range(k - 1)]
+            state, metrics = multi(state, stack_batches(chunk, device))
+        step = state.step
+        if step // every > last_logged // every or step >= config.num_steps:
+            host = {name: MetricsLog._host(v) for name, v in metrics.items()}
+            now = time.perf_counter()
+            sps = (step - last_logged) / max(now - t_last, 1e-9)
+            t_last, last_logged = now, step
+            log.append(step, {**host, "steps_per_sec": sps})
+            if verbose:
+                print(
+                    f"step {step}: loss={float(host['loss']):.4f} "
+                    f"nll={float(host['nll']):.4f} "
+                    f"kl={float(host['kl']):.4f} "
+                    f"beta={float(host['beta']):.2e} ({sps:.1f} steps/s)"
+                )
+        if ckpt is not None and (step % config.checkpoint_every < k
+                                 and step >= config.checkpoint_every):
+            ckpt.save(state)
+        for n, fn in callbacks or ():
+            if step % n < k and step >= n:
+                fn(state, step)
+        if step < config.num_steps and sampler is None:
+            # only when another call runs: a finite iterator may end at
+            # the last step
+            batch = next(batches)
     if ckpt is not None:
         ckpt.save(state)
     return state, log

@@ -1,1 +1,23 @@
-"""Utilities of the port: PNG artifacts (:mod:`.plotting`)."""
+"""Utilities of the port: PNG artifacts (:mod:`.plotting`), profiling
+(:mod:`.profiling`) and numerical guards (:mod:`.debug`)."""
+from gpvae_tpu_torch.utils.debug import (
+    assert_finite,
+    check_finite,
+    enable_nan_debugging,
+)
+from gpvae_tpu_torch.utils.profiling import (
+    StepTimer,
+    cholesky_flops,
+    device_memory_stats,
+    trace,
+)
+
+__all__ = [
+    "trace",
+    "StepTimer",
+    "cholesky_flops",
+    "device_memory_stats",
+    "assert_finite",
+    "check_finite",
+    "enable_nan_debugging",
+]

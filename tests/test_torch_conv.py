@@ -124,9 +124,8 @@ def test_zoo_presets_match_jax():
         ours, ref = configs.get(name), jconfigs.get(name)
         assert dataclasses.asdict(ours.model) == dataclasses.asdict(
             ref.model), name
-        train_ref = dataclasses.asdict(ref.train)
-        del train_ref["steps_per_call"]  # the JAX loop's scan length
-        assert dataclasses.asdict(ours.train) == train_ref, name
+        assert dataclasses.asdict(ours.train) == dataclasses.asdict(
+            ref.train), name
         assert (ours.batch_size, ours.description, ours.data_family) == (
             ref.batch_size, ref.description, ref.data_family), name
         assert ours.resolved_data_family == ref.resolved_data_family == "mnist"

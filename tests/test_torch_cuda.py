@@ -1334,3 +1334,73 @@ def test_cho_solve_by_inverse_on_the_card_is_refined(card):
     err = ((got - ref).abs().max() / scale).item()
     err_lib = ((lib - ref).abs().max() / scale).item()
     assert err <= max(1e-4, 4.0 * err_lib)
+
+
+def _drain(batcher):
+    while True:
+        yield next(batcher)
+
+
+def _syn_data_fit(card, k, path, steps=50):
+    """``syn_data`` at its widths, ``k`` steps a call, from seed-0 weights
+    on a seed-0 Batcher (or a plain iterator of its batches)."""
+    preset = configs.get("syn_data")
+    data = toy_to_masked_batch(generate_toy_data(np.random.default_rng(0),
+                                                 200))
+    model = GPVAE(preset.model, generator=torch.Generator().manual_seed(0))
+    batcher = Batcher(data, preset.batch_size, seed=0)
+    before = (gram_chol.LAUNCHES, tri_inv.LAUNCHES)
+    state, log = train.fit(
+        model, batcher if path == "batcher" else _drain(batcher),
+        train.TrainConfig(num_steps=steps, log_every=25,
+                          beta=preset.train.beta, steps_per_call=k),
+        device=card, verbose=False)
+    launches = (gram_chol.LAUNCHES - before[0], tri_inv.LAUNCHES - before[1])
+    params = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    return state.step, [(r["step"], r["loss"]) for r in log.rows], params, \
+        launches
+
+
+@pytest.mark.parametrize("path", ["batcher", "iterator"])
+def test_k_step_fit_equals_k1_bit_for_bit_on_the_card(card, path):
+    """The same kernels in the same order with the same generator: every
+    logged loss and parameter of k=25 equals k=1's, and each run launches
+    one ``gram_chol`` and two ``tri_inv`` a step."""
+    ref = _syn_data_fit(card, 1, "batcher")
+    got = _syn_data_fit(card, 25, path)
+    assert got[0] == ref[0] == 50
+    assert got[1] == ref[1] and [s for s, _ in got[1]] == [25, 50]
+    assert torch.equal(got[2], ref[2])
+    assert got[3] == ref[3] == (50, 100)
+
+
+def test_world_of_one_nccl_step_equals_train_step(card, tmp_path):
+    """``make_parallel_train_step`` on a world of one rank (NCCL, a file
+    store) against ``train_step`` on the same batch and noise: the
+    all-reduce over one rank is the identity, so bit for bit."""
+    from gpvae_tpu_torch.parallel import mesh as mesh_lib
+
+    preset = configs.get("syn_data")
+    data = toy_to_masked_batch(generate_toy_data(np.random.default_rng(1),
+                                                 20))
+    states = []
+    for _ in range(2):
+        model = GPVAE(preset.model,
+                      generator=torch.Generator().manual_seed(0))
+        states.append(train.create_train_state(model, train.TrainConfig(),
+                                               card))
+    want = train.train_step(states[0], train.device_arrays(data, card), 1e-3)
+    mesh_lib.init_process_group(str(tmp_path / "store"), 0, 1, "cuda")
+    try:
+        mesh = mesh_lib.make_mesh(devices=[card])
+        mesh_lib.replicate(states[1], mesh)
+        _, got = mesh_lib.make_parallel_train_step(
+            lambda step: 1e-3, mesh)(states[1],
+                                     mesh_lib.shard_batch(data, mesh))
+    finally:
+        torch.distributed.destroy_process_group()
+    for key in ("loss", "nll", "kl"):
+        assert torch.equal(got[key], want[key]), key
+    for p, q in zip(states[1].model.parameters(),
+                    states[0].model.parameters()):
+        assert torch.equal(p, q)

@@ -102,9 +102,7 @@ def test_healing_data_is_bit_identical_to_jax(n, t, size, missing, seed):
 def test_baseline_presets_match_jax(name):
     ours, ref = configs.get(name), jconfigs.get(name)
     assert dataclasses.asdict(ours.model) == dataclasses.asdict(ref.model)
-    train_ref = dataclasses.asdict(ref.train)
-    del train_ref["steps_per_call"]  # the JAX loop's scan length
-    assert dataclasses.asdict(ours.train) == train_ref
+    assert dataclasses.asdict(ours.train) == dataclasses.asdict(ref.train)
     assert (ours.batch_size, ours.description, ours.data_family) == (
         ref.batch_size, ref.description, ref.data_family)
     assert ours.resolved_data_family == ref.resolved_data_family
