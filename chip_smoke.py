@@ -48,8 +48,8 @@ Phases, each printing one line (a failed check exits nonzero at once):
    rows whose last coefficient clamps, against its plain version and
    against autograd of the plain forward, all in float64 (random
    cotangents on all three outputs, and on each alone at the preset's and
-   the clamped rows).  Every L and L^-1 has an exactly zero strict upper
-   triangle;
+   the clamped rows; above T=4096 in phase 6).  Every L and L^-1 has an
+   exactly zero strict upper triangle;
 4. main paths, each with every kernel counter set to 0 just before it and
    read just after (and no call of ``torch.linalg.cholesky`` or
    ``solve_triangular`` in between), and the trained model's ELBO and
@@ -127,6 +127,17 @@ Phases, each printing one line (a failed check exits nonzero at once):
       the same global batch and noise, then 10 steps at k=1 and 10 at k=5
       (equal bit for bit), ``TOEP_LAUNCHES`` exactly a step, and the peak
       of ``utils.device_memory_stats``;
+   m. ``t1024_toeplitz``'s model at T=8192 (``--time-len 8192``, the
+      posterior bank [1, 2, 8192, 8192] in 64 column blocks; the Durbin
+      kernels' long route), fully observed toy sequences on the unit grid
+      0 .. 8191, 10 steps with the fixed prior and 10 with
+      ``learn_prior_lengthscales``: exactly ``toeplitz_launches(8192)`` a
+      step (one ``durbin`` call, its 257 kernels, and one ``durbin_bwd``
+      call, its 514, with the learned prior), no other kernel; the prior KL against the dense prior's on
+      a batch of 2 (as in i.; a float64 ELBO on the CPU at T=8192 would
+      take minutes); ``evaluate`` of the fixed prior's checkpoint on one
+      sequence (64 ``hist_panel``, 64 ``chol_block``, 63
+      ``panel_solve``, the library's solve) against the CPU in float64;
    f. ``ops.chol.cholesky(method="blocked_fused")`` of a pre-built bank
       at T=1024, N=128, forward and backward: exactly 8 ``chol_block``
       (7 with L^-1), 7 ``trail_panel`` and 7 ``trail_update`` launches,
@@ -157,11 +168,22 @@ Phases, each printing one line (a failed check exits nonzero at once):
    evaluate call, its prior KL by both routes, the posterior bank's
    kernels at N=2, T=1024, and the Durbin kernel at T=1024 and 4096
    beside its plain version, the library's dense Cholesky and logdet, its
-   bound and its chain floor; its reverse beside ``durbin_bwd_plain``,
+   bound and its chain floor, and on its long route at T in {8192, 16384,
+   65536} (the reverse to 16384; there the plain versions' times are
+   phase 6's); its reverse beside ``durbin_bwd_plain``,
    autograd of the plain forward, the library's autograd of the dense
    Cholesky and logdet, its bound and its chain floor; the learned
-   prior's steps/s and device µs a step; ``syn_data``'s steps/s at k=1
-   and at k=25, in turns.
+   prior's steps/s and device µs a step, and both at T=8192 (4m);
+   ``syn_data``'s steps/s at k=1 and at k=25, in turns.
+6. the Durbin kernels' long route (above T=4096) against their plain
+   versions in float64 on the card, after every profiled window of phase
+   5 (the plain versions' millions of eager launches stay out of the
+   windows the profiler reads): the forward at T in ``DURBIN_LONG_TS``
+   (4097 to 65536) on the preset's rows, the reverse at 8192 on them, at
+   4097 on a clamped row and at 16384 on a near-singular one, and the
+   logdet against the library's dense float64 Cholesky on the card at
+   8192 and 16384; each call's kernels counted exactly
+   (:func:`durbin_kernels`); each plain call timed once.
 
 Then one JSON line with the kernels' results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -360,7 +382,8 @@ TOEP_WINDOW = 10
 # backward's flat tri_inv (1), the prior's Durbin recursion (1); no prior
 # factorization and no tri_inv of L_p
 TOEP_LAUNCHES = {"gram_panel": 8, "chol_block": 8, "panel_solve": 7,
-                 "diag_logdet": 1, "tri_inv": 1, "durbin": 1}
+                 "diag_logdet": 1, "tri_inv": 1, "durbin": 1,
+                 "durbin_kernels": 1}
 # the Durbin kernel against its float64 plain version on the same float64
 # inputs: logdet and e relative, a and b over max |a|
 DURBIN_REL = 1e-9
@@ -375,7 +398,33 @@ DURBIN_TS = (2, 3, 33, TOEP_T, TOEP_T + 1, 4096)
 DURBIN_BWD_REL = 1e-9
 # the learnable Toeplitz prior (phase 4j): t1024_toeplitz's model with
 # learn_prior_lengthscales; a step adds the reverse kernel's one launch
-TOEP_LEARN_LAUNCHES = {**TOEP_LAUNCHES, "durbin_bwd": 1}
+TOEP_LEARN_LAUNCHES = {**TOEP_LAUNCHES, "durbin_bwd": 1,
+                       "durbin_bwd_kernels": 1}
+# the Durbin kernels' long route (above T = 4096: a window of 32 steps a
+# launch).  Phase 3: the forward against its plain version at
+# DURBIN_LONG_TS on the preset's rows (Z=2; at DURBIN_NEAR_T on the
+# near-singular row below instead), the reverse against
+# durbin_bwd_plain and autograd at DURBIN_LONG_BWD_TS on them, at 4097 on
+# a clamped row and at 16384 on a near-singular one (lengthscale 64 on the
+# unit grid, Z=1: autograd of the plain forward keeps ~17 GB a row
+# there), and the logdet against the library's dense float64 Cholesky on
+# the card at DURBIN_DENSE_TS; bands DURBIN_REL and DURBIN_BWD_REL
+DURBIN_LONG_TS = (4097, 8192, 16384, 65536)
+DURBIN_LONG_BWD_TS = (8192,)
+DURBIN_DENSE_TS = (8192, 16384)
+# T=16384 is held on the near-singular row alone (forward, reverse, dense)
+DURBIN_NEAR_T = 16384
+# t1024_toeplitz's model at T=8192 (phase 4m): the CLI's toy_full
+# sequences at --time-len 8192, the posterior bank [1, 2, 8192, 8192] in
+# 64 column blocks; steps of each training run (the fixed prior and the
+# learned one), the sequences they draw from, steps in each timed window
+# (phase 5), and the sequences its evaluate call generates (the CLI
+# scores the last 10%: one, --eval-batch 1)
+TOEP_LONG_T = 8192
+TOEP_LONG_STEPS = 10
+TOEP_LONG_SEQS = 32
+TOEP_LONG_WINDOW = 3
+TOEP_LONG_EVAL_SEQS = 10
 # multi-step training (phase 4k): steps a run and the steps a call of
 # the k-step runs, each held bit for bit against a k=1 run from the same
 # seed and data, on syn_data's widths and on t1024_toeplitz's; launches
@@ -436,8 +485,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+# the script's start, for each phase line's "seconds" since it
+T_START = time.perf_counter()
+
+
 def phase(label: str, **fields) -> None:
-    print(json.dumps({"phase": label, **fields}), flush=True)
+    print(json.dumps({"phase": label, **fields,
+                      "t_seconds": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def kernel_name(mangled: str) -> str:
@@ -605,7 +660,21 @@ def counters():
             "trail_panel": (trail, "PANEL_LAUNCHES"),
             "trail_update": (trail, "UPDATE_LAUNCHES"),
             "durbin": (durbin, "LAUNCHES"),
-            "durbin_bwd": (durbin, "BWD_LAUNCHES")}
+            "durbin_bwd": (durbin, "BWD_LAUNCHES"),
+            # the kernels those calls launched (the long route's windows)
+            "durbin_kernels": (durbin, "KERNEL_LAUNCHES"),
+            "durbin_bwd_kernels": (durbin, "BWD_KERNEL_LAUNCHES")}
+
+
+def durbin_kernels(t, bwd=False) -> int:
+    """The kernels one call of the Durbin recursion launches at sequence
+    length ``t`` (``bwd``: its reverse): one up to T = 4096; above it one
+    a window of 32 steps and a finishing one, and in reverse two a window,
+    a starting and a finishing one."""
+    if t <= 4096:
+        return 1
+    windows = -(-(t - 1) // 32)
+    return 2 * windows + 2 if bwd else windows + 1
 
 
 def reset_counts() -> None:
@@ -1481,24 +1550,37 @@ def cli_row(t, ls, dtype, dev, step=None):
         t, step, torch.tensor(ls, dtype=dtype, device=dev), dtype=dtype)
 
 
-def check_durbin_case(label, row64) -> dict:
+def check_durbin_case(label, row64, plain_ms=None) -> dict:
     """``toeplitz.durbin_gs_factors`` of float64 rows on the card: through
-    the Durbin kernel (exactly one launch) against its plain version on
-    the same inputs (``plain_versions``), both in float64.  logdet over
-    max(|logdet|, 1) (a T=2 row on a coarse grid has logdet ~ 0), e
-    relative, a and b over max |a|; fails past ``DURBIN_REL``."""
+    the Durbin kernel (exactly one call, :func:`durbin_kernels` kernels)
+    against its plain version on the same inputs (``plain_versions``),
+    both in float64.  logdet over max(|logdet|, 1) (a T=2 row on a coarse
+    grid has logdet ~ 0), e relative, a and b over max |a|; fails past
+    ``DURBIN_REL``.  With ``plain_ms`` (a dict), the plain call's
+    CUDA-event time goes into it under ``label``."""
     import torch
 
     from gpvae_tpu_torch import toeplitz
     from gpvae_tpu_torch.ops import durbin
 
-    before = durbin.LAUNCHES
+    before = durbin.LAUNCHES, durbin.KERNEL_LAUNCHES
     ld, a, b, e = toeplitz.durbin_gs_factors(row64)
     torch.cuda.synchronize()
-    if durbin.LAUNCHES - before != 1:
-        fail(f"durbin {label}: {durbin.LAUNCHES - before} launches, not 1")
+    got = durbin.LAUNCHES - before[0], durbin.KERNEL_LAUNCHES - before[1]
+    want = 1, durbin_kernels(row64.shape[1])
+    if got != want:
+        fail(f"durbin {label}: {got} calls and kernels, not {want}")
     with plain_versions():
-        ld0, a0, b0, e0 = toeplitz.durbin_gs_factors(row64)
+        if plain_ms is None:
+            ld0, a0, b0, e0 = toeplitz.durbin_gs_factors(row64)
+        else:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ld0, a0, b0, e0 = toeplitz.durbin_gs_factors(row64)
+            stop.record()
+            stop.synchronize()
+            plain_ms[label] = start.elapsed_time(stop)
     scale = a0.abs().max()
     err = {"logdet_rel": ((ld - ld0).abs() / ld0.abs().clamp(min=1.0)
                           ).max().item(),
@@ -1509,6 +1591,26 @@ def check_durbin_case(label, row64) -> dict:
         if not (math.isfinite(v) and v <= DURBIN_REL):
             fail(f"durbin {label} vs its float64 plain version: {k} "
                  f"{v:.3e} > {DURBIN_REL:.1e}")
+    return err
+
+
+def check_durbin_dense(label, row64) -> float:
+    """``toeplitz.durbin_logdet`` of float64 rows ``[Z, T]`` on the card
+    (the Durbin kernel) against the logdet of the library's float64
+    Cholesky of the dense matrices on the card, over max(|logdet|, 1);
+    fails past ``DURBIN_REL``."""
+    import torch
+
+    from gpvae_tpu_torch import kernels as kernels_lib
+    from gpvae_tpu_torch import toeplitz
+
+    ld = toeplitz.durbin_logdet(row64)
+    l = torch.linalg.cholesky(kernels_lib.toeplitz_to_dense(row64))
+    ref = 2.0 * torch.diagonal(l, dim1=-2, dim2=-1).log().sum(-1)
+    err = ((ld - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+    if not (math.isfinite(err) and err <= DURBIN_REL):
+        fail(f"durbin {label}: logdet vs the dense float64 Cholesky's "
+             f"{err:.3e} > {DURBIN_REL:.1e}")
     return err
 
 
@@ -1529,15 +1631,17 @@ def clamped_rows(t, dev, target=1.5):
     return rho.to(dev)
 
 
-def check_durbin_bwd_case(label, rho, alone=False) -> dict:
-    """The reverse kernel (``durbin_bwd_kernel``, one launch a call) on the
+def check_durbin_bwd_case(label, rho, alone=False, plain_ms=None) -> dict:
+    """The reverse kernel (one call, :func:`durbin_kernels` kernels) on the
     forward kernel's kept steps of ``rho [N, T-1]`` (float64, on the card)
     against ``durbin_bwd_plain`` on the same steps and against autograd of
     ``durbin_plain`` on the card, with random cotangents on all three
     outputs (with ``alone`` also on each output alone, the others
     ``None``); max error over max |reference| within ``DURBIN_BWD_REL``.
     The forward that keeps its steps gives the same outputs as the one
-    that does not."""
+    that does not.  With ``plain_ms`` (a dict), the CUDA-event time of
+    ``durbin_bwd_plain`` on all three cotangents goes into it under
+    ``label``."""
     import torch
 
     from gpvae_tpu_torch.ops import durbin
@@ -1561,13 +1665,23 @@ def check_durbin_bwd_case(label, rho, alone=False) -> dict:
     outs = durbin.durbin_plain(r)
     err = {}
     for name, cot in sets.items():
-        before = durbin.BWD_LAUNCHES
+        before = durbin.BWD_LAUNCHES, durbin.BWD_KERNEL_LAUNCHES
         got = durbin.durbin_bwd_cuda(steps, last, *cot)
         torch.cuda.synchronize()
-        if durbin.BWD_LAUNCHES - before != 1:
-            fail(f"durbin_bwd {label}: {durbin.BWD_LAUNCHES - before} "
-                 f"launches, not 1")
+        calls = (durbin.BWD_LAUNCHES - before[0],
+                 durbin.BWD_KERNEL_LAUNCHES - before[1])
+        want = 1, durbin_kernels(t1 + 1, bwd=True)
+        if calls != want:
+            fail(f"durbin_bwd {label}: {calls} calls and kernels, not "
+                 f"{want}")
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
         plain = durbin.durbin_bwd_plain(steps, last, *cot)
+        stop.record()
+        stop.synchronize()
+        if plain_ms is not None and name == "all":
+            plain_ms[label] = start.elapsed_time(stop)
         auto, = torch.autograd.grad(
             sum((o * c).sum() for o, c in zip(outs, cot) if c is not None),
             r, retain_graph=True)
@@ -1605,7 +1719,8 @@ def check_toeplitz_kernels(dev) -> dict:
     ``DURBIN_TS`` on Z=1 and Z=3 rows of the CLI's grid, the
     ``t1024_toeplitz`` prior's own rows (Z=2, lengthscales 9 and 3), and
     two near-singular T=4096 rows (lengthscale 64 on the unit grid, 9 on
-    the grid 0 .. 60: 614 steps); and the Gohberg-Semencul identity ``K
+    the grid 0 .. 60: 614 steps; above T=4096: :func:`check_durbin_long`);
+    and the Gohberg-Semencul identity ``K
     (K^-1 X) = X`` through the FFT route in float32 on the preset's rows
     and the T=4096 ones, against 4x the same route on the CPU in float32
     (``GS_IDENTITY_REL`` at least); the reverse kernel on every one of
@@ -1660,6 +1775,55 @@ def check_toeplitz_kernels(dev) -> dict:
             "durbin_bwd_cases": bwd, "durbin_bwd_band": DURBIN_BWD_REL}
 
 
+def check_durbin_long(dev) -> dict:
+    """Phase 6, the Durbin kernels' long route (above T=4096) against
+    their float64 plain versions on the card: the forward
+    (:func:`check_durbin_case`) at ``DURBIN_LONG_TS`` on the preset's rows
+    (Z=2, lengthscales 9 and 3), the reverse
+    (:func:`check_durbin_bwd_case`) at ``DURBIN_LONG_BWD_TS`` on them and
+    on a clamped row at T=4097, both on a near-singular row at
+    ``DURBIN_NEAR_T`` (lengthscale 64 on the unit grid), and the logdet
+    against the dense float64 Cholesky's at ``DURBIN_DENSE_TS``
+    (:func:`check_durbin_dense`).  Run after phase 5's profiled windows.
+    Returns the worst errors, each case's, and the plain calls' times
+    (``plain_ms``: ms of each case's one plain call, by CUDA events)."""
+    import torch
+
+    f64 = torch.float64
+    cases, bwd, dense = {}, {}, {}
+    plain_ms = {"forward": {}, "reverse": {}}
+    for t in DURBIN_LONG_TS:
+        if t == DURBIN_NEAR_T:
+            continue
+        label = f"T={t} t1024_toeplitz prior rows"
+        row = cli_row(t, (9.0, 3.0), f64, dev)
+        cases[label] = check_durbin_case(label, row, plain_ms["forward"])
+        if t in DURBIN_LONG_BWD_TS:
+            bwd[label] = check_durbin_bwd_case(
+                label, (row[:, 1:] / row[:, :1]).contiguous(),
+                plain_ms=plain_ms["reverse"])
+        if t in DURBIN_DENSE_TS:
+            dense[label] = check_durbin_dense(label, row)
+    t = DURBIN_LONG_TS[0]
+    bwd[f"T={t} clamped"] = check_durbin_bwd_case(f"T={t} clamped",
+                                                  clamped_rows(t, dev))
+    t = DURBIN_NEAR_T
+    label = f"T={t} l=64 unit grid"
+    near = cli_row(t, (64.0,), f64, dev, step=1.0)
+    cases[label] = check_durbin_case(label, near, plain_ms["forward"])
+    bwd[label] = check_durbin_bwd_case(
+        label, (near[:, 1:] / near[:, :1]).contiguous(),
+        plain_ms=plain_ms["reverse"])
+    dense[label] = check_durbin_dense(label, near)
+    return {"durbin_long": max(max(v.values()) for v in cases.values()),
+            "durbin_long_cases": cases,
+            "durbin_bwd_long": max(max(v.values()) for v in bwd.values()),
+            "durbin_bwd_long_cases": bwd,
+            "durbin_logdet_vs_dense_fp64": dense,
+            "durbin_band": DURBIN_REL, "durbin_bwd_band": DURBIN_BWD_REL,
+            "plain_ms": plain_ms}
+
+
 def toy_batch(seed, b, t):
     import numpy as np
 
@@ -1667,6 +1831,32 @@ def toy_batch(seed, b, t):
 
     return toy_to_masked_batch(generate_toy_data(np.random.default_rng(seed),
                                                  b, t=t))
+
+
+@functools.lru_cache(maxsize=1)
+def toy_unit_sequences(t) -> dict:
+    """``TOEP_LONG_SEQS`` + 10 fully observed toy sequences from seed 0 on
+    the unit grid 0 .. t-1, exact in float32: the Toeplitz prior's grid
+    check (steps equal within 1e-4) holds at any T.  The CLI's grid 0 ..
+    60 fails it in float32 at many T from 2221 up (at T=8192 its steps
+    lie in [0.0073242, 0.0073280]), in the JAX package as in the port.
+    Drawn once: at T=8192 a draw factors two dense [T, T] grams."""
+    import numpy as np
+
+    from gpvae_tpu_torch.data import generate_toy_data, toy_to_masked_batch
+
+    return toy_to_masked_batch(generate_toy_data(
+        np.random.default_rng(0), TOEP_LONG_SEQS + 10, t=t,
+        xmax=float(t - 1), hide_fraction=0.0))
+
+
+def toy_unit_batch(part, t) -> dict:
+    """Of :func:`toy_unit_sequences`: ``"train"``, the first
+    ``TOEP_LONG_SEQS``; ``"probe"``, the next 8; ``"kl"``, the last 2."""
+    n = TOEP_LONG_SEQS
+    rows = {"train": slice(0, n), "probe": slice(n, n + 8),
+            "kl": slice(n + 8, n + 10)}[part]
+    return {k: v[rows] for k, v in toy_unit_sequences(t).items()}
 
 
 def toy_full_batch(seed, b, t):
@@ -1992,16 +2182,17 @@ def main_path(dev, name, t, steps, num_seqs, window, ckpt_dir, *, kl_band,
     return out, time_path(fit_more, window)
 
 
-def eval_batch(preset_name, t, eval_b):
+def eval_batch(preset_name, t, eval_b, n=None):
     """The sequences ``evaluate --seed 0`` scores: the first ``eval_b`` of
-    the last 10% of its ``EVAL_SEQS`` sequences (``__main__.py``): toy
+    the last 10% of its ``n`` sequences (by default the preset's
+    ``EVAL_SEQS``; ``__main__.py``): toy
     sequences (fully observed for the ``toy_full`` family), synthetic
     healing sequences, or the test split of synthetic Moving-MNIST
     videos."""
     from gpvae_tpu_torch import configs
     from gpvae_tpu_torch.data import MovingMNIST, synthetic_moving_mnist
 
-    n = EVAL_SEQS[preset_name]
+    n = EVAL_SEQS[preset_name] if n is None else n
     family = configs.get(preset_name).resolved_data_family
     if family == "mnist":
         test = MovingMNIST(data=synthetic_moving_mnist(
@@ -2033,7 +2224,8 @@ def restored_model(preset_name, t, ckpt_dir, dev):
 
 
 def evaluate_path(dev, preset_name, t, eval_b, ckpt_dir, *, needs,
-                  absent=(), exact=None, library=()) -> tuple[dict, dict]:
+                  absent=(), exact=None, library=(),
+                  num_seqs=None) -> tuple[dict, dict]:
     """``python -m gpvae_tpu_torch evaluate`` through ``__main__.main`` on
     the checkpoint of ``ckpt_dir``, with every counter set to 0 just
     before and read just after (each of ``exact`` launched exactly that
@@ -2046,15 +2238,17 @@ def evaluate_path(dev, preset_name, t, eval_b, ckpt_dir, *, needs,
     ``imputation_metrics``, with the same kept mask and baseline noise on
     both sides, and the restored model's posterior mean held to
     ``IMPUTE_MEAN_REL`` of its largest entry, or 4x the CPU's float32
-    error.
+    error.  ``num_seqs`` is the CLI's ``--num-seqs`` (the preset's
+    ``EVAL_SEQS`` by default).
     Returns the phase fields and what phase 5 needs to time the path."""
     import torch
 
     from gpvae_tpu_torch import analysis, configs
     from gpvae_tpu_torch.__main__ import main as cli
 
+    num_seqs = EVAL_SEQS[preset_name] if num_seqs is None else num_seqs
     argv = ["evaluate", "--preset", preset_name, "--time-len", str(t),
-            "--num-seqs", str(EVAL_SEQS[preset_name]), "--eval-batch",
+            "--num-seqs", str(num_seqs), "--eval-batch",
             str(eval_b), "--ckpt-dir", ckpt_dir, "--seed", "0"]
     out = io.StringIO()
     torch.cuda.reset_peak_memory_stats()
@@ -2082,7 +2276,7 @@ def evaluate_path(dev, preset_name, t, eval_b, ckpt_dir, *, needs,
 
     # the same restored model and draws on the CPU: the CLI's kept mask and
     # baseline noise come from a CPU generator seeded with --seed 0
-    batch = eval_batch(preset_name, t, eval_b)
+    batch = eval_batch(preset_name, t, eval_b, num_seqs)
     card = restored_model(preset_name, t, ckpt_dir, dev)
     cpu32 = copy.deepcopy(card).to("cpu")
     cpu64 = copy.deepcopy(cpu32).double()
@@ -2308,6 +2502,15 @@ def zoo_paths(dev, ck: str) -> tuple[dict, dict]:
              "ValueError")
     phase("evaluate_vanilla_vae", raised=VANILLA_EVAL_ERROR)
     return paths, timing
+
+
+def toeplitz_launches(t) -> dict:
+    """A ``t1024_toeplitz`` training step's launches at sequence length
+    ``t`` (a multiple of 128): ``TOEP_LAUNCHES`` with the posterior bank's
+    T / 128 column blocks and the Durbin call's kernels at ``t``."""
+    blocks = t // 128
+    return {**TOEP_LAUNCHES, "gram_panel": blocks, "chol_block": blocks,
+            "panel_solve": blocks - 1, "durbin_kernels": durbin_kernels(t)}
 
 
 def exact_launches(label, launches, per_step, steps) -> None:
@@ -2550,14 +2753,16 @@ def prior_kl(model, mean, aux, times, route):
     return gp.gp_kl(mean, aux["l_q"], l_p, logdet_q=aux["ld_q"])
 
 
-def toeplitz_kl_inputs(model, device, dtype, seed=15) -> tuple:
+def toeplitz_kl_inputs(model, device, dtype, seed=15, b=TOEP_B,
+                       batch_fn=None) -> tuple:
     """The trained model on ``device`` in ``dtype``, and the encoder's
-    means, ``chol_banks`` (with logdets) and times of a batch of B=8 fully
-    observed toy sequences from ``seed``."""
+    means, ``chol_banks`` (with logdets) and times of a batch of ``b``
+    fully observed toy sequences from ``seed`` at the model's length
+    (``batch_fn``'s, by default :func:`toy_full_batch`'s)."""
     import torch
 
     m = copy.deepcopy(model).to(device=device, dtype=dtype)
-    batch = toy_full_batch(seed, TOEP_B, TOEP_T)
+    batch = (batch_fn or toy_full_batch)(seed, b, model.config.time_len)
     x = torch.tensor(batch["x"], dtype=dtype, device=device)
     times = torch.tensor(batch["times"], dtype=dtype, device=device)
     with torch.no_grad():
@@ -2566,11 +2771,14 @@ def toeplitz_kl_inputs(model, device, dtype, seed=15) -> tuple:
     return m, mean, aux, times
 
 
-def toeplitz_vs_dense(model, dev) -> tuple[dict, dict]:
-    """The Toeplitz prior KL against the dense prior's on one batch
-    (:func:`prior_kl`): on the card in float32, max over [B, Z] of
+def toeplitz_vs_dense(model, dev, b=TOEP_B, batch_fn=None,
+                      fp64=True) -> tuple[dict, dict]:
+    """The Toeplitz prior KL against the dense prior's on one batch of
+    ``b`` (``batch_fn``'s, :func:`toeplitz_kl_inputs`; :func:`prior_kl`):
+    on the card in float32, max over [B, Z] of
     |difference| / |dense| within ``TOEP_KL_VS_DENSE`` or 4x the same gap
-    on the CPU in float32; each route against the CPU's dense KL in
+    on the CPU in float32; with ``fp64`` (the CPU's float64 side, ~20 s
+    of host time at T=8192) each route against the CPU's dense KL in
     float64, and beside them the card's Toeplitz route on its float32
     means and factor cast to float64 (its row and FFTs in float64).
     Returns the fields and what phase 5 needs to time both routes."""
@@ -2584,32 +2792,36 @@ def toeplitz_vs_dense(model, dev) -> tuple[dict, dict]:
     def gap(toep, dense):
         return ((toep - dense).abs() / dense.abs()).max().item()
 
-    inputs = toeplitz_kl_inputs(model, dev, torch.float32)
+    inputs = toeplitz_kl_inputs(model, dev, torch.float32, b=b,
+                                batch_fn=batch_fn)
     card = kls(*inputs)
-    cpu32, cpu64 = (kls(*toeplitz_kl_inputs(model, "cpu", dtype))
-                    for dtype in (torch.float32, torch.float64))
-    # the card's Toeplitz route on its own float32 means and factor, cast
-    # to float64 (the factorization kernels take float32 only): the row
-    # and cuFFT in float64
-    m, mean, aux, times = inputs
-    with torch.no_grad():
-        card64 = prior_kl(m, mean.double(),
-                          {k: v.double() for k, v in aux.items()},
-                          times.double(), "toeplitz").cpu()
+    cpu32 = kls(*toeplitz_kl_inputs(model, "cpu", torch.float32, b=b,
+                                    batch_fn=batch_fn))
     err, err_cpu = gap(*card), gap(*cpu32)
     band = max(TOEP_KL_VS_DENSE, ELBO_VS_LIBRARY * err_cpu)
     if not (math.isfinite(err) and err <= band):
         fail(f"the Toeplitz prior KL vs the dense one on the card: {err:.3e} "
              f"> {band:.3e} (CPU float32 {err_cpu:.3e})")
-    ref = cpu64[1]
     fields = {"toeplitz_vs_dense_rel": err, "band": band,
-              "cpu_float32_toeplitz_vs_dense_rel": err_cpu,
-              "cpu_float64_toeplitz_vs_dense_rel": gap(*cpu64),
-              "card_toeplitz_vs_fp64_dense_rel": gap(card[0], ref),
-              "card_dense_vs_fp64_dense_rel": gap(card[1], ref),
-              "card_toeplitz_fft_float64_vs_fp64_dense_rel": gap(card64,
-                                                                 ref),
-              "kl_fp64": ref.tolist()}
+              "cpu_float32_toeplitz_vs_dense_rel": err_cpu}
+    if fp64:
+        cpu64 = kls(*toeplitz_kl_inputs(model, "cpu", torch.float64, b=b,
+                                        batch_fn=batch_fn))
+        # the card's Toeplitz route on its own float32 means and factor,
+        # cast to float64 (the factorization kernels take float32 only):
+        # the row and cuFFT in float64
+        m, mean, aux, times = inputs
+        with torch.no_grad():
+            card64 = prior_kl(m, mean.double(),
+                              {k: v.double() for k, v in aux.items()},
+                              times.double(), "toeplitz").cpu()
+        ref = cpu64[1]
+        fields.update({
+            "cpu_float64_toeplitz_vs_dense_rel": gap(*cpu64),
+            "card_toeplitz_vs_fp64_dense_rel": gap(card[0], ref),
+            "card_dense_vs_fp64_dense_rel": gap(card[1], ref),
+            "card_toeplitz_fft_float64_vs_fp64_dense_rel": gap(card64, ref),
+            "kl_fp64": ref.tolist()})
     return fields, {"inputs": inputs}
 
 
@@ -2707,6 +2919,72 @@ def learnable_toeplitz_path(dev, ck: str) -> tuple[dict, dict]:
             "panel_solve": blocks - 1, "tri_inv": 1})
     return {f"{name}_learned_prior": out,
             f"evaluate_{name}_learned_prior": ev}, timing
+
+
+def toeplitz_long_path(dev, ck: str) -> tuple[dict, dict]:
+    """Phase 4m: ``t1024_toeplitz``'s model at T=8192 (the CLI's
+    ``--time-len 8192``; B=8, Z=2, the posterior bank [1, 2, 8192, 8192]
+    in 64 column blocks), on the Durbin kernels' long route, trained on
+    fully observed toy sequences on the unit grid (:func:`toy_unit_batch`:
+    the CLI's grid 0 .. 60 fails the prior's grid check at this T):
+    ``TOEP_LONG_STEPS`` steps with the fixed prior and as many with
+    ``learn_prior_lengthscales``, each exactly ``toeplitz_launches(8192)``
+    a step (and one ``durbin_bwd`` with the learned prior), no other
+    kernel; the learned ``prior_log_ls`` moves and stays finite; the
+    fixed-prior model's prior KL against the dense prior's on a batch of
+    2 (:func:`toeplitz_vs_dense`: a float64 ELBO on the CPU at T=8192
+    would take minutes); each run timed; then ``evaluate`` of the fixed
+    prior's checkpoint on one sequence (``--eval-batch 1``): 64
+    ``hist_panel``, 64 ``chol_block``, 63 ``panel_solve`` and the
+    library's triangular solve (above ``trsm.INV_ROUTE_MAX_T``), metrics
+    and posterior mean against the CPU in float64; evaluate draws the
+    CLI's own sequences (grid 0 .. 60: the GP-posterior imputation checks
+    no grid).  Returns the phase fields and the timing."""
+    import torch
+
+    from gpvae_tpu_torch.data import Batcher
+    from gpvae_tpu_torch.ops import blocked, trsm
+
+    name, t = "t1024_toeplitz", TOEP_LONG_T
+    paths, timing = {}, {}
+    for learned in (False, True):
+        key = f"{name}_T{t}" + ("_learned_prior" if learned else "")
+        ckpt_dir = os.path.join(ck, key)
+        model, out, fit_more = train_path(
+            dev, name, t, TOEP_LONG_STEPS, None, ckpt_dir,
+            data=(Batcher(toy_unit_batch("train", t), TOEP_B, seed=0),
+                  toy_unit_batch("probe", t)),
+            overrides={"learn_prior_lengthscales": True} if learned
+            else None)
+        exact_launches(key, out["launches"], toeplitz_launches(t) | (
+            {"durbin_bwd": 1, "durbin_bwd_kernels": durbin_kernels(t, True)}
+            if learned else {}), TOEP_LONG_STEPS)
+        if learned:
+            log_ls = model.prior_log_ls.detach().cpu()
+            start = torch.log(torch.tensor([9.0, 3.0]))
+            if not (torch.isfinite(log_ls).all()
+                    and (log_ls - start).abs().max() > 0):
+                fail(f"{key}: prior_log_ls {log_ls.tolist()} did not move "
+                     f"or is not finite")
+            out["lengthscale_prior"] = torch.exp(log_ls).tolist()
+        else:
+            out["prior_kl_vs_dense"], _ = toeplitz_vs_dense(
+                model, dev, b=2, fp64=False,
+                batch_fn=lambda seed, b, t: toy_unit_batch("kl", t))
+            fixed_dir = ckpt_dir
+        phase("toeplitz_long_path", **out)
+        paths[key] = out
+        timing[key] = time_path(fit_more, TOEP_LONG_WINDOW, windows=3)
+    blocks = t // blocked.NB
+    inverse_route = t <= trsm.INV_ROUTE_MAX_T
+    paths[f"evaluate_{name}_T{t}"], _ = evaluate_path(
+        dev, name, t, 1, fixed_dir, needs=(),
+        exact={k: 0 for k in read_counts()} | {
+            "hist_panel": blocks, "chol_block": blocks,
+            "panel_solve": blocks - 1, "tri_inv": int(inverse_route)},
+        library=() if inverse_route else ("solve_triangular",),
+        num_seqs=TOEP_LONG_EVAL_SEQS)
+    return paths, timing
 
 
 def drain(batcher):
@@ -3574,22 +3852,29 @@ def time_healing_fitc_kernels(dev) -> dict:
 
 def time_durbin(dev) -> dict:
     """The Durbin kernel at the ``t1024_toeplitz`` prior's rows (Z=2,
-    T=1024) and at T=4096 (Z=2): CUDA-event time and the card's own time
-    per call, without and with its kept steps (a learned prior's); its
-    plain version (T - 1 steps of about 14 PyTorch ops, one timed call,
-    one profiled); the library's ``torch.linalg.cholesky`` and logdet of the
-    dense ``[Z, T, T]`` Toeplitz matrices (float32, pre-built); the bound,
+    T=1024) and at T in {4096, 8192, 16384, 65536} (Z=2; above 4096 the
+    long route, a window of 32 steps a launch): CUDA-event time and the
+    card's own time per call, without and with its kept steps (a learned
+    prior's); its plain version (T - 1 steps of about 14 PyTorch ops, one
+    timed call, one profiled; above T=4096 its time is phase 6's, filled
+    in by the caller); the library's ``torch.linalg.cholesky`` and
+    logdet of the dense ``[Z, T, T]`` Toeplitz matrices (float32,
+    pre-built; up to T=16384, where they fit, and above T=4096 one timed
+    call after one warm-up, not profiled); the bound,
     bytes (rho read, y, the logdet and e written, float64) over the memory
     rate or classical Durbin's 2 T^2 flops a row (Golub and Van Loan, Alg.
     4.7.1) over the float64 peak; and the chain floor,
     ``durbin_chain_kernel``'s T - 1 barriers and broadcasts at the same
-    block size, measured.
+    block size (above T=4096 the long route's launches with each window's
+    steps as dependent shuffles), measured.
 
-    Its reverse (``bwd_T*``) on the same rows, random cotangents on all
-    three outputs: the kernel; ``durbin_bwd_plain`` and autograd of
-    ``durbin_plain`` (forward and backward), one timed call each, profiled
-    at T=1024 only (at T=4096 a profiled window of their ~10^5 launches
-    costs minutes of host time); the library's autograd of
+    Its reverse (``bwd_T*``) on the same rows up to T=16384, random
+    cotangents on all three outputs: the kernel; up to T=4096
+    ``durbin_bwd_plain`` and autograd of ``durbin_plain`` (forward and
+    backward), one timed call each (above it phase 6's), profiled at
+    T=1024 only (at T=4096 a profiled window
+    of their ~10^5 launches costs minutes of host time); the library's
+    autograd of
     the dense ``cholesky`` and logdet (float32, forward and backward);
     the bound, the kept steps and last inputs read and the gradient and
     cotangents moved over the memory rate, or the least flops of the
@@ -3599,7 +3884,8 @@ def time_durbin(dev) -> dict:
     4 T^2 a row, the states taken as given (recovering them, by
     recomputation or by the inverse step this kernel runs, is not billed);
     and its chain floor, ``durbin_bwd_chain_kernel``'s T - 1 warp
-    reductions, barriers and sums of the warps' parts."""
+    reductions, barriers and sums of the warps' parts (above T=4096 the
+    long route's two launches a window, each step a warp reduction)."""
     import torch
 
     from gpvae_tpu_torch import kernels as kernels_lib
@@ -3611,48 +3897,70 @@ def time_durbin(dev) -> dict:
         return {"bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
+    def kernel_window(fn, calls, kernel, label):
+        # a trace that lost launches of the kernel is taken again, up to
+        # three times in all, as in time_kernel
+        for attempt in range(1, 4):
+            prof = device_profile(fn, calls, kernel, label=label)
+            if kernel is None or prof["kernel_seen"] == prof["kernel_counted"]:
+                break
+        return {**prof, "attempts": attempt}
+
     out = {}
-    for t in (TOEP_T, 4096):
+    for t in (TOEP_T, 4096, *DURBIN_LONG_TS[1:]):
+        long = t > 4096  # the long route: many kernels a call
+        fits = t <= DURBIN_DENSE_TS[-1]  # the library's dense [Z, T, T]
+        calls = 5 if long else PROFILED_CALLS
         row = cli_row(t, (9.0, 3.0), torch.float32, dev)
         z = row.shape[0]
         rho = (row[:, 1:] / row[:, :1]).double().contiguous()
-        k = kernels_lib.toeplitz_to_dense(row)
+        k = kernels_lib.toeplitz_to_dense(row) if fits else None
 
         def library(k=k):
             l = torch.linalg.cholesky(k)
             return 2.0 * torch.diagonal(l, dim1=-2, dim2=-1).log().sum(-1)
 
-        kern = device_profile(lambda rho=rho: durbin.durbin_cuda(rho),
-                              PROFILED_CALLS, "durbin",
-                              label=f"durbin T={t}")
+        kern = kernel_window(lambda rho=rho: durbin.durbin_cuda(rho),
+                             calls, None if long else "durbin",
+                             f"durbin T={t}")
         chain = device_profile(
             lambda t=t, z=z: durbin.chain_floor_cuda(z, t, dev),
-            PROFILED_CALLS, label=f"durbin chain T={t}")
-        plain = device_profile(lambda rho=rho: durbin.durbin_plain(rho),
-                               label=f"durbin plain T={t}")
-        lib = device_profile(library, PROFILED_CALLS,
-                             label=f"durbin library T={t}")
+            calls, label=f"durbin chain T={t}")
+        plain = (None if long else
+                 device_profile(lambda rho=rho: durbin.durbin_plain(rho),
+                                label=f"durbin plain T={t}"))
+        # above T=4096 the library's call takes 0.1-3 s: one timed call
+        lib = (None if long else
+               device_profile(library, PROFILED_CALLS,
+                              label=f"durbin library T={t}"))
         out[f"T{t}"] = {
             "name": "durbin", "shape": f"Z={z}, T={t} (lengthscales 9, 3)",
             "ms": cuda_ms(lambda rho=rho: durbin.durbin_cuda(rho)),
             "ms_keeping_steps": cuda_ms(
                 lambda rho=rho: durbin.durbin_cuda(rho, save=True)),
             "device_ms": kern["device_us"] / 1e3,
-            "kernel_device_ms": kern["kernel_us"] / 1e3,
-            "kernel_launches_seen": kern["kernel_seen"],
-            "kernel_launches_counted": kern["kernel_counted"],
+            "kernels_per_call": kern["kernels"],
+            "profiled_attempts": kern["attempts"],
+            "kernel_device_ms": None if long else kern["kernel_us"] / 1e3,
+            "kernel_launches_seen": None if long else kern["kernel_seen"],
+            "kernel_launches_counted": (None if long
+                                        else kern["kernel_counted"]),
             "chain_floor_ms": cuda_ms(
                 lambda t=t, z=z: durbin.chain_floor_cuda(z, t, dev)),
             "chain_floor_device_ms": chain["device_us"] / 1e3,
-            "plain_ms": once_ms(lambda rho=rho: durbin.durbin_plain(rho)),
-            "plain_device_ms": plain["device_us"] / 1e3,
-            "plain_kernels_per_call": plain["kernels"],
-            "library_ms": cuda_ms(library), "library_device_ms":
-                lib["device_us"] / 1e3,
+            "plain_ms": (None if long else
+                         once_ms(lambda rho=rho: durbin.durbin_plain(rho))),
+            "plain_device_ms": None if long else plain["device_us"] / 1e3,
+            "plain_kernels_per_call": None if long else plain["kernels"],
+            "library_ms": (None if not fits else once_ms(library) if long
+                           else cuda_ms(library)),
+            "library_device_ms": None if long else lib["device_us"] / 1e3,
             "library": "torch.linalg.cholesky + logdet of the dense "
                        "[Z, T, T] Toeplitz (float32, pre-built)",
             **bound(8.0 * z * (2 * (t - 1) + 2), 2.0 * z * t * t)}
 
+        if t == DURBIN_LONG_TS[-1]:  # the forward only
+            continue
         # the reverse
         gen = torch.Generator(device=dev).manual_seed(t)
         opts = dict(dtype=torch.float64, device=dev, generator=gen)
@@ -3678,38 +3986,43 @@ def time_durbin(dev) -> dict:
             ld = 2.0 * torch.diagonal(l, dim1=-2, dim2=-1).log().sum()
             return torch.autograd.grad(ld, k)
 
-        kern = device_profile(bwd, PROFILED_CALLS, "durbin_bwd",
-                              label=f"durbin_bwd T={t}")
+        kern = kernel_window(bwd, calls, None if long else "durbin_bwd",
+                             f"durbin_bwd T={t}")
         chain = device_profile(
             lambda t=t, z=z: durbin.bwd_chain_floor_cuda(z, t, dev),
-            PROFILED_CALLS, label=f"durbin_bwd chain T={t}")
+            calls, label=f"durbin_bwd chain T={t}")
         profiled = t == TOEP_T
         plain = (device_profile(bwd_plain, label=f"durbin_bwd plain T={t}")
                  if profiled else None)
         auto = (device_profile(autograd_plain,
                                label=f"durbin autograd plain T={t}")
                 if profiled else None)
-        lib = device_profile(library_bwd, PROFILED_CALLS,
-                             label=f"durbin_bwd library T={t}")
+        lib = (None if long else
+               device_profile(library_bwd, PROFILED_CALLS,
+                              label=f"durbin_bwd library T={t}"))
         out[f"bwd_T{t}"] = {
             "name": "durbin_bwd",
             "shape": f"Z={z}, T={t} (lengthscales 9, 3), all three "
                      f"cotangents",
             "ms": cuda_ms(bwd), "device_ms": kern["device_us"] / 1e3,
-            "kernel_device_ms": kern["kernel_us"] / 1e3,
-            "kernel_launches_seen": kern["kernel_seen"],
-            "kernel_launches_counted": kern["kernel_counted"],
+            "kernels_per_call": kern["kernels"],
+            "profiled_attempts": kern["attempts"],
+            "kernel_device_ms": None if long else kern["kernel_us"] / 1e3,
+            "kernel_launches_seen": None if long else kern["kernel_seen"],
+            "kernel_launches_counted": (None if long
+                                        else kern["kernel_counted"]),
             "chain_floor_ms": cuda_ms(
                 lambda t=t, z=z: durbin.bwd_chain_floor_cuda(z, t, dev)),
             "chain_floor_device_ms": chain["device_us"] / 1e3,
-            "plain_ms": once_ms(bwd_plain),
+            "plain_ms": None if long else once_ms(bwd_plain),
             "plain_device_ms": plain["device_us"] / 1e3 if plain else None,
             "plain_kernels_per_call": plain["kernels"] if plain else None,
-            "autograd_plain_ms": once_ms(autograd_plain),
+            "autograd_plain_ms": None if long else once_ms(autograd_plain),
             "autograd_plain_device_ms": (auto["device_us"] / 1e3 if auto
                                          else None),
-            "library_ms": cuda_ms(library_bwd),
-            "library_device_ms": lib["device_us"] / 1e3,
+            "library_ms": once_ms(library_bwd) if long
+                          else cuda_ms(library_bwd),
+            "library_device_ms": None if long else lib["device_us"] / 1e3,
             "library": "autograd of torch.linalg.cholesky + logdet of the "
                        "dense [Z, T, T] Toeplitz (float32, forward and "
                        "backward)",
@@ -3954,6 +4267,7 @@ def run(dev) -> int:
         toep, timing["t1024_toeplitz"], toep_ctx = toeplitz_path(dev, ck)
         learned, timing["t1024_toeplitz_learned_prior"] = (
             learnable_toeplitz_path(dev, ck))
+        toep_long, toep_long_timing = toeplitz_long_path(dev, ck)
         kstep = multistep_paths(dev)
         dp = dp_path(dev, ck)
     paths.update(zoo)
@@ -3961,6 +4275,8 @@ def run(dev) -> int:
     paths.update(sparse)
     paths.update(toep)
     paths.update(learned)
+    paths.update(toep_long)
+    timing.update(toep_long_timing)
     paths.update(kstep)
     paths.update(dp)
     timing.update(zoo_timing)
@@ -3975,6 +4291,10 @@ def run(dev) -> int:
     new_shapes["durbin_T4096"] = durbin_times["T4096"]
     per_kernel["durbin_bwd"] = durbin_times[f"bwd_T{TOEP_T}"]
     new_shapes["durbin_bwd_T4096"] = durbin_times["bwd_T4096"]
+    for key in (f"{pre}T{t}" for t in DURBIN_LONG_TS[1:]
+                for pre in ("", "bwd_")):
+        if key in durbin_times:  # the long route; its reverse to 16384
+            new_shapes[f"durbin_{key}"] = durbin_times[key]
     whole.update(new_shapes)
     timing["prior_kl_t1024_toeplitz"] = time_toeplitz_kl(toep_ctx)
     timing["evaluate_t1024_toeplitz"] = time_evaluate(
@@ -3989,6 +4309,21 @@ def run(dev) -> int:
         lambda: analysis.pixel_imputation_metrics(heal_model,
                                                   heal_ctx["batch"]),
         HEAL_EVAL_B, "the healing evaluate call")
+
+    # -- 6. the Durbin kernels' long route vs plain -----------------------
+    # after every profiled window, so that the plain versions' millions of
+    # eager launches cannot disturb a window the profiler reads
+    long_route = check_durbin_long(dev)
+    phase("durbin_long_vs_plain", **long_route)
+    for t in DURBIN_LONG_TS[1:]:
+        case = (f"T={t} l=64 unit grid" if t == DURBIN_NEAR_T
+                else f"T={t} t1024_toeplitz prior rows")
+        for pre, side in (("", "forward"), ("bwd_", "reverse")):
+            if f"{pre}T{t}" in durbin_times:
+                durbin_times[f"{pre}T{t}"].update(
+                    plain_ms=long_route["plain_ms"][side][case],
+                    plain="one unwarmed call, phase 6's reference on "
+                          + case)
     phase("timing", paths=timing, kernels=per_kernel, whole_functions=whole,
           seconds_so_far=time.perf_counter() - t_start)
 
@@ -4010,8 +4345,9 @@ def run(dev) -> int:
                                 worst_hf["hist_panel_t4096"]),
               "trail_panel": worst_trail["trail_panel_abs"],
               "trail_update": worst_trail["trail_update_abs"],
-              "durbin": worst_toep["durbin"],
-              "durbin_bwd": worst_toep["durbin_bwd"]}
+              "durbin": max(worst_toep["durbin"], long_route["durbin_long"]),
+              "durbin_bwd": max(worst_toep["durbin_bwd"],
+                                long_route["durbin_bwd_long"])}
     ops = "gpvae_tpu/ops/"
     sources = {"gram_chol": ("gram_chol.cu", ops + "pallas_chol.py:673"),
                "tri_inv": ("tri_inv.cu", ops + "pallas_tri.py:39"),

@@ -5,6 +5,7 @@
     python3 durbin_probe.py lags       # GPU: the forward by lags a thread
     python3 durbin_probe.py barrier    # GPU: a barrier step, one late thread
     python3 durbin_probe.py time [ROOT]   # GPU: the forward of a checkout
+    python3 durbin_probe.py routes     # GPU: the long route at T <= 4096
 
 ``accuracy`` runs the plain reverse (``ops.durbin.durbin_bwd_plain``, the
 kernel's arithmetic: every step but the last undone by its inverse) and
@@ -29,10 +30,20 @@ of 7) at Z=2, T in {1024, 4096}, with the package imported from ROOT (a
 checkout of this repository; this one by default): run it on two commits
 in turns, on one card, to compare them.
 
+``routes`` builds ``csrc/durbin.cu`` with ``-DGPVAE_DURBIN_SHORT_MAX_T=1``,
+which sends every T to the long route (a window of 32 steps a launch),
+holds its forward and reverse against the plain versions at T in
+``ROUTE_TS`` (the preset's rows and a clamped row, random cotangents on
+all three outputs), and times both routes' forward and reverse and their
+chain floors at Z=2, T in {1024, 4096}, in turns (one block, long, long,
+one block; CUDA events, median of 7).
+
 Each mode prints one JSON line.
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -130,8 +141,6 @@ def cuda_ms(fn, n=30) -> float:
 def nvcc(source, lib_path, *flags):
     """Compile ``source`` into the shared library ``lib_path`` with the
     package's flags and load it."""
-    import ctypes
-
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-o",
                     str(lib_path), str(source)], check=True)
@@ -157,7 +166,7 @@ def lags() -> dict:
         def call(fn=fn, got=got):
             stream = torch.cuda.current_stream().cuda_stream
             if fn(rho.data_ptr(), n, t1, *(v.data_ptr() for v in got),
-                  None, None, stream):
+                  None, None, None, stream):
                 raise RuntimeError(f"durbin_probe lags {p}: launch failed")
 
         call()
@@ -208,8 +217,6 @@ extern "C" int run(int threads, int iters, int len, void* out, void* clk) {
 
 
 def barrier() -> dict:
-    import ctypes
-
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     src = _build.BUILD_DIR / "barrier_probe.cu"
     src.write_text(BARRIER_SOURCE)
@@ -233,9 +240,91 @@ def barrier() -> dict:
     return out
 
 
+# the long route's sides in ``routes``: one and two steps, a ragged
+# window, a ragged tile, the preset's T and the one-block kernels' largest
+ROUTE_TS = (2, 3, 33, 225, 1024, 4096)
+
+
+@contextlib.contextmanager
+def long_route():
+    """Inside the block ``ops.durbin`` launches a build of
+    ``csrc/durbin.cu`` that takes every T on the long route."""
+    lib = nvcc(_build.CSRC_DIR / "durbin.cu",
+               _build.BUILD_DIR / "durbin_probe_long.so",
+               "-DGPVAE_DURBIN_SHORT_MAX_T=1")
+    lib.gpvae_cuda_error_string.restype = ctypes.c_char_p
+    lib.gpvae_cuda_error_string.argtypes = [ctypes.c_int]
+    for name, argtypes in durbin._ENTRY_POINTS.items():
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = argtypes
+    package = _build.load("durbin", durbin._ENTRY_POINTS)
+    _build._LIBS["durbin"] = lib
+    try:
+        yield
+    finally:
+        _build._LIBS["durbin"] = package
+
+
+def routes() -> dict:
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from durbin_rows import clamped_rows
+
+    dev = torch.device("cuda", 0)
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp(min=1e-300)).item()
+
+    out = {"accuracy": {}}
+    with long_route():
+        for t in ROUTE_TS:
+            rows = {"rows": rho_of(t, (9.0, 3.0), None, dev)}
+            if t > 2:
+                rows["clamped"] = clamped_rows(t, device=dev)
+            for label, rho in rows.items():
+                n, t1 = rho.shape
+                gen = torch.Generator(device=dev).manual_seed(t)
+                cot = tuple(torch.randn(shape, dtype=torch.float64,
+                                        device=dev, generator=gen)
+                            for shape in ((n,), (n, t1), (n,)))
+                *got, (steps, last) = durbin.durbin_cuda(rho, save=True)
+                *ref, kept = durbin.durbin_plain(rho, save=True)
+                g = durbin.durbin_bwd_cuda(steps, last, *cot)
+                g_ref = durbin.durbin_bwd_plain(*kept, *cot)
+                torch.cuda.synchronize()
+                out["accuracy"][f"T={t} {label}"] = {
+                    "forward": max(rel(a, b) for a, b in zip(got, ref)),
+                    "steps": rel(steps, kept[0]), "last": rel(last, kept[1]),
+                    "reverse": rel(g, g_ref)}
+    for t in (1024, 4096):
+        rho = rho_of(t, (9.0, 3.0), None, dev)
+        n = rho.shape[0]
+        gen = torch.Generator(device=dev).manual_seed(t)
+        cot = tuple(torch.randn(shape, dtype=torch.float64, device=dev,
+                                generator=gen)
+                    for shape in ((n,), (n, t - 1), (n,)))
+
+        def times():
+            _, _, _, kept = durbin.durbin_cuda(rho, save=True)
+            return {"forward_ms": cuda_ms(lambda: durbin.durbin_cuda(rho)),
+                    "reverse_ms": cuda_ms(
+                        lambda: durbin.durbin_bwd_cuda(*kept, *cot)),
+                    "chain_floor_ms": cuda_ms(
+                        lambda: durbin.chain_floor_cuda(n, t, dev)),
+                    "bwd_chain_floor_ms": cuda_ms(
+                        lambda: durbin.bwd_chain_floor_cuda(n, t, dev))}
+
+        row = {"one block": [times()]}
+        with long_route():
+            row["long"] = [times(), times()]
+        row["one block"].append(times())
+        out[f"Z=2 T={t}"] = row
+    return out
+
+
 def main() -> int:
     modes = {"accuracy": accuracy, "lags": lags, "barrier": barrier,
-             "time": time_forward}
+             "time": time_forward, "routes": routes}
     if not (len(sys.argv) == 2 or (len(sys.argv) == 3
                                    and sys.argv[1] == "time")) \
             or sys.argv[1] not in modes:

@@ -10,13 +10,15 @@ logdet and the Gohberg-Semencul inverse.
 
 Both routes run the split Schur-Levinson form of ``toeplitz.py:386-417``
 in float64 whatever the input's dtype: a CUDA tensor goes to
-``csrc/durbin.cu`` (one thread block a matrix, the whole chain of T - 1
-steps in one launch, T <= 4096) through :class:`DurbinFunction`, whose
-backward is the kernel's reverse (``durbin_bwd_kernel``, one launch); a
-CPU tensor goes to :func:`durbin_plain`, whose autograd gives the
-gradient with respect to ``rho``.  In float64 the TPU's float32
-workarounds (compensated products, the blocked schedule, its switches)
-have nothing to do.
+``csrc/durbin.cu`` through :class:`DurbinFunction`, whose backward is the
+kernel's reverse; up to T = 4096 one thread block a matrix runs the whole
+chain of T - 1 steps in one launch (``durbin_bwd_kernel`` likewise),
+above it the long route advances a window of 32 steps a launch over
+tiles of lags spread across the card (two launches a window in reverse),
+with no cap on T but the scratch it allocates; a CPU tensor goes to
+:func:`durbin_plain`, whose autograd gives the gradient with respect to
+``rho``.  In float64 the TPU's float32 workarounds (compensated
+products, the blocked schedule, its switches) have nothing to do.
 
 The reverse needs the state before each step.  The forward keeps, when a
 gradient is needed, each step's reflection coefficient, its numerator
@@ -42,18 +44,22 @@ from torch.autograd.function import once_differentiable
 
 from gpvae_tpu_torch.ops import _build, dispatch
 
-# the kernel's largest T (256 threads of at most 16 lags each)
-MAX_T = 4096
-# launches of csrc/durbin.cu's recursion and of its reverse in this
-# process (callers may reset them): let a run show that its main path went
-# through the kernels
+# calls that launched csrc/durbin.cu's recursion and its reverse in this
+# process, and the kernels those calls launched, as the C code counts them
+# at each launch (one a call up to T = 4096; above it a window's kernels
+# and the finishing ones): callers may reset them, to show that a main
+# path went through the kernels
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+KERNEL_LAUNCHES = 0
+BWD_KERNEL_LAUNCHES = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
-    "gpvae_durbin_f64": [_P, _I, _I, _P, _P, _P, _P, _P, _P],
-    "gpvae_durbin_bwd_f64": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "gpvae_durbin_f64": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "gpvae_durbin_bwd_f64": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    "gpvae_durbin_work_f64": [_I, _I, _I, _P],
+    "gpvae_durbin_launched": [_I],
     "gpvae_durbin_chain_f64": [_I, _I, _P, _P],
     "gpvae_durbin_bwd_chain_f64": [_I, _I, _P, _P],
 }
@@ -199,17 +205,25 @@ def _check_rows(rho: torch.Tensor, what: str) -> None:
     if rho.dim() != 2 or not rho.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous [N, T-1] tensor, "
                          f"got shape {tuple(rho.shape)}")
-    if rho.shape[1] + 1 > MAX_T:
-        raise ValueError(f"{what}: the kernel takes T <= {MAX_T}, got "
-                         f"T={rho.shape[1] + 1}")
+
+
+def _work(lib, n: int, t1: int, bwd: bool, device) -> torch.Tensor | None:
+    """The float64 scratch the kernels need at ``n``, ``t1`` (the long
+    route's states, cotangents and partial sums; none up to T = 4096)."""
+    count = ctypes.c_longlong(0)
+    _build.check_status(lib, lib.gpvae_durbin_work_f64(
+        n, t1, int(bwd), ctypes.addressof(count)), "durbin scratch")
+    if not count.value:
+        return None
+    return torch.empty(count.value, dtype=torch.float64, device=device)
 
 
 def durbin_cuda(rho: torch.Tensor, save: bool = False):
     """Launch ``csrc/durbin.cu`` on ``rho [N, T-1]`` (float64, contiguous,
-    CUDA, T <= ``MAX_T``) on the current stream; returns ``(sum_log_e
-    [N], y [N, T-1], e [N])``, float64, and with ``save`` also ``(steps,
-    last)`` for :func:`durbin_bwd_cuda`."""
-    global LAUNCHES
+    CUDA) on the current stream; returns ``(sum_log_e [N], y [N, T-1], e
+    [N])``, float64, and with ``save`` also ``(steps, last)`` for
+    :func:`durbin_bwd_cuda`."""
+    global LAUNCHES, KERNEL_LAUNCHES
     _check_rows(rho, "durbin")
     n, t1 = rho.shape
     opts = dict(dtype=torch.float64, device=rho.device)
@@ -219,14 +233,18 @@ def durbin_cuda(rho: torch.Tensor, save: bool = False):
     last = torch.empty(n, 2, t1 + 1, **opts) if save else None
     if n:
         lib = _build.load("durbin", _ENTRY_POINTS)
+        work = _work(lib, n, t1, False, rho.device)
+        before = lib.gpvae_durbin_launched(0)
         with torch.cuda.device(rho.device):
             stream = torch.cuda.current_stream().cuda_stream
             status = lib.gpvae_durbin_f64(
                 rho.data_ptr(), n, t1, sum_log_e.data_ptr(), y.data_ptr(),
                 e.data_ptr(), steps.data_ptr() if save else None,
-                last.data_ptr() if save else None, stream)
+                last.data_ptr() if save else None,
+                None if work is None else work.data_ptr(), stream)
         _build.check_status(lib, status, "durbin")
         LAUNCHES += 1
+        KERNEL_LAUNCHES += (lib.gpvae_durbin_launched(0) - before) % 2**32
     return (sum_log_e, y, e, (steps, last)) if save else (sum_log_e, y, e)
 
 
@@ -238,7 +256,7 @@ def durbin_bwd_cuda(steps: torch.Tensor, last: torch.Tensor,
     ``[N, T-1]`` with respect to ``rho``, as :func:`durbin_bwd_plain`
     computes it, from the forward's ``(steps, last)`` (float64, CUDA) and
     the cotangents (``None``: zero)."""
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, BWD_KERNEL_LAUNCHES
     if not steps.is_cuda:
         raise ValueError(f"durbin_bwd: expected CUDA tensors, got "
                          f"{steps.device}")
@@ -255,12 +273,11 @@ def durbin_bwd_cuda(steps: torch.Tensor, last: torch.Tensor,
         if tuple(v.shape) != shape or not v.is_contiguous():
             raise ValueError(f"durbin_bwd: {name} must be a contiguous "
                              f"{shape}, got {tuple(v.shape)}")
-    if t1 + 1 > MAX_T:
-        raise ValueError(f"durbin_bwd: the kernel takes T <= {MAX_T}, got "
-                         f"T={t1 + 1}")
     g_rho = torch.empty(n, t1, dtype=torch.float64, device=steps.device)
     if n:
         lib = _build.load("durbin", _ENTRY_POINTS)
+        work = _work(lib, n, t1, True, steps.device)
+        before = lib.gpvae_durbin_launched(1)
 
         def ptr(v):
             return None if v is None else v.data_ptr()
@@ -269,9 +286,11 @@ def durbin_bwd_cuda(steps: torch.Tensor, last: torch.Tensor,
             stream = torch.cuda.current_stream().cuda_stream
             status = lib.gpvae_durbin_bwd_f64(
                 steps.data_ptr(), last.data_ptr(), ptr(g_sum_log_e),
-                ptr(g_y), ptr(g_e), n, t1, g_rho.data_ptr(), stream)
+                ptr(g_y), ptr(g_e), n, t1, g_rho.data_ptr(), ptr(work),
+                stream)
         _build.check_status(lib, status, "durbin_bwd")
         BWD_LAUNCHES += 1
+        BWD_KERNEL_LAUNCHES += (lib.gpvae_durbin_launched(1) - before) % 2**32
     return g_rho
 
 
@@ -286,18 +305,22 @@ def _chain(entry: str, n: int, t: int, device) -> torch.Tensor:
 
 
 def chain_floor_cuda(n: int, t: int, device) -> torch.Tensor:
-    """Launch the forward's chain alone (``durbin_chain_kernel``: the same
-    T - 1 barriers and broadcasts at the same block size, no arithmetic)
-    over ``n`` blocks: the floor of the recursion's time on the card.  Not
-    counted in ``LAUNCHES``."""
+    """Launch the forward's chain alone over ``n`` matrices: up to T = 4096
+    ``durbin_chain_kernel`` (the same T - 1 barriers and broadcasts at the
+    same block size, no arithmetic), above it the long route's launches
+    with each window's front and tile steps as dependent shuffles and no
+    arithmetic (``durbin_window_chain_kernel``): the floor of the
+    recursion's time on the card.  Not counted in ``LAUNCHES``."""
     return _chain("gpvae_durbin_chain_f64", n, t, device)
 
 
 def bwd_chain_floor_cuda(n: int, t: int, device) -> torch.Tensor:
-    """Launch the reverse's chain alone (``durbin_bwd_chain_kernel``: the
-    same T - 1 warp reductions, barriers and sums of the warps' parts at
-    the same block size, no other arithmetic) over ``n`` blocks.  Not
-    counted in ``BWD_LAUNCHES``."""
+    """Launch the reverse's chain alone over ``n`` matrices: up to T = 4096
+    ``durbin_bwd_chain_kernel`` (the same T - 1 warp reductions, barriers
+    and sums of the warps' parts at the same block size, no other
+    arithmetic), above it the long route's two launches a window with
+    each step a warp reduction and a shuffle.  Not counted in
+    ``BWD_LAUNCHES``."""
     return _chain("gpvae_durbin_bwd_chain_f64", n, t, device)
 
 

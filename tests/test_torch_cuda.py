@@ -1088,8 +1088,9 @@ def test_durbin_kernel_keeps_the_input_dtype_and_refuses_what_it_cannot(
     """A float32 row recurs in float64 and comes back in float32; a row
     that requires a gradient goes through the forward kernel (keeping its
     steps) and, at ``backward``, one launch of the reverse kernel, its
-    gradient that of the plain version's autograd; the wrappers refuse
-    T > 4096 and float32."""
+    gradient that of the plain version's autograd; past T = 4096 (the long
+    route, T in {4097, 8192}) the forward and the reverse hold to their
+    plain versions as below; the wrappers refuse float32."""
     row = _toeplitz_rows(card, 64, 2, torch.float32)
     ld, a, b, e = toeplitz.durbin_gs_factors(row)
     assert all(v.dtype == torch.float32 and v.is_cuda for v in (ld, a, b, e))
@@ -1112,19 +1113,47 @@ def test_durbin_kernel_keeps_the_input_dtype_and_refuses_what_it_cannot(
     assert (r64.grad - rp.grad).abs().max() <= 1e-9 * rp.grad.abs().max()
     with torch.no_grad():
         toeplitz.durbin_logdet(row.clone().requires_grad_(True))
-    with pytest.raises(ValueError, match="T <= 4096"):
-        durbin.durbin_cuda(torch.zeros(1, 4096, dtype=torch.float64,
-                                       device=card))
+    for t in (4097, 8192):
+        rho = _bwd_cases(card, t, 2)
+        before = durbin.LAUNCHES
+        got = durbin.durbin_cuda(rho)
+        assert durbin.LAUNCHES == before + 1
+        ref = durbin.durbin_plain(rho)
+        torch.cuda.synchronize()
+        for v, r in zip(got, ref):
+            assert (v - r).abs().max() <= 1e-9 * r.abs().max()
+        g = torch.Generator(device=card).manual_seed(t)
+        _check_bwd(rho, tuple(
+            torch.randn(shape, dtype=torch.float64, device=card, generator=g)
+            for shape in ((2,), (2, t - 1), (2,))))
     with pytest.raises(TypeError, match="float64"):
         durbin.durbin_cuda(torch.zeros(1, 8, device=card))
 
 
 def test_durbin_chain_floor_runs(card):
-    out = durbin.chain_floor_cuda(2, 1024, card)
-    bwd = durbin.bwd_chain_floor_cuda(2, 1024, card)
-    torch.cuda.synchronize()
-    assert out.tolist() == [1.0, 1.0]
-    assert bwd.tolist() == [1.0, 1.0]
+    """Both routes' chains: one block (T=1024), the long route (8192)."""
+    for t in (1024, 8192):
+        out = durbin.chain_floor_cuda(2, t, card)
+        bwd = durbin.bwd_chain_floor_cuda(2, t, card)
+        torch.cuda.synchronize()
+        assert out.tolist() == [1.0, 1.0]
+        assert bwd.tolist() == [1.0, 1.0]
+
+
+@pytest.mark.parametrize("t", [1024, 4096, 4097, 4130, 8192])
+def test_durbin_counts_the_kernels_each_route_launches(card, t):
+    """One kernel a call up to T = 4096; above it one a window of 32 steps
+    and a finishing one, and in reverse two a window, a starting and a
+    finishing one: counted where the C code launches them."""
+    windows = -(-(t - 1) // 32)
+    want = (1, 1) if t <= 4096 else (windows + 1, 2 * windows + 2)
+    rho = _bwd_cases(card, t, 2)
+    before = (durbin.KERNEL_LAUNCHES, durbin.BWD_KERNEL_LAUNCHES)
+    *_, (steps, last) = durbin.durbin_cuda(rho, save=True)
+    durbin.durbin_bwd_cuda(steps, last, None, None,
+                           torch.ones(2, dtype=torch.float64, device=card))
+    assert (durbin.KERNEL_LAUNCHES - before[0],
+            durbin.BWD_KERNEL_LAUNCHES - before[1]) == want
 
 
 def _bwd_cases(card, t, z):
@@ -1179,7 +1208,7 @@ def test_durbin_bwd_kernel_takes_each_output_alone(card, which):
     _check_bwd(rho, tuple(cot))
 
 
-@pytest.mark.parametrize("t", [17, 1024])
+@pytest.mark.parametrize("t", [17, 1024, 8192])
 def test_durbin_bwd_kernel_where_alpha_clamps(card, t):
     """The last reflection coefficient clamped: no gradient through it,
     as ``torch.clamp``'s autograd."""
