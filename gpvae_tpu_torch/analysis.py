@@ -34,6 +34,7 @@ import torch
 
 from gpvae_tpu_torch import gp, kernels, toeplitz
 from gpvae_tpu_torch.models import GPVAE
+from gpvae_tpu_torch.utils.profiling import span, spanned
 
 
 def _draw(kind, shape: tuple, generator: torch.Generator | None):
@@ -116,6 +117,7 @@ def drop_timesteps(mask: torch.Tensor, drop_fraction: float, *,
     return mask & (u >= drop_fraction)
 
 
+@spanned("gpvae.impute")
 @torch.no_grad()
 def impute(model: GPVAE, x, times, mask, kept_mask, *, sample: bool = False,
            use_prior_lengthscales: bool = True, eps=None, generator=None):
@@ -132,10 +134,11 @@ def impute(model: GPVAE, x, times, mask, kept_mask, *, sample: bool = False,
     name = ("prior_log_ls" if cfg.prior in ("gp", "sparse_gp")
             and use_prior_lengthscales else "posterior_log_ls")
     ls = torch.exp(_param_or_const(model, name)).to(times.dtype)
-    post = gp.posterior_conditional(
-        times, mean * kept_mask[..., None].to(mean.dtype), times, ls,
-        mask_obs=kept_mask, kernel=cfg.kernel, noise=cfg.noise,
-        with_cov=sample)
+    with span("gpvae.posterior", device=True):
+        post = gp.posterior_conditional(
+            times, mean * kept_mask[..., None].to(mean.dtype), times, ls,
+            mask_obs=kept_mask, kernel=cfg.kernel, noise=cfg.noise,
+            with_cov=sample)
     if sample:
         b, t, z = mean.shape
         z_full = gp.posterior_sample(

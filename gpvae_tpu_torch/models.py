@@ -46,6 +46,7 @@ from gpvae_tpu_torch import elbo as elbo_lib
 from gpvae_tpu_torch import gp, nets, sparse
 from gpvae_tpu_torch import kernels as kernels_lib
 from gpvae_tpu_torch.ops.logdet import logdet_from_chol
+from gpvae_tpu_torch.utils.profiling import span
 
 PRIORS = ("standard", "gp", "sparse_gp")
 POSTERIORS = ("diag", "gp", "gp_plus_diag")
@@ -460,10 +461,12 @@ class GPVAE(nn.Module):
                 raise ValueError(f"{c.prior}/{c.posterior} model needs times")
             times = torch.arange(x.shape[1], dtype=x.dtype,
                                  device=x.device).expand(x.shape[:2])
-        aux = self.chol_banks(times, mask, logdets=True)
+        with span("gpvae.factor", device=True):
+            aux = self.chol_banks(times, mask, logdets=True)
         z, mean, log_var, aux = self.sample_posterior(
             x, times, mask, s, aux=aux, eps=eps, generator=generator)
-        kl_b = self.kl(mean, log_var, times, mask, aux)
+        with span("gpvae.kl", device=True):
+            kl_b = self.kl(mean, log_var, times, mask, aux)
         logits = self.decode(z)
         nll = (elbo_lib.bernoulli_nll if c.likelihood == "bernoulli"
                else elbo_lib.gaussian_nll)

@@ -10,13 +10,18 @@ recorded, and runs one more step to read the allocator's peak.  The line
 holds, per step: the card's time (the summed durations of its kernels),
 the kernel count, the kernels that took most of it; every operator that
 ran on a tensor of the factor bank's shape, ``[B, Z, T, T]`` or ``[B, 2Z,
-T, T]``, with its calls and its own device and host time; and the peak
-of allocated memory above what was allocated before the step.  With
-``--device cpu`` the device times are zero.
+T, T]``, with its calls and its own device and host time; each of the
+port's spans (``utils.profiling.span``: ``gpvae.step``, its
+``gpvae.factor``, ``gpvae.kl`` and ``gpvae.step.backward``) with its
+calls, its host time less its children's and its device interval
+(None where the span records none); and the peak of allocated memory
+above what was allocated before the step.  With ``--device cpu`` the
+device times are zero, and the spans' None.
 
 It reads nothing from the package that a user's training step does not
-run, so the same file profiles another checkout of the package when it is
-copied there.
+run, so the same file profiles another checkout of the package when it
+is copied there; a checkout without ``utils.profiling.spans`` gives no
+span table.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from torch.profiler import ProfilerActivity, profile, schedule
 from gpvae_tpu_torch import configs, train
 from gpvae_tpu_torch.data import generate_toy_data, toy_to_masked_batch
 from gpvae_tpu_torch.models import GPVAE
+from gpvae_tpu_torch.utils import profiling
 
 
 def _card_line() -> str | None:
@@ -48,6 +54,27 @@ def _card_line() -> str | None:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def span_table(records: list, steps: int) -> dict:
+    """Per span name, per step: ``calls``, ``host_self_ms`` (each span's
+    host time less its children's) and ``device_ms`` (None where a span
+    recorded no device interval)."""
+    children: dict[int, float] = {}
+    for r in records:
+        if r.parent is not None:
+            children[r.parent] = children.get(r.parent, 0.0) + r.host_ms
+    table: dict[str, dict] = {}
+    for r in records:
+        row = table.setdefault(r.name, {"calls": 0.0, "host_self_ms": 0.0,
+                                        "device_ms": 0.0})
+        row["calls"] += 1 / steps
+        row["host_self_ms"] += (r.host_ms - children.get(r.id, 0.0)) / steps
+        if r.device_ms is None or row["device_ms"] is None:
+            row["device_ms"] = None
+        else:
+            row["device_ms"] += r.device_ms / steps
+    return table
 
 
 def profile_steps(preset_name: str, t: int, b: int, steps: int,
@@ -68,6 +95,9 @@ def profile_steps(preset_name: str, t: int, b: int, steps: int,
         step()
     _sync(device)
     traces = []
+    read_spans = getattr(profiling, "spans", None)
+    if read_spans is not None:
+        profiling.clear_spans()
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if device.type == "cuda" else [])
     # a dropped warm-up cycle first: without it the trace loses the first
@@ -83,6 +113,8 @@ def profile_steps(preset_name: str, t: int, b: int, steps: int,
             _sync(device)
             prof.step()
     events, averages = traces[0]
+    spans = (span_table(read_spans(), steps) if read_spans is not None
+             else None)
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     by_name: dict[str, float] = {}
@@ -118,6 +150,7 @@ def profile_steps(preset_name: str, t: int, b: int, steps: int,
             (n[:100], us / steps / 1e3) for n, us in sorted(
                 by_name.items(), key=lambda kv: -kv[1])[:12]],
         "bank_ops": bank_ops,
+        "spans_per_step": spans,
         "step_peak_gib_above_start": peak,
     }
 

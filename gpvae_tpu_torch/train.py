@@ -30,6 +30,7 @@ import torch
 from gpvae_tpu_torch import elbo as elbo_lib
 from gpvae_tpu_torch.data.batching import Batcher
 from gpvae_tpu_torch.models import GPVAE, resolve_structured_prior
+from gpvae_tpu_torch.utils.profiling import span, spanned
 
 _BATCH_KEYS = ("x", "times", "mask", "feature_mask")
 
@@ -86,6 +87,7 @@ def create_train_state(model: GPVAE, config: TrainConfig,
     return TrainState(model, optimizer, 0, generator)
 
 
+@spanned("gpvae.step", device=True)
 def train_step(state: TrainState, batch: dict, beta: float, *,
                eps: torch.Tensor | None = None,
                before_update: Callable[[], None] | None = None) -> dict:
@@ -106,7 +108,8 @@ def train_step(state: TrainState, batch: dict, beta: float, *,
                 feature_mask=batch.get("feature_mask"), eps=eps,
                 generator=state.generator)
     state.optimizer.zero_grad(set_to_none=True)
-    out.loss.backward()
+    with span("gpvae.step.backward", device=True):
+        out.loss.backward()
     if before_update is not None:
         before_update()
     state.optimizer.step()
@@ -355,6 +358,7 @@ def _index_window(sampler: Batcher, k: int, step: int, config: TrainConfig,
     return iter(_stage_indices(idx, device).view(calls, k, -1))
 
 
+@spanned("gpvae.fit")
 def fit(
     model: GPVAE,
     batches: Batcher | Iterator[dict],
@@ -411,7 +415,9 @@ def fit(
             and verbose:
         print(f"resumed from step {state.step}")
     if sampler is not None:
-        multi = make_sampled_multi_step(config.beta, sampler.arrays, device)
+        with span("gpvae.fit.stage"):
+            multi = make_sampled_multi_step(config.beta, sampler.arrays,
+                                            device)
     else:
         multi = make_multi_step(config.beta, k)
     log = MetricsLog(csv_path)
@@ -424,15 +430,21 @@ def fit(
         if sampler is not None:
             idx = next(window, None)
             if idx is None:
-                window = _index_window(sampler, k, state.step, config, device)
+                with span("gpvae.fit.indices"):
+                    window = _index_window(sampler, k, state.step, config,
+                                           device)
                 idx = next(window)
             state, metrics = multi(state, idx)
         else:
             chunk = [batch] + [next(batches) for _ in range(k - 1)]
-            state, metrics = multi(state, stack_batches(chunk, device))
+            with span("gpvae.fit.stage"):
+                staged = stack_batches(chunk, device)
+            state, metrics = multi(state, staged)
         step = state.step
         if step // every > last_logged // every or step >= config.num_steps:
-            host = {name: MetricsLog._host(v) for name, v in metrics.items()}
+            with span("gpvae.fit.log"):
+                host = {name: MetricsLog._host(v)
+                        for name, v in metrics.items()}
             now = time.perf_counter()
             sps = (step - last_logged) / max(now - t_last, 1e-9)
             t_last, last_logged = now, step

@@ -7,15 +7,21 @@ from gpvae_tpu_torch.utils.debug import (
 )
 from gpvae_tpu_torch.utils.profiling import (
     StepTimer,
-    cholesky_flops,
+    clear_spans,
     device_memory_stats,
+    span,
+    spanned,
+    spans,
     trace,
 )
 
 __all__ = [
     "trace",
+    "span",
+    "spanned",
+    "spans",
+    "clear_spans",
     "StepTimer",
-    "cholesky_flops",
     "device_memory_stats",
     "assert_finite",
     "check_finite",

@@ -11,7 +11,7 @@ utilities, and the toy-file loader of the port, against the JAX package.
   directly, and across a checkpoint and resume;
 * ``train --steps-per-call`` and ``train --data x.pkl`` through
   ``__main__.main``;
-* ``utils``: ``cholesky_flops``, ``StepTimer``'s keys,
+* ``utils``: ``StepTimer``'s keys,
   ``device_memory_stats`` on the CPU, ``check_finite`` and
   ``assert_finite`` (the same leaf path in the message), ``trace`` and
   ``enable_nan_debugging``;
@@ -259,11 +259,6 @@ def test_cli_trains_on_the_reference_pickle(tmp_path, capsys):
     main(["train", "--preset", "syn_data", "--data", path, "--device", "cpu",
           "--steps", "2", "--batch-size", "4"])
     assert "done at step 2" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("n, t", [(2, 10), (128, 1024)])
-def test_cholesky_flops_matches_jax(n, t):
-    assert utils.cholesky_flops(n, t) == jutils.cholesky_flops(n, t)
 
 
 def test_step_timer_reports_the_jax_keys():
