@@ -7,7 +7,7 @@ Phases, each printing one line (a failed check exits nonzero at once):
 
 1. device: the card, its power limit, and TF32 off for matmuls and for
    cuDNN's convs (the package turns the latter off when imported);
-2. build: the seven CUDA sources of ``gpvae_tpu_torch/csrc`` (eleven
+2. build: the eight CUDA sources of ``gpvae_tpu_torch/csrc`` (twelve
    kernels, the Durbin recursion's reverse among them, and the Durbin
    kernels' two chain floors), one ``nvcc`` each,
    all started together, and each kernel's registers and spills as ptxas
@@ -43,7 +43,10 @@ Phases, each printing one line (a failed check exits nonzero at once):
    kernel against its plain version, both in float64, at T in
    ``DURBIN_TS`` (Z=1 and 3), on ``t1024_toeplitz``'s prior rows and on
    two near-singular T=4096 rows, and the Gohberg-Semencul identity ``K
-   (K^-1 X) = X`` through the FFT route in float32; the Durbin kernel's
+   (K^-1 X) = X`` through the FFT route in float32; the Cholesky
+   backward's kernel (``chol_bwd``, three launches) at the training
+   shapes T=1024 (N=128) and T=8192 (N=2) against float64 and its plain
+   version, and its mean error away from zero; the Durbin kernel's
    reverse on the forward kernel's kept steps of the same rows and of two
    rows whose last coefficient clamps, against its plain version and
    against autograd of the plain forward, all in float64 (random
@@ -174,7 +177,10 @@ Phases, each printing one line (a failed check exits nonzero at once):
    autograd of the plain forward, the library's autograd of the dense
    Cholesky and logdet, its bound and its chain floor; the learned
    prior's steps/s and device µs a step, and both at T=8192 (4m);
-   ``syn_data``'s steps/s at k=1 and at k=25, in turns.
+   ``syn_data``'s steps/s at k=1 and at k=25, in turns; the Cholesky
+   backward's kernel at T=1024 (N=128) and T=8192 (N=2) beside its plain
+   version, the 2 x 2-blocked library products it replaces, and its
+   bound at the tensor cores' 3xTF32 rate.
 6. the Durbin kernels' long route (above T=4096) against their plain
    versions in float64 on the card, after every profiled window of phase
    5 (the plain versions' millions of eager launches stay out of the
@@ -231,9 +237,11 @@ LOG_LS_GRAD_REL = 5e-3
 # KL rel 1.4e-3 and dKL/dlog ls rel 3.1e-3.  Each band of phase 4 is that
 # band or 4x the error of the same model's float32 plain route on the CPU
 # (the library's float32 error on the same batch), whichever is larger.
-# The lengthscale gradient needs the latter: on an H100 its error was
-# 7.1e-3 to 1.2e-2 over the four batches of ELBO_SEEDS, 1.9-2.6x the CPU
-# float32 route's 3.4e-3 to 4.8e-3, which is itself above the table's.
+# The lengthscale gradient's error is set by the float32 prior gram the
+# KL reads (cond ~2e5): with each entry built in float32 it was 6.5e-3 to
+# 1.2e-2 on an H100, 2-7x the CPU float32 route's; built in float64 and
+# rounded once (csrc/gram.cuh) 3.7e-4 to 1.7e-3, against the CPU's 4.0e-3
+# to 5.9e-3.
 KL_REL_TERMS_T1024 = 1.4e-3
 LOG_LS_GRAD_REL_T1024 = 3.1e-3
 ELBO_VS_LIBRARY = 4.0
@@ -379,11 +387,12 @@ TOEP_WINDOW = 10
 # launches a training step, every other counter 0: the posterior bank
 # [1, 2, T, T] factored blocked (8 column blocks of 128: gram_panel 8,
 # chol_block 8, panel_solve 7), its logdet (diag_logdet 1), the Cholesky
-# backward's flat tri_inv (1), the prior's Durbin recursion (1); no prior
-# factorization and no tri_inv of L_p
+# backward's flat tri_inv (1) and its three passes (chol_bwd 3), the
+# prior's Durbin recursion (1); no prior factorization and no tri_inv of
+# L_p
 TOEP_LAUNCHES = {"gram_panel": 8, "chol_block": 8, "panel_solve": 7,
-                 "diag_logdet": 1, "tri_inv": 1, "durbin": 1,
-                 "durbin_kernels": 1}
+                 "diag_logdet": 1, "tri_inv": 1, "chol_bwd": 3,
+                 "durbin": 1, "durbin_kernels": 1}
 # the Durbin kernel against its float64 plain version on the same float64
 # inputs: logdet and e relative, a and b over max |a|
 DURBIN_REL = 1e-9
@@ -440,6 +449,20 @@ KSTEP_TIME_STEPS, KSTEP_TIME_WINDOWS = 250, 5
 # global batch of 4096 cut to DP_B on DP_SEQS toy_full sequences; steps
 # at k=1 and at k=DP_K, each with TOEP_LAUNCHES exact a step
 DP_B, DP_SEQS, DP_STEPS, DP_K = 128, 512, 10, 5
+# The Cholesky backward's kernel (csrc/chol_bwd.cu) at the two training
+# shapes: K_bar against float64 on the same float32 inputs, max error over
+# max |reference|, within CHOL_BWD_VS_PLAIN x the plain version's (the
+# library's float32 products): the CPU emulation of the kernel's
+# arithmetic (python -m gpvae_tpu_torch.ops.split_emulation --backward)
+# puts each pass within 2x an FMA loop's error and K_bar within 1.9x; 3x
+# for the library's own order of sums.  Its mean error away from zero over
+# the mean magnitude (the tensor cores truncate their sums) within
+# CHOL_BWD_BIAS: on an H100 it read -3.6e-7 (T=1024) and -4.0e-7 (T=8192),
+# the library's -1.8e-9; 2.5x the kernel's reading, 5e-3 of the float32
+# route's own error in the T=1024 lengthscale gradient it feeds
+CHOL_BWD_VS_PLAIN = 3.0
+CHOL_BWD_BIAS = 1e-6
+CHOL_BWD_SHAPES = ((LONG_T, 2 * BENCH_B * SYN_Z), (TOEP_LONG_T, TOEP_Z))
 # the Gohberg-Semencul identity K (K^-1 X) = X through the FFT route in
 # float32 (max abs error over max |X|): BASELINE.md's float32 figure at
 # T=4096 for the blocked Schur/Durbin (1.7e-3), or 4x the same route's
@@ -475,7 +498,7 @@ GRAM_OPS = 8
 PROFILED_CALLS = 20
 
 SOURCES = ("gram_chol", "tri_inv", "chol_block", "gram_panel",
-           "panel_solve", "diag_logdet", "durbin")
+           "panel_solve", "diag_logdet", "durbin", "chol_bwd")
 # the method comparison of phase 5: the JAX package's crossover shapes
 METHOD_SHAPES = ((256, 512), (512, 256), (1024, 128))
 
@@ -635,11 +658,13 @@ def device_profile(fn, calls: int = 1, kernel: str | None = None,
     return out
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     """The least time the card could take: bytes over its memory rate or
-    float32 operations over its peak rate, whichever is larger."""
+    float32 operations over ``peak_flops`` (the CUDA cores' rate unless
+    given), whichever is larger."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -648,10 +673,12 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 def counters():
     """``{kernel: (module, attribute)}`` of every launch counter."""
     from gpvae_tpu_torch.ops import (
-        blocked, chol_block, durbin, gram_chol, logdet, trail, tri_inv,
+        blocked, chol_block, chol_bwd, durbin, gram_chol, logdet, trail,
+        tri_inv,
     )
     return {"gram_chol": (gram_chol, "LAUNCHES"),
             "tri_inv": (tri_inv, "LAUNCHES"),
+            "chol_bwd": (chol_bwd, "LAUNCHES"),
             "chol_block": (chol_block, "LAUNCHES"),
             "gram_panel": (blocked, "PANEL_LAUNCHES"),
             "panel_solve": (blocked, "SOLVE_LAUNCHES"),
@@ -1532,6 +1559,82 @@ def check_healing_fitc_kernels(dev) -> dict:
                  panel_solve_t4096=solve,
                  healing_fitc_cases=cases + 1 + 2 * len(T4096_BLOCKS))
     del k64, k, ref
+    return worst
+
+
+def chol_bwd_inputs(dev, t, n):
+    """The Cholesky backward's inputs at a training shape: a float32 factor
+    of the port's blocked factorization (masked times on 0 .. 60 as the
+    T=1024 bank's, or the unit grid at T=8192 as ``t1024_toeplitz``'s),
+    a lower N(0, 1) cotangent, a logdet cotangent per matrix, and ``X =
+    L^-1`` by ``tri_inv`` (its own draws, so that the other banks stay
+    those of earlier runs)."""
+    import numpy as np
+    import torch
+
+    from gpvae_tpu_torch.ops import blocked, tri_inv
+
+    rng = np.random.default_rng(t + n)
+    times, mask, ls, var = flat_inputs(rng, n, t, dev, masked=t < 8192)
+    if t >= 8192:
+        times = torch.arange(t, dtype=torch.float32, device=dev).expand(
+            n, t).contiguous()
+    l = blocked.cholesky_gram_inplace(times, ls, mask > 0.5, var)
+    gen = torch.Generator(dev).manual_seed(t)
+    l_bar = torch.randn(n, t, t, generator=gen, device=dev).tril_()
+    g = torch.randn(n, generator=gen, device=dev)
+    return l, l_bar, g, tri_inv.tri_inv(l)
+
+
+def check_chol_bwd_kernel(dev) -> dict:
+    """Phase 3, the Cholesky backward's kernel at the two training shapes
+    (``CHOL_BWD_SHAPES``) through ``ops.chol.cholesky_bwd_from_l``: its
+    three launches, ``K_bar`` symmetric to the bit, its error from float64
+    on the same float32 inputs (max error over max |reference|) within
+    ``CHOL_BWD_VS_PLAIN`` x the plain version's, and its mean error away
+    from zero within ``CHOL_BWD_BIAS``.  Returns the worst of each."""
+    import torch
+
+    from gpvae_tpu_torch.ops import chol, chol_bwd
+
+    worst = {"chol_bwd": 0.0, "chol_bwd_vs_plain": 0.0,
+             "chol_bwd_bias": 0.0, "chol_bwd_plain_bias": 0.0}
+    d = torch.float64
+    for t, n in CHOL_BWD_SHAPES:
+        l, l_bar, g, x = chol_bwd_inputs(dev, t, n)
+        before = chol_bwd.LAUNCHES
+        got = chol.cholesky_bwd_from_l(l, l_bar, logdet_bar=g)
+        if chol_bwd.LAUNCHES - before != 3:
+            fail(f"chol_bwd T={t} N={n}: {chol_bwd.LAUNCHES - before} "
+                 f"launches, not 3")
+        if not (bool(torch.isfinite(got).all())
+                and torch.equal(got, got.mT)):
+            fail(f"chol_bwd T={t} N={n}: K_bar not finite or not symmetric")
+        lib = chol_bwd.chol_bwd_plain(l, l_bar, x, g)
+        ref = chol_bwd.chol_bwd_plain(l.to(d), l_bar.to(d), x.to(d), g.to(d))
+        del l, l_bar, x
+        scale, mag = ref.abs().max(), ref.abs().mean()
+        sign = torch.sign(ref)
+
+        def errs(k):
+            e = k.to(d) - ref
+            return ((e.abs().max() / scale).item(),
+                    ((e * sign).mean() / mag).item())
+
+        (err, bias), (err_lib, bias_lib) = errs(got), errs(lib)
+        del got, lib, ref, sign
+        if not (err <= CHOL_BWD_VS_PLAIN * err_lib
+                and abs(bias) <= CHOL_BWD_BIAS):
+            fail(f"chol_bwd T={t} N={n} vs float64: {err:.3e} (plain "
+                 f"{err_lib:.3e}, band {CHOL_BWD_VS_PLAIN}x), bias "
+                 f"{bias:.3e} (plain {bias_lib:.3e}, band {CHOL_BWD_BIAS})")
+        worst["chol_bwd"] = max(worst["chol_bwd"], err)
+        worst["chol_bwd_vs_plain"] = max(worst["chol_bwd_vs_plain"],
+                                         err / err_lib)
+        worst["chol_bwd_bias"] = max(worst["chol_bwd_bias"], abs(bias))
+        worst["chol_bwd_plain_bias"] = max(worst["chol_bwd_plain_bias"],
+                                           abs(bias_lib))
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -2422,14 +2525,14 @@ def main_paths(dev, ck: str) -> tuple[dict, dict, dict]:
             ("syn_data", "syn_data", SYN_T, MAIN_STEPS, 2000, 200,
              (KL_REL_TERMS, LOG_LS_GRAD_REL), ("gram_chol", "tri_inv"),
              ("chol_block", "gram_panel", "panel_solve", "diag_logdet",
-              "hist_panel"), SYN_B),
+              "hist_panel", "chol_bwd"), SYN_B),
             ("bench_t100", "bench_t100", BENCH_T, BENCH_STEPS, 2000, 100,
              (KL_REL_TERMS, LOG_LS_GRAD_REL), ("chol_block", "tri_inv"),
-             ("hist_panel",), BENCH_B),
+             ("hist_panel", "chol_bwd"), BENCH_B),
             ("bench_t100_t1024", "bench_t100", LONG_T, LONG_STEPS, 256, 5,
              (KL_REL_TERMS_T1024, LOG_LS_GRAD_REL_T1024),
              ("chol_block", "gram_panel", "panel_solve", "diag_logdet",
-              "tri_inv"), ("hist_panel",), BENCH_B)):
+              "tri_inv", "chol_bwd"), ("hist_panel",), BENCH_B)):
         ckpt_dir = os.path.join(ck, name)
         paths[name], timing[name] = main_path(
             dev, preset, t, steps, seqs, window, ckpt_dir,
@@ -2439,8 +2542,8 @@ def main_paths(dev, ck: str) -> tuple[dict, dict, dict]:
         blocked_t = t > 128
         ev_needs = ("chol_block", "tri_inv") + (
             ("hist_panel", "panel_solve") if blocked_t else ())
-        ev_absent = gp_only + (() if blocked_t else ("hist_panel",
-                                                     "panel_solve"))
+        ev_absent = gp_only + ("chol_bwd",) + (
+            () if blocked_t else ("hist_panel", "panel_solve"))
         paths[f"evaluate_{name}"], context = evaluate_path(
             dev, preset, t, eb, ckpt_dir, needs=ev_needs, absent=ev_absent)
     # context: the last path's, T=1024
@@ -3385,7 +3488,8 @@ def method_paths(dev) -> dict:
 # -- phase 5 ------------------------------------------------------------------
 
 def time_kernel(name, kernel_fn, plain_fn, library_fn, nbytes, flops,
-                shape, kernel=None, tensor_flops=None) -> dict:
+                shape, kernel=None, tensor_flops=None,
+                peak_flops=PEAK_FP32_FLOPS) -> dict:
     """``ms``, ``plain_ms``, ``library_ms``: CUDA-event time per call of
     back-to-back calls, which is the host's time per call wherever that
     exceeds the card's.  ``*_device_ms``: the card's own time per call,
@@ -3395,7 +3499,8 @@ def time_kernel(name, kernel_fn, plain_fn, library_fn, nbytes, flops,
     counter counted (the kernel's window is profiled again, up to three
     times in all, while the two differ).  ``tensor_flops``: the TF32
     operations a tensor-core kernel issues for the same work, whose time at
-    the tensor cores' peak is ``tensor_floor_ms``."""
+    the tensor cores' peak is ``tensor_floor_ms``.  ``peak_flops``: the
+    rate ``bound_ms`` holds ``flops`` to."""
     ms = cuda_ms(kernel_fn)
     plain_ms = cuda_ms(plain_fn)
     library_ms = cuda_ms(library_fn) if library_fn is not None else None
@@ -3409,7 +3514,7 @@ def time_kernel(name, kernel_fn, plain_fn, library_fn, nbytes, flops,
     library = (device_profile(library_fn, PROFILED_CALLS,
                               label=f"{name} (library)")
                if library_fn is not None else None)
-    b_ms, b_by = bound_ms(nbytes, flops)
+    b_ms, b_by = bound_ms(nbytes, flops, peak_flops)
     out = {"name": name, "shape": shape, "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
            "device_ms": dev["device_us"] / 1e3,
@@ -4141,6 +4246,45 @@ def time_toeplitz_kernels(dev) -> dict:
     return out
 
 
+def time_chol_bwd(dev) -> dict:
+    """The Cholesky backward's kernel (its three passes) at the two
+    training shapes (``CHOL_BWD_SHAPES``), beside its plain version and
+    the 2 x 2-blocked library products ``ops.chol`` takes without it, and
+    its bound: 2 T^3 N operations (the depths the triangles leave) at the
+    3xTF32 rate of the tensor cores, or its bytes."""
+    import torch
+
+    from gpvae_tpu_torch.ops import chol, chol_bwd
+
+    out = {}
+    for t, n in CHOL_BWD_SHAPES:
+        l, l_bar, g, x = chol_bwd_inputs(dev, t, n)
+
+        def library(l=l, l_bar=l_bar, x=x, g=g):
+            w11, w21, w22 = chol._phi_w_blocks(l, l_bar)
+            w11.diagonal(dim1=-2, dim2=-1).add_(g[:, None])
+            w22.diagonal(dim1=-2, dim2=-1).add_(g[:, None])
+            return chol._tri_sandwich_blocks(x, w11, w21, w22)
+
+        out[f"T{t}"] = time_kernel(
+            "chol_bwd",
+            lambda l=l, l_bar=l_bar, x=x, g=g: chol_bwd.chol_bwd_cuda(
+                l, l_bar, x, g),
+            lambda l=l, l_bar=l_bar, x=x, g=g: chol_bwd.chol_bwd_plain(
+                l, l_bar, x, g),
+            library,
+            # the lower halves of L, L_bar and X read once a pass that
+            # takes them, W and M written and read back whole, K_bar
+            # written whole
+            4.0 * n * t * t * 7, 2.0 * t ** 3 * n,
+            f"N={n}, T={t}", kernel="chol_bwd",
+            tensor_flops=3 * 2.0 * t ** 3 * n,
+            peak_flops=PEAK_TF32_FLOPS / 3)
+        del l, l_bar, g, x
+        torch.cuda.empty_cache()
+    return out
+
+
 def time_call(call, seqs, label) -> dict:
     """Sequences scored per second by the host clock, median of 5 calls of
     ``call`` (each ends in the host reading the metrics), and the card's
@@ -4207,8 +4351,8 @@ def run(dev) -> int:
 
     from gpvae_tpu_torch import analysis
     from gpvae_tpu_torch.ops import (
-        _build, blocked, chol_block, durbin, gram_chol, logdet, trail,
-        tri_inv,
+        _build, blocked, chol_block, chol_bwd, durbin, gram_chol, logdet,
+        trail, tri_inv,
     )
 
     t_start = time.perf_counter()
@@ -4229,7 +4373,7 @@ def run(dev) -> int:
     t0 = time.perf_counter()
     _build.build_all(SOURCES)
     for module in (gram_chol, tri_inv, chol_block, blocked, logdet, trail,
-                   durbin):
+                   durbin, chol_bwd):
         module.build()
     phase("build", seconds=time.perf_counter() - t0,
           nvcc_seconds=dict(_build.BUILD_SECONDS),
@@ -4245,9 +4389,11 @@ def run(dev) -> int:
     worst_solve = check_panel_solve(dev)
     worst_hf = check_healing_fitc_kernels(dev)
     worst_toep = check_toeplitz_kernels(dev)
+    worst_bwd = check_chol_bwd_kernel(dev)
     phase("kernels_vs_plain", **worst, **worst_zoo, **worst_large,
           **worst_pre, **worst_trail, **worst_solve, **worst_hf,
-          **worst_toep,
+          **worst_toep, **worst_bwd, chol_bwd_vs_plain_band=CHOL_BWD_VS_PLAIN,
+          chol_bwd_bias_band=CHOL_BWD_BIAS,
           l_band=L_MAX_ABS,
           l_vs_library=L_VS_LIBRARY, panel_band=PANEL_ABS,
           cholesky_band_vs_library=CHOL_VS_LIBRARY,
@@ -4286,6 +4432,9 @@ def run(dev) -> int:
     per_kernel, whole = time_kernels(dev)
     new_shapes = time_healing_fitc_kernels(dev)
     new_shapes.update(time_toeplitz_kernels(dev))
+    bwd_times = time_chol_bwd(dev)
+    per_kernel["chol_bwd"] = bwd_times[f"T{LONG_T}"]
+    new_shapes["chol_bwd_T8192"] = bwd_times[f"T{TOEP_LONG_T}"]
     durbin_times = time_durbin(dev)
     per_kernel["durbin"] = durbin_times[f"T{TOEP_T}"]
     new_shapes["durbin_T4096"] = durbin_times["T4096"]
@@ -4347,7 +4496,8 @@ def run(dev) -> int:
               "trail_update": worst_trail["trail_update_abs"],
               "durbin": max(worst_toep["durbin"], long_route["durbin_long"]),
               "durbin_bwd": max(worst_toep["durbin_bwd"],
-                                long_route["durbin_bwd_long"])}
+                                long_route["durbin_bwd_long"]),
+              "chol_bwd": worst_bwd["chol_bwd"]}
     ops = "gpvae_tpu/ops/"
     sources = {"gram_chol": ("gram_chol.cu", ops + "pallas_chol.py:673"),
                "tri_inv": ("tri_inv.cu", ops + "pallas_tri.py:39"),
@@ -4362,7 +4512,10 @@ def run(dev) -> int:
                           "gpvae_tpu/toeplitz.py:88 (lax.scan, no Pallas)"),
                "durbin_bwd": ("durbin.cu",
                               "gpvae_tpu/toeplitz.py:88 (autodiff of the "
-                              "lax.scan, no Pallas)")}
+                              "lax.scan, no Pallas)"),
+               "chol_bwd": ("chol_bwd.cu",
+                            ops + "chol.py:497-578 (XLA's products, no "
+                            "Pallas)")}
     # each kernel's times at the shapes of healing_mnist, sparse_t4096 and
     # t1024_toeplitz (hist_panel's: the whole T=4096 pre-built
     # factorization it leads; gram_panel's: the N=2 training one)
@@ -4376,7 +4529,8 @@ def run(dev) -> int:
                               "kernel_device_ms", "plain_ms",
                               "plain_device_ms", "library_ms",
                               "library_device_ms", "bound_ms", "bound_by",
-                              "chain_floor_ms") if k in r})
+                              "tensor_floor_ms", "chain_floor_ms")
+            if r.get(k) is not None})
     lines = []
     for name, (src, tpu) in sources.items():
         r = per_kernel[name]
@@ -4392,8 +4546,8 @@ def run(dev) -> int:
             "kernel_device_ms": r["kernel_device_ms"],
             "plain_device_ms": r["plain_device_ms"],
             "library_device_ms": r["library_device_ms"],
-            **({"chain_floor_ms": r["chain_floor_ms"]}
-               if "chain_floor_ms" in r else {}),
+            **{k: r[k] for k in ("tensor_floor_ms", "chain_floor_ms")
+               if r.get(k) is not None},
             "at_new_shapes": at_new.get(name, [])})
     print(json.dumps({"kernels": lines}), flush=True)
     print(smi, flush=True)

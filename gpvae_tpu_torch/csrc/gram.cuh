@@ -28,28 +28,38 @@ inline bool valid_kernel_code(int code) {
   return code >= kRbf && code <= kCosine;
 }
 
-__device__ __forceinline__ float kernel_value(int code, float dt, float ls) {
+// k(t_i - t_k; ls) from the float32 times and lengthscale, computed in
+// float64 and rounded once.  In float32 the exponent's rounding is
+// amplified by its size (up to ~20 on a prior of lengthscale 9 over
+// 0 .. 60) and expf adds up to 2 ulp; an ill-conditioned prior gram
+// carries that into the lengthscale gradient through the KL, where it
+// cost 2.3x the CPU's float32 gram on an H100.  The float64 work is a
+// few dozen instructions an element, in the kernels' epilogues.
+__device__ __forceinline__ float kernel_value(int code, float ti, float tk,
+                                              float ls) {
+  const double dt = static_cast<double>(ti) - static_cast<double>(tk);
+  const double l = ls;
   switch (code) {
     case kRbf: {
-      const float z = dt / ls;
-      return expf(-0.5f * z * z);
+      const double z = dt / l;
+      return static_cast<float>(exp(-0.5 * z * z));
     }
     case kMatern12:
-      return expf(-fabsf(dt) / ls);
+      return static_cast<float>(exp(-fabs(dt) / l));
     case kMatern32: {
-      const float z = sqrtf(3.0f) * fabsf(dt) / ls;
-      return (1.0f + z) * expf(-z);
+      const double z = sqrt(3.0) * fabs(dt) / l;
+      return static_cast<float>((1.0 + z) * exp(-z));
     }
     case kMatern52: {
-      const float z = sqrtf(5.0f) * fabsf(dt) / ls;
-      return (1.0f + z + z * z / 3.0f) * expf(-z);
+      const double z = sqrt(5.0) * fabs(dt) / l;
+      return static_cast<float>((1.0 + z + z * z / 3.0) * exp(-z));
     }
     case kCauchy: {
-      const float z = dt / ls;
-      return 1.0f / (1.0f + z * z);
+      const double z = dt / l;
+      return static_cast<float>(1.0 / (1.0 + z * z));
     }
     default:  // kCosine
-      return cosf(dt / ls);
+      return static_cast<float>(cos(dt / l));
   }
 }
 
@@ -59,7 +69,7 @@ __device__ __forceinline__ float gram_value(int code, float ti, float tk,
                                             float one_minus_noise,
                                             bool diag) {
   const float eye = diag ? 1.0f : 0.0f;
-  float g = var * kernel_value(code, ti - tk, ls);
+  float g = var * kernel_value(code, ti, tk, ls);
   g = one_minus_noise * g + noise * eye;
   return g * (mi * mk) + (1.0f - mi) * eye;
 }

@@ -192,19 +192,29 @@ def toeplitz_row(
     """First rows ``[Z, T]`` of the per-latent Toeplitz grams of a
     *uniform* grid with spacing ``step`` (``kernels.py:225-250``): lag
     ``k`` holds ``(1 - noise) * variance * k(k * step) + noise * [k ==
-    0]``.  The lags are built in ``dtype`` (float32 by default, as the
-    JAX package's), on the device of ``lengthscales``."""
+    0]``, returned in ``dtype`` (float32 by default, as the JAX
+    package's), on the device of ``lengthscales``.
+
+    The row is computed in float64 from ``step``, ``lengthscales`` and
+    ``variance`` as given and rounded to ``dtype`` once, as
+    ``csrc/gram.cuh`` builds the dense grams on the card: the Durbin
+    recursion takes the row in float64, and a KL between a dense
+    posterior and this prior compares the two grams, whose float32
+    roundings should then agree (a row built in float32 beside the
+    card's exactly rounded posterior gram left a learned prior's
+    lengthscale gradients 4-6x the CPU's float32 error on an H100)."""
     kfn = get_kernel(kernel) if isinstance(kernel, str) else kernel
     dev = lengthscales.device
-    lags = torch.arange(t, dtype=dtype, device=dev) * torch.as_tensor(
-        step, dtype=dtype, device=dev)
-    variance = torch.as_tensor(variance, dtype=dtype, device=dev)
+    f64 = torch.float64
+    lags = torch.arange(t, dtype=f64, device=dev) * torch.as_tensor(
+        step, device=dev).to(f64)
+    variance = torch.as_tensor(variance, device=dev).to(f64)
     if variance.dim() == 1:
         variance = variance[:, None]
-    row = variance * kfn(lags[None, :], lengthscales[:, None])
-    unit = torch.zeros(t, dtype=dtype, device=dev)
+    row = variance * kfn(lags[None, :], lengthscales[:, None].to(f64))
+    unit = torch.zeros(t, dtype=f64, device=dev)
     unit[0] = 1.0
-    return (1.0 - noise) * row + noise * unit[None, :]
+    return ((1.0 - noise) * row + noise * unit[None, :]).to(dtype)
 
 
 def toeplitz_to_dense(row: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,8 @@
   pre-built matrix, with the JAX package's method menu, and
   ``cholesky_bwd_from_l``, its reverse mode on the inverse route (with a
   logdet's cotangent folded onto the diagonal of its middle factor),
+* :mod:`.chol_bwd` -- that reverse mode's products on the card: three
+  passes that skip the triangles' zero tiles (``csrc/chol_bwd.cu``),
 * :mod:`.trsm` -- ``solve_triangular``: through ``tri_inv`` on CUDA,
 * :mod:`.logdet` -- ``logdet_from_chol``: logdet from the factor's
   diagonal (``csrc/diag_logdet.cu`` for large factors); ``diag_logdet``,
@@ -32,9 +34,9 @@ here: ``ops.tri_inv`` is the module, whose ``LAUNCHES`` counter a run
 reads.
 """
 from gpvae_tpu_torch.ops import (
-    blocked, chol, chol_block, dispatch, durbin, gram_chol, logdet, trail,
-    tri_inv, trsm,
+    blocked, chol, chol_block, chol_bwd, dispatch, durbin, gram_chol, logdet,
+    trail, tri_inv, trsm,
 )
 
-__all__ = ["blocked", "chol", "chol_block", "dispatch", "durbin",
+__all__ = ["blocked", "chol", "chol_block", "chol_bwd", "dispatch", "durbin",
            "gram_chol", "logdet", "trail", "tri_inv", "trsm"]

@@ -13,7 +13,10 @@ Counterpart of ``gpvae_tpu/ops/chol.py``:
   ``_tri_sandwich_blocks`` :526-578, and ``cholesky_bwd_from_l`` :581-602
   on the route the JAX package takes on a TPU: one triangular inverse
   ``X = L^{-1}`` (``ops.tri_inv``), then ``K_bar = X^T w X`` by matmuls,
-  in 2x2 blocks that skip the structural zeros when T % 256 == 0.
+  in 2x2 blocks that skip the structural zeros when T % 256 == 0.  On a
+  CUDA float32 bank whose side is a multiple of 128 the products are
+  ``ops.chol_bwd``'s kernel instead (three passes that skip the
+  triangles' zero tiles, 3xTF32 on the tensor cores).
 
 Its diagonal-block factorizations (``chol_and_inv`` :75, ``chol_inv_parts``
 :128, ``chol_parts`` :162, ``chol_wide`` :181) have no counterpart here:
@@ -24,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from gpvae_tpu_torch.ops import chol_block
+from gpvae_tpu_torch.ops import chol_block, chol_bwd
 from gpvae_tpu_torch.ops.blocked import (
     cholesky_blocked_fused, cholesky_inplace,
 )
@@ -96,10 +99,16 @@ def cholesky_bwd_from_l(l: torch.Tensor, l_bar: torch.Tensor | None,
     ``sym(phi(L^T L_bar))`` (``K_bar`` gains ``g K^{-1}``) and no dense
     diagonal ``L_bar`` is formed.  ``l_bar`` is None when only the
     logdet is used.
+
+    With a cotangent, a CUDA float32 bank whose side is a multiple of 128
+    takes ``ops.chol_bwd``'s kernel for the products
+    (:func:`ops.chol_bwd.engaged`).
     """
     x = tri_inv(l)
     if l_bar is None:
         return logdet_bar[..., None, None] * (x.mT @ x)
+    if chol_bwd.engaged(l, l_bar):
+        return chol_bwd.chol_bwd_cuda(l, l_bar, x, logdet_bar)
     g = None if logdet_bar is None else logdet_bar[..., None]
     if l.shape[-1] % 256 == 0:
         w11, w21, w22 = _phi_w_blocks(l, l_bar)

@@ -36,7 +36,17 @@ prints one JSON object:
   ``sparse_t4096`` evaluate's gram (T=4096, one sequence of the CLI's toy
   times, half its observed steps kept, lengthscale 256, the jitter 1e-5),
   for the FMA loop and both orders of the tile, each also with its
-  history summed from the last columns back.
+  history summed from the last columns back;
+* with ``--backward``, ``backward``: the three passes of the Cholesky
+  backward's kernel (``csrc/chol_bwd.cu``) on the port's float32 factor at
+  T=1024, N=2, a cotangent and a logdet cotangent drawn from the seed:
+  each pass alone on float32 inputs against its float64 product
+  (``passes``, and its mean error away from zero, ``bias``), and the
+  whole ``K_bar`` against float64 (``k_bar``), each route's largest error
+  over the FMA loop's (``ratio``), for the FMA loop, both orders of the
+  tile and the kernel's (:data:`BACKWARD_ROUTES`).
+  The passes multiply over each tile row's or column's own depth, from
+  the triangle's first nonzero column, as the kernel does.
 """
 from __future__ import annotations
 
@@ -221,8 +231,149 @@ def t4096_ratios() -> dict:
             for name, fn in routes.items()}
 
 
+def mirror_lower(w):
+    """``w [N, T, T]``'s lower triangle, mirrored above: what the kernel's
+    first pass keeps of a diagonal tile."""
+    low = np.tril(w)
+    return low + np.tril(w, -1).transpose(0, 2, 1)
+
+
+def mirror_tiles(k):
+    """``k``'s lower tiles of ``NB``, mirrored above, each diagonal tile
+    averaged with its transpose: what the kernel's third pass stores."""
+    n, t, _ = k.shape
+    out = np.zeros_like(k)
+    for j0 in range(0, t, NB):
+        d = k[:, j0:j0 + NB, j0:j0 + NB]
+        out[:, j0:j0 + NB, j0:j0 + NB] = (
+            0.5 * (d.astype(np.float64) + d.transpose(0, 2, 1))
+        ).astype(k.dtype)
+        below = k[:, j0 + NB:, j0:j0 + NB]
+        out[:, j0 + NB:, j0:j0 + NB] = below
+        out[:, j0:j0 + NB, j0 + NB:] = below.transpose(0, 2, 1)
+    return out
+
+
+def pass_w(l, l_bar, g, product):
+    """First pass: ``W = 1/2 L^T L_bar`` on the lower tiles, row tile i0
+    over the depth k >= i0, mirrored, ``g`` on the diagonal."""
+    n, t, _ = l.shape
+    lt = np.ascontiguousarray(l.transpose(0, 2, 1))
+    bt = np.ascontiguousarray(l_bar.transpose(0, 2, 1))
+    p = np.zeros_like(l)
+    for i0 in range(0, t, NB):
+        p[:, i0:i0 + NB, :i0 + NB] = product(lt[:, i0:i0 + NB, i0:],
+                                             bt[:, :i0 + NB, i0:])
+    w = mirror_lower(p * p.dtype.type(0.5))
+    idx = np.arange(t)
+    w[:, idx, idx] += g[:, None].astype(w.dtype)
+    return w
+
+
+def pass_m(x, w, product):
+    """Second pass: ``M = X^T W`` (W symmetric), row tile i0 over the
+    depth k >= i0."""
+    n, t, _ = x.shape
+    xt = np.ascontiguousarray(x.transpose(0, 2, 1))
+    m = np.zeros_like(x)
+    for i0 in range(0, t, NB):
+        m[:, i0:i0 + NB] = product(xt[:, i0:i0 + NB, i0:], w[:, :, i0:])
+    return m
+
+
+def pass_k(m, x, product):
+    """Third pass: ``K_bar = M X`` on the lower tiles, column tile j0 over
+    the depth k >= j0, mirrored (:func:`mirror_tiles`)."""
+    n, t, _ = x.shape
+    xt = np.ascontiguousarray(x.transpose(0, 2, 1))
+    k = np.zeros_like(x)
+    for j0 in range(0, t, NB):
+        k[:, j0:, j0:j0 + NB] = product(np.ascontiguousarray(m[:, j0:, j0:]),
+                                        xt[:, j0:j0 + NB, j0:])
+    return mirror_tiles(k)
+
+
+def backward_inputs(seed, t=T, n=N):
+    """The port's float32 factor of :func:`bank_inputs`' bank (T = 1024
+    only; smaller sides cut it to a leading block, itself a factor), its
+    float32 inverse, a lower-triangular N(0, 1) cotangent and a logdet
+    cotangent per matrix, drawn from ``seed``."""
+    l = port_factor32(seed)[:n, :t, :t].copy()
+    x = torch.linalg.solve_triangular(
+        torch.from_numpy(l), torch.eye(t).expand(n, t, t),
+        upper=False).numpy()
+    rng = np.random.default_rng(seed)
+    l_bar = np.tril(rng.standard_normal((n, t, t))).astype(np.float32)
+    g = rng.standard_normal(n).astype(np.float32)
+    return l, x, l_bar, g
+
+
+def _max_err(got, ref):
+    return float(np.abs(got.astype(np.float64) - ref).max())
+
+
+def _bias(got, ref):
+    """The mean error away from zero, over the mean magnitude."""
+    err = (got.astype(np.float64) - ref) * np.sign(ref)
+    return float(err.mean() / np.abs(ref).mean())
+
+
+def backward_errors(seed, routes, t=T, n=N) -> dict:
+    """Each route's largest error, per pass on shared float32 inputs and
+    for the whole ``K_bar``, against float64, and each pass's ``bias``
+    (:func:`_bias`); ``ratio``: the largest errors over the FMA loop's
+    (``routes["fma"]``).  A route is one product for the three passes, or
+    a triple, one for each."""
+    l, x, l_bar, g = backward_inputs(seed, t, n)
+    exact = lambda a, b: (a.astype(np.float64)  # noqa: E731
+                          @ b.astype(np.float64).transpose(0, 2, 1))
+    w64 = pass_w(l.astype(np.float64), l_bar.astype(np.float64),
+                 g.astype(np.float64), exact)
+    w32 = w64.astype(np.float32)
+    m64 = pass_m(x.astype(np.float64), w32.astype(np.float64), exact)
+    m32 = m64.astype(np.float32)
+    k64 = pass_k(m32.astype(np.float64), x.astype(np.float64), exact)
+    x64 = np.linalg.inv(l.astype(np.float64))
+    kbar64 = x64.transpose(0, 2, 1) @ w64 @ x64
+    out = {"passes": {}, "bias": {}, "k_bar": {}}
+    for name, route in routes.items():
+        fw, fm, fk = route if isinstance(route, tuple) else (route,) * 3
+        got = {"w": (pass_w(l, l_bar, g, fw), w64),
+               "m": (pass_m(x, w32, fm), m64), "k": (pass_k(m32, x, fk), k64)}
+        out["passes"][name] = {p: _max_err(*v) for p, v in got.items()}
+        out["bias"][name] = {p: _bias(*v) for p, v in got.items()}
+        kbar = pass_k(pass_m(x, pass_w(l, l_bar, g, fw), fm), x, fk)
+        out["k_bar"][name] = _max_err(kbar, kbar64)
+    fma = out["passes"]["fma"]
+    out["ratio"] = {
+        name: {**{p: e / fma[p] for p, e in errs.items()},
+               "k_bar": out["k_bar"][name] / out["k_bar"]["fma"]}
+        for name, errs in out["passes"].items()}
+    return out
+
+
+def _forward(flush):
+    return lambda a, b: product_3xtf32(a, b, flush, order="forward")
+
+
+# the routes --backward compares: the FMA loop; the panel tile's order and
+# the forward order, each stage summed into fresh accumulators; and the
+# kernel's: forward, the first pass into fresh accumulators every 8 deep
+# (one wgmma k-step of its three products)
+BACKWARD_ROUTES = {
+    "fma": product_fma,
+    "tile": product_3xtf32,
+    "forward": _forward(STAGE),
+    "kernel": (_forward(8), _forward(STAGE), _forward(STAGE)),
+}
+
+
 def main() -> None:
     import sys
+
+    if "--backward" in sys.argv[1:]:
+        print(json.dumps({"backward": backward_errors(5, BACKWARD_ROUTES)}))
+        return
 
     rng = np.random.default_rng(0)
     x = (rng.standard_normal(100_000)

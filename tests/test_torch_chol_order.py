@@ -293,6 +293,23 @@ def test_panel_tile_order_on_a_near_low_rank_gram(t):
     assert errs["tile"] < min(1.0, errs["forward"]), errs
 
 
+# seeds of the kernel's arithmetic at T=256: 5 and 9 gave the largest W
+# errors over ten seeds, 5 with its rounding every k-step (1.98x the FMA
+# loop's), 9 with a stage's twelve products in one accumulator (3.06x)
+@pytest.mark.parametrize("seed", [5, 9])
+def test_chol_bwd_arithmetic_stays_within_twice_the_fma_loop(seed):
+    """``csrc/chol_bwd.cu``'s arithmetic (``ops.split_emulation``'s
+    ``kernel`` route: 3xTF32 stages first column first, W's sums rounded
+    into the total every 8-deep k-step) at T=256, N=2: each pass's largest
+    error from float64 within 2x the float32 FMA loop's, on the same
+    float32 inputs."""
+    from gpvae_tpu_torch.ops import split_emulation as se
+
+    routes = {name: se.BACKWARD_ROUTES[name] for name in ("fma", "kernel")}
+    ratio = se.backward_errors(seed, routes, t=256, n=2)["ratio"]["kernel"]
+    assert all(ratio[p] <= 2.0 for p in ("w", "m", "k")), ratio
+
+
 @pytest.mark.parametrize("t", [45, 64, 100, 127, 128])
 def test_panel_order_is_as_accurate_as_the_library(t):
     err, err_lib, rel = _errors(t)

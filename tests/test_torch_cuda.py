@@ -18,8 +18,8 @@ from gpvae_tpu_torch.data import (
 )
 from gpvae_tpu_torch.models import GPVAE
 from gpvae_tpu_torch.ops import (
-    _build, blocked, chol, chol_block, dispatch, durbin, gram_chol, logdet,
-    trail, tri_inv, trsm,
+    _build, blocked, chol, chol_block, chol_bwd, dispatch, durbin, gram_chol,
+    logdet, trail, tri_inv, trsm,
 )
 
 from durbin_rows import clamped_rows
@@ -1272,18 +1272,19 @@ def test_toeplitz_prior_kl_on_the_card_matches_dense(card):
 def test_t1024_toeplitz_steps_launch_their_kernels(card):
     """A training step of t1024_toeplitz at its widths (B=8, T=1024, Z=2):
     the posterior bank's blocked factorization (gram_panel 8, chol_block
-    8, panel_solve 7), one diag_logdet, the backward's tri_inv, one Durbin
-    launch; no prior factorization, no gram_chol, no hist_panel."""
+    8, panel_solve 7), one diag_logdet, the backward's tri_inv and its
+    three chol_bwd passes, one Durbin launch; no prior factorization, no
+    gram_chol, no hist_panel."""
     cfg = configs.get("t1024_toeplitz").model
     data = toy_to_masked_batch(generate_toy_data(
         np.random.default_rng(0), 16, t=1024, hide_fraction=0.0))
     model = GPVAE(cfg, generator=torch.Generator().manual_seed(0))
-    before = _launches() + (durbin.LAUNCHES,)
+    before = _launches() + (durbin.LAUNCHES, chol_bwd.LAUNCHES)
     state, log = train.fit(model, Batcher(data, 8), train.TrainConfig(
         num_steps=2, log_every=2), device=card, verbose=False)
-    after = _launches() + (durbin.LAUNCHES,)
+    after = _launches() + (durbin.LAUNCHES, chol_bwd.LAUNCHES)
     assert tuple((a - b) // 2 for a, b in zip(after, before)) == (
-        0, 1, 8, 8, 7, 0, 1, 1)
+        0, 1, 8, 8, 7, 0, 1, 1, 3)
     assert np.isfinite(log.rows[-1]["loss"])
 
 
@@ -1433,3 +1434,83 @@ def test_world_of_one_nccl_step_equals_train_step(card, tmp_path):
     for p, q in zip(states[1].model.parameters(),
                     states[0].model.parameters()):
         assert torch.equal(p, q)
+
+
+# the Cholesky backward's kernel against its plain version (the library's
+# float32 products), both against float64 on the same float32 inputs, max
+# error over max |reference|: the CPU emulation of the kernel's arithmetic
+# (python -m gpvae_tpu_torch.ops.split_emulation --backward) puts each
+# pass within 2x an FMA loop's error and the whole K_bar within 1.9x (T =
+# 256, ten seeds; 0.97x at T = 1024); the band is 3x, for the library's
+# own order of sums
+CHOL_BWD_VS_PLAIN = 3.0
+# K_bar's mean error away from zero over its mean magnitude: the tensor
+# cores truncate their sums, so the kernel's sums lean toward zero (-3.6e-7
+# at T = 1024, -4.0e-7 at T = 8192 on an H100, the library's -1.8e-9);
+# 2.5x the kernel's reading, 5e-3 of the float32 route's own error in the
+# T = 1024 lengthscale gradient that K_bar feeds
+CHOL_BWD_BIAS = 1e-6
+
+
+def _chol_bwd_case(card, t, n):
+    """A float32 factor of the port's blocked factorization (the unit grid
+    at T = 8192, the training cell's), a lower N(0, 1) cotangent, a logdet
+    cotangent per matrix, and X = L^-1."""
+    if t >= 8192:
+        rng = np.random.default_rng(t)
+        times = torch.arange(t, dtype=torch.float32, device=card).expand(n,
+                                                                         t)
+        mask = torch.ones(n, t, device=card)
+        ls = torch.tensor(rng.uniform(2.0, 9.0, n), dtype=torch.float32,
+                          device=card)
+        var = torch.ones(n, device=card)
+    else:
+        times, mask, ls, var = _flat(card, t, n, t)
+    l = blocked.cholesky_gram_inplace(times, ls, mask > 0.5, var)
+    gen = torch.Generator(card).manual_seed(t)
+    l_bar = torch.randn(n, t, t, generator=gen, device=card).tril_()
+    g = torch.randn(n, generator=gen, device=card)
+    return l, l_bar, g, tri_inv.tri_inv(l)
+
+
+@pytest.mark.parametrize("t,n", [(256, 4), (1024, 128), (8192, 2)])
+def test_chol_bwd_kernel_matches_plain(card, t, n):
+    """At T=256, at the training shapes T=1024 (N=128) and T=8192 (N=2):
+    K_bar within CHOL_BWD_VS_PLAIN of the plain version's error from
+    float64, its mean error away from zero within CHOL_BWD_BIAS,
+    symmetric to the bit (the kernel mirrors its tiles), three
+    launches."""
+    l, l_bar, g, x = _chol_bwd_case(card, t, n)
+    before = chol_bwd.LAUNCHES
+    got = chol_bwd.chol_bwd_cuda(l, l_bar, x, g)
+    assert chol_bwd.LAUNCHES == before + 3
+    lib = chol_bwd.chol_bwd_plain(l, l_bar, x, g)
+    d = torch.float64
+    ref = chol_bwd.chol_bwd_plain(l.to(d), l_bar.to(d), x.to(d), g.to(d))
+    scale = ref.abs().max()
+    err = ((got.to(d) - ref).abs().max() / scale).item()
+    err_lib = ((lib.to(d) - ref).abs().max() / scale).item()
+    assert err <= CHOL_BWD_VS_PLAIN * err_lib, (err, err_lib)
+    bias = (((got.to(d) - ref) * torch.sign(ref)).mean()
+            / ref.abs().mean()).item()
+    assert abs(bias) <= CHOL_BWD_BIAS, bias
+    assert torch.equal(got, got.mT)
+
+
+@pytest.mark.parametrize("t,takes", [(256, True), (1024, True),
+                                     (320, False), (128, True),
+                                     (100, False)])
+def test_cholesky_backward_takes_the_kernel_by_shape(card, t, takes):
+    """``cholesky_bwd_from_l`` on the card: three launches a backward where
+    the side is a multiple of 128 (T=128 one tile); none at a ragged or
+    small side, nor for the logdet alone (float64 on the card stops at
+    ``tri_inv``'s kernel, float32 only; the CPU tests hold the rule
+    there)."""
+    # a leading block of a factor is a factor
+    l, l_bar, g, _ = _chol_bwd_case(card, max(256, -(-t // 128) * 128), 2)
+    l, l_bar = (m[:, :t, :t].contiguous() for m in (l, l_bar))
+    before = chol_bwd.LAUNCHES
+    chol.cholesky_bwd_from_l(l, l_bar, logdet_bar=g)
+    assert chol_bwd.LAUNCHES == before + (3 if takes else 0)
+    chol.cholesky_bwd_from_l(l, None, logdet_bar=g)
+    assert chol_bwd.LAUNCHES == before + (3 if takes else 0)
